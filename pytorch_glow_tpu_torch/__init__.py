@@ -1,0 +1,40 @@
+"""pytorch_glow_tpu_torch — the PyTorch / CUDA port of `pytorch_glow_tpu`.
+
+Multi-scale Glow in PyTorch for one NVIDIA H100: the serving path (forward
+NLL, temperature sampling, exact reconstruction, data-dependent actnorm
+init), with each flow step in hand-written CUDA kernels for sm_90a
+(`csrc/flowstep.cu`) and their plain PyTorch versions on CPU tensors.
+
+Imports `torch`, never `jax`; the JAX package beside it is the reference the
+port is tested against.
+"""
+
+from pytorch_glow_tpu_torch.config import (
+    DataConfig,
+    GlowConfig,
+    MeshConfig,
+    OptimConfig,
+    PRESETS,
+    Profile,
+    TrainConfig,
+)
+from pytorch_glow_tpu_torch.inference import Inferer
+from pytorch_glow_tpu_torch.models.glow import Glow, ddi_init, init_glow, log_prob, sample
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DataConfig",
+    "Glow",
+    "GlowConfig",
+    "Inferer",
+    "MeshConfig",
+    "OptimConfig",
+    "PRESETS",
+    "Profile",
+    "TrainConfig",
+    "ddi_init",
+    "init_glow",
+    "log_prob",
+    "sample",
+]

@@ -1,0 +1,253 @@
+"""Invertible flow layers as `nn.Module`s: the unfused path.
+
+Counterpart of `pytorch_glow_tpu/models/layers.py` (its `flowstep_impl=
+"xla"` math at `cfg.compute_dtype`).  Parameter names and shapes are the
+reference lineage's `state_dict` (`pytorch_glow_tpu/utils/torch_migrate.py`
+key table), so `utils/convert.state_dict_from_jax` output loads directly.
+
+Public tensors are NHWC.  Convolutions permute to NCHW around `F.conv2d`;
+lineage conv weights are (out, in, kh, kw), cross-correlation like JAX's
+HWIO convs, so nothing is flipped.
+
+ActNorm's data-dependent init: while `ActNorm.ddi` is True, a forward call
+sets the module's parameters from the batch statistics of its input and then
+applies them (`Glow.ddi_init` switches it on for one encode).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pytorch_glow_tpu_torch.ops import invconv as ic
+from pytorch_glow_tpu_torch.ops.math import gaussian_logp, gaussian_sample
+from pytorch_glow_tpu_torch.ops.reshape import cat_channel, split_channel, squeeze2d, unsqueeze2d
+
+ACTNORM_EPS = 1e-6
+LOGSCALE_FACTOR = 3.0
+
+
+def _conv_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME-padded stride-1 conv of NHWC `x` with an (out, in, kh, kw) weight."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), padding=w.shape[-1] // 2)
+    return y.permute(0, 2, 3, 1)
+
+
+class ActNorm(nn.Module):
+    """y = (x + bias) * exp(logs); logdet += H*W*sum(logs)."""
+
+    def __init__(self, c: int, scale: float = 1.0):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(1, c, 1, 1))
+        self.logs = nn.Parameter(torch.zeros(1, c, 1, 1))
+        self.scale = scale
+        self.ddi = False
+
+    @torch.no_grad()
+    def ddi_(self, x: torch.Tensor) -> None:
+        """bias = -mean, logs = log(scale / (std + eps)) over (B, H, W)."""
+        x32 = x.float()
+        mean = x32.mean(dim=(0, 1, 2))
+        std = torch.sqrt(torch.square(x32 - mean).mean(dim=(0, 1, 2)))
+        self.bias.copy_((-mean).view_as(self.bias))
+        self.logs.copy_(torch.log(self.scale / (std + ACTNORM_EPS)).view_as(self.logs))
+
+    def forward(self, x: torch.Tensor, logdet: torch.Tensor | None = None):
+        if self.ddi:
+            self.ddi_(x)
+        bias = self.bias.view(-1).to(x.dtype)
+        logs = self.logs.view(-1).to(x.dtype)
+        y = (x + bias) * torch.exp(logs)
+        if logdet is not None:
+            logdet = logdet + x.shape[1] * x.shape[2] * self.logs.sum()
+        return y, logdet
+
+    def reverse(self, y: torch.Tensor) -> torch.Tensor:
+        bias = self.bias.view(-1).to(y.dtype)
+        logs = self.logs.view(-1).to(y.dtype)
+        return y * torch.exp(-logs) - bias
+
+
+class Conv2d(nn.Module):
+    """N(0, 0.05) conv without bias, then an output actnorm (no logdet)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int = 3,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            0.05 * torch.randn(c_out, c_in, kernel, kernel, generator=generator)
+        )
+        self.actnorm = ActNorm(c_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, _ = self.actnorm(_conv_nhwc(x, self.weight))
+        return y
+
+
+class Conv2dZeros(nn.Module):
+    """Zero-init 3x3 conv, output (conv + bias) * exp(3 * logs) in f32.
+
+    The conv runs in the input's dtype (the coupling net's compute dtype,
+    or f32 for the priors); accumulation and the scaled output are f32."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int = 3):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(c_out, c_in, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+        self.logs = nn.Parameter(torch.zeros(c_out, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _conv_nhwc(x, self.weight).float() + self.bias
+        return y * torch.exp(self.logs.view(-1) * LOGSCALE_FACTOR)
+
+
+def _random_lu(c: int, generator: torch.Generator | None):
+    """Fixed-P LU factors of a random rotation (Doolittle, partial pivoting,
+    float64 on the host), as `invconv_xla.lu_init` computes them."""
+    w = torch.randn(c, c, generator=generator, dtype=torch.float32)
+    q, r = torch.linalg.qr(w)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    a = q.double().numpy().copy()
+    perm = np.arange(c)
+    for k in range(c - 1):
+        piv = k + int(np.argmax(np.abs(a[k:, k])))
+        if piv != k:
+            a[[k, piv]] = a[[piv, k]]
+            perm[[k, piv]] = perm[[piv, k]]
+        a[k + 1:, k] /= a[k, k]
+        a[k + 1:, k + 1:] -= np.outer(a[k + 1:, k], a[k, k + 1:])
+    s = np.diag(a).copy()
+    p_idx = np.empty(c, dtype=np.int64)
+    p_idx[perm] = np.arange(c)
+    return p_idx, np.tril(a, -1), np.triu(a, 1), np.log(np.abs(s)), np.sign(s)
+
+
+class InvConv1x1LU(nn.Module):
+    """LU-parameterised invertible 1x1 conv; P is one-hot, P[i, p_idx[i]] = 1."""
+
+    def __init__(self, c: int, generator: torch.Generator | None = None):
+        super().__init__()
+        p_idx, lower, upper, log_s, sign_s = _random_lu(c, generator)
+        p = torch.zeros(c, c)
+        p[torch.arange(c), torch.from_numpy(p_idx)] = 1.0
+        self.register_buffer("p", p)
+        self.register_buffer("sign_s", torch.tensor(sign_s, dtype=torch.float32))
+        self.register_buffer("l_mask", torch.tril(torch.ones(c, c), -1))
+        self.register_buffer("eye", torch.eye(c))
+        self.lower = nn.Parameter(torch.tensor(lower, dtype=torch.float32))
+        self.log_s = nn.Parameter(torch.tensor(log_s, dtype=torch.float32))
+        self.upper = nn.Parameter(torch.tensor(upper, dtype=torch.float32))
+
+    def lu_params(self) -> ic.LUParams:
+        return ic.LUParams(
+            p_idx=torch.argmax(self.p, dim=1),
+            l_raw=self.lower * self.l_mask,
+            u_raw=self.upper * self.l_mask.T,
+            log_s=self.log_s,
+            sign_s=self.sign_s,
+        )
+
+    def weight(self, reverse: bool = False) -> torch.Tensor:
+        lu = self.lu_params()
+        return ic.lu_inverse(lu) if reverse else ic.lu_assemble(lu)
+
+    def logdet(self) -> torch.Tensor:
+        return ic.lu_logdet(self.lu_params())
+
+    def forward(self, x: torch.Tensor, logdet: torch.Tensor | None = None):
+        y = ic.mix_channels(x, self.weight()).to(x.dtype)
+        if logdet is not None:
+            logdet = logdet + x.shape[1] * x.shape[2] * self.logdet()
+        return y, logdet
+
+    def reverse(self, z: torch.Tensor) -> torch.Tensor:
+        return ic.mix_channels(z, self.weight(reverse=True)).to(z.dtype)
+
+
+class FlowStep(nn.Module):
+    """actnorm -> LU 1x1 conv -> affine/additive coupling.
+
+    The coupling net `f` is Conv(3x3) -> ReLU -> Conv(1x1) -> ReLU ->
+    Conv2dZeros(3x3), run in `compute_dtype` (keys f.0 / f.2 / f.4)."""
+
+    def __init__(self, c: int, hidden: int, coupling: str = "affine",
+                 compute_dtype: torch.dtype = torch.float32,
+                 actnorm_scale: float = 1.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if coupling not in ("affine", "additive"):
+            raise ValueError(f"unknown coupling: {coupling}")
+        ch = c // 2
+        cout = c if coupling == "affine" else ch
+        self.coupling = coupling
+        self.compute_dtype = compute_dtype
+        self.actnorm = ActNorm(c, actnorm_scale)
+        self.invconv = InvConv1x1LU(c, generator)
+        self.f = nn.Sequential(
+            Conv2d(ch, hidden, 3, generator), nn.ReLU(),
+            Conv2d(hidden, hidden, 1, generator), nn.ReLU(),
+            Conv2dZeros(hidden, cout),
+        )
+
+    def _net(self, z1: torch.Tensor) -> torch.Tensor:
+        return self.f(z1.to(self.compute_dtype))
+
+    def forward(self, z: torch.Tensor, logdet: torch.Tensor):
+        z, logdet = self.actnorm(z, logdet)
+        z, logdet = self.invconv(z, logdet)
+        z1, z2 = split_channel(z, "simple")
+        h = self._net(z1)
+        if self.coupling == "additive":
+            z2 = z2 + h.to(z2.dtype)
+        else:
+            shift, raw = split_channel(h, "cross")
+            z2 = (z2 + shift.to(z2.dtype)) * torch.sigmoid(raw + 2.0).to(z2.dtype)
+            logdet = logdet + F.logsigmoid(raw + 2.0).sum(dim=(1, 2, 3))
+        return cat_channel(z1, z2, "simple"), logdet
+
+    def reverse(self, z: torch.Tensor) -> torch.Tensor:
+        z1, z2 = split_channel(z, "simple")
+        h = self._net(z1)
+        if self.coupling == "additive":
+            z2 = z2 - h.to(z2.dtype)
+        else:
+            shift, raw = split_channel(h, "cross")
+            z2 = z2 / torch.sigmoid(raw + 2.0).to(z2.dtype) - shift.to(z2.dtype)
+        z = cat_channel(z1, z2, "simple")
+        return self.actnorm.reverse(self.invconv.reverse(z))
+
+
+class Split2d(nn.Module):
+    """Factor out half the channels against a learned conditional prior."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = Conv2dZeros(c // 2, c)
+
+    def prior(self, z1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return split_channel(self.conv(z1.float()), "cross")
+
+    def forward(self, z: torch.Tensor, logdet: torch.Tensor):
+        """-> (z1, logdet + logp(z2), z2)."""
+        z1, z2 = split_channel(z, "simple")
+        mean, logs = self.prior(z1)
+        return z1, logdet + gaussian_logp(mean, logs, z2.float()), z2
+
+    def reverse(self, z1: torch.Tensor, generator: torch.Generator | None = None,
+                temperature: float = 1.0, z2: torch.Tensor | None = None) -> torch.Tensor:
+        if z2 is None:
+            mean, logs = self.prior(z1)
+            z2 = gaussian_sample(mean, logs, temperature, generator).to(z1.dtype)
+        return cat_channel(z1, z2, "simple")
+
+
+class Squeeze(nn.Module):
+    """Space-to-depth by 2 (paramless; counts in the lineage's layer index)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return squeeze2d(x, 2)
+
+    def reverse(self, z: torch.Tensor) -> torch.Tensor:
+        return unsqueeze2d(z, 2)

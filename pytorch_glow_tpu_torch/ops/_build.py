@@ -1,0 +1,86 @@
+"""Build and load the hand-written CUDA kernels in `csrc/`.
+
+At first use, `library()` compiles every `csrc/*.cu` with nvcc for sm_90a
+into a shared library with a plain C interface, under `_build/<hash>/` in
+this package (the hash covers the sources and the flags, so an edited
+kernel rebuilds), and loads it with ctypes.  A missing nvcc or a failed
+build raises: nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+_LIB_NAME = "libglow_kernels.so"
+
+
+def sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found (PATH, /usr/local/cuda/bin): cannot build the CUDA kernels")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.glow_flowstep.argtypes = [i32] * 7 + [ptr] * 19 + [ptr]
+    lib.glow_flowstep.restype = i32
+    lib.glow_error_string.argtypes = [i32]
+    lib.glow_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    out_dir = BUILD_DIR / _digest()
+    lib_path = out_dir / _LIB_NAME
+    if not lib_path.exists():
+        nvcc = _nvcc()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, lib_path)
+    return _declare(ctypes.CDLL(str(lib_path)))
+
+
+def check(lib: ctypes.CDLL, status: int, what: str) -> None:
+    """Raise if a C entry returned a non-zero cudaError_t."""
+    if status != 0:
+        msg = lib.glow_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

@@ -1,0 +1,62 @@
+"""Invertible 1x1 convolution math in the LU parameterisation, all f32.
+
+Counterpart of `pytorch_glow_tpu/ops/invconv_xla.py`:
+
+* W = P @ L @ (U + diag(sign_s * exp(log_s))), stored as (L@U')[p_idx]
+  with P @ M == M[p_idx];
+* log|det W| = sum(log_s);
+* W^{-1} = U'^{-1} L^{-1} P^T by two triangular solves, P^T applied as a
+  column gather by p_idx;
+* the mix over a pixel batch is y = x @ W^T.
+
+Callers keep f32 matmuls free of TF32 (`torch.backends.cuda.matmul.
+allow_tf32 = False`, PyTorch's default): the logdet and the exact
+round-trip depend on the mix's accuracy.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class LUParams(NamedTuple):
+    p_idx: torch.Tensor  # (C,) int64, P @ M == M[p_idx]
+    l_raw: torch.Tensor  # (C, C) f32, strictly-lower part used
+    u_raw: torch.Tensor  # (C, C) f32, strictly-upper part used
+    log_s: torch.Tensor  # (C,) f32
+    sign_s: torch.Tensor  # (C,) f32, +-1
+
+
+def _factors(p: LUParams) -> tuple[torch.Tensor, torch.Tensor]:
+    c = p.log_s.shape[0]
+    eye = torch.eye(c, dtype=torch.float32, device=p.log_s.device)
+    lower = torch.tril(p.l_raw.float(), -1) + eye
+    upper = torch.triu(p.u_raw.float(), 1) + torch.diag(p.sign_s.float() * torch.exp(p.log_s.float()))
+    return lower, upper
+
+
+def lu_assemble(p: LUParams) -> torch.Tensor:
+    """W (C, C) f32 from the LU factors."""
+    lower, upper = _factors(p)
+    return (lower @ upper)[p.p_idx.long()]
+
+
+def lu_logdet(p: LUParams) -> torch.Tensor:
+    """log|det W| = sum(log_s)."""
+    return p.log_s.float().sum()
+
+
+def lu_inverse(p: LUParams) -> torch.Tensor:
+    """W^{-1} (C, C) f32 via two triangular solves and a column permutation."""
+    lower, upper = _factors(p)
+    eye = torch.eye(lower.shape[0], dtype=torch.float32, device=lower.device)
+    l_inv = torch.linalg.solve_triangular(lower, eye, upper=False, unitriangular=True)
+    w_inv_pt = torch.linalg.solve_triangular(upper, l_inv, upper=True)
+    return w_inv_pt[:, p.p_idx.long()]
+
+
+def mix_channels(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[..., j] = sum_i x[..., i] * w[j, i], in f32."""
+    return x.float() @ w.float().T
