@@ -2,8 +2,11 @@
 
 Multi-scale Glow in PyTorch for one NVIDIA H100: the serving path (forward
 NLL, temperature sampling, exact reconstruction, data-dependent actnorm
-init), with each flow step in hand-written CUDA kernels for sm_90a
-(`csrc/flowstep.cu`) and their plain PyTorch versions on CPU tensors.
+init) and the training path (`build(profile)` -> `train(built)`: loss,
+optimizer chain, train step, synthetic data), with each flow step in
+hand-written CUDA kernels for sm_90a (`csrc/flowstep.cu` forward and
+reverse, `csrc/flowstep_bwd.cu` backward) and their plain PyTorch versions
+on CPU tensors.
 
 Imports `torch`, never `jax`; the JAX package beside it is the reference the
 port is tested against.
@@ -19,11 +22,22 @@ from pytorch_glow_tpu_torch.config import (
     TrainConfig,
 )
 from pytorch_glow_tpu_torch.inference import Inferer
-from pytorch_glow_tpu_torch.models.glow import Glow, ddi_init, init_glow, log_prob, sample
+from pytorch_glow_tpu_torch.models.glow import (
+    Glow,
+    ddi_init,
+    init_glow,
+    log_prob,
+    loss_fn,
+    sample,
+)
+from pytorch_glow_tpu_torch.train.builder import Built, build
+from pytorch_glow_tpu_torch.train.optim import make_optimizer
+from pytorch_glow_tpu_torch.train.trainer import train
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "Built",
     "DataConfig",
     "Glow",
     "GlowConfig",
@@ -33,8 +47,12 @@ __all__ = [
     "PRESETS",
     "Profile",
     "TrainConfig",
+    "build",
     "ddi_init",
     "init_glow",
     "log_prob",
+    "loss_fn",
+    "make_optimizer",
     "sample",
+    "train",
 ]

@@ -1,0 +1,246 @@
+// Kernels shared by the flow step's forward/reverse chain (flowstep.cu) and
+// its backward (flowstep_bwd.cu): the bf16 wmma GEMM with its operand
+// loaders and epilogues, the f32 channel mix, and the zero-conv tap sum.
+//
+// Both translation units compile this same code with the same flags, so
+// the backward's recompute of h1, h2 and y is bit for bit the forward's.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int BM = 64;        // output rows (pixels) per block
+constexpr int BN = 64;        // output columns per block
+constexpr int BK = 32;        // reduction slice per shared-memory stage
+constexpr int GEMM_THREADS = 128;  // 4 warps, each a 32x32 sub-tile
+constexpr int LDS = BK + 8;   // bf16 tile row stride (multiple of 8)
+constexpr int LDC = BN + 4;   // f32 staging row stride (multiple of 4)
+constexpr int ROW_THREADS = 256;
+
+enum ALoad { A_DENSE = 0, A_CONV3X3 = 1 };
+enum Epilogue { EPI_ACTNORM_RELU_BF16 = 0, EPI_F32 = 1, EPI_RELU_GRAD_BF16 = 2 };
+
+struct GemmArgs {
+  int M, N, K;
+  const __nv_bfloat16* a;       // A_DENSE: (M, K) row-major
+  const float* z;               // A_CONV3X3: z1 = z[:, :cin], row stride ldz
+  int ldz, hh, ww, cin;
+  const __nv_bfloat16* w;       // (N, K) row-major
+  const float* bias;            // EPI_ACTNORM_RELU_BF16: (N,)
+  const float* logs;            // EPI_ACTNORM_RELU_BF16, EPI_RELU_GRAD_BF16: (N,)
+  const __nv_bfloat16* h;       // EPI_RELU_GRAD_BF16: the ReLU output (M, N)
+  __nv_bfloat16* out_bf16;      // (M, N)
+  float* out_f32;               // (M, N)
+  float* part_b;                // EPI_RELU_GRAD_BF16: (M / BM blocks, N) partials
+  float* part_l;                //   of sum g_a and of sum g_an * h
+};
+
+// Patch element k = tap * cin + ci of pixel m: z1 at the tap's neighbour,
+// zero where the tap leaves the image (SAME padding, masked on (y, x)
+// inside each image).  Taps k = 3*dy + dx, neighbour (y + dy - 1, x + dx - 1).
+__device__ __forceinline__ __nv_bfloat16 conv3x3_patch(const float* z, int ldz, int hh, int ww,
+                                                       int cin, int m, int k) {
+  const int hw = hh * ww;
+  const int tap = k / cin, ci = k - tap * cin;
+  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+  const int img = m / hw, rem = m - img * hw;
+  const int y = rem / ww + dy, x = rem % ww + dx;
+  if (y >= 0 && y < hh && x >= 0 && x < ww)
+    return __float2bfloat16(z[(img * hw + y * ww + x) * ldz + ci]);
+  return __float2bfloat16(0.0f);
+}
+
+// out[m, n] = sum_k A[m, k] * w[n, k], bf16 operands, f32 accumulation.
+// A_CONV3X3 builds the im2col patch tile of z1 in shared memory.
+template <int AL, int EP>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
+  __shared__ __align__(32) __nv_bfloat16 As[BM * LDS];
+  __shared__ __align__(32) __nv_bfloat16 Bs[BN * LDS];
+  __shared__ __align__(32) float Cs[BM * LDC];
+
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wm = warp / 2, wn = warp % 2;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  for (int k0 = 0; k0 < g.K; k0 += BK) {
+    for (int idx = tid; idx < BM * BK; idx += GEMM_THREADS) {
+      const int r = idx / BK, kk = idx % BK;
+      const int m = m0 + r, k = k0 + kk;
+      __nv_bfloat16 v = __float2bfloat16(0.0f);
+      if (m < g.M && k < g.K) {
+        if (AL == A_DENSE)
+          v = g.a[m * g.K + k];
+        else
+          v = conv3x3_patch(g.z, g.ldz, g.hh, g.ww, g.cin, m, k);
+      }
+      As[r * LDS + kk] = v;
+    }
+    for (int idx = tid; idx < BN * BK; idx += GEMM_THREADS) {
+      const int r = idx / BK, kk = idx % BK;
+      const int n = n0 + r, k = k0 + kk;
+      Bs[r * LDS + kk] = (n < g.N && k < g.K) ? g.w[n * g.K + k] : __float2bfloat16(0.0f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDS + kk, LDS);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + (wn * 32 + j * 16) * LDS + kk, LDS);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
+                              LDC, wmma::mem_row_major);
+  __syncthreads();
+
+  for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
+    const int r = idx / BN, c = idx % BN;
+    const int m = m0 + r, n = n0 + c;
+    if (m >= g.M || n >= g.N) continue;
+    float v = Cs[r * LDC + c];
+    if (EP == EPI_ACTNORM_RELU_BF16) {
+      v = (v + g.bias[n]) * expf(g.logs[n]);
+      g.out_bf16[m * g.N + n] = __float2bfloat16(fmaxf(v, 0.0f));
+    } else if (EP == EPI_RELU_GRAD_BF16) {
+      // v is the cotangent of h = relu((a + b) * e^l): g_an = v where h > 0,
+      // g_a = g_an * e^l, stored in bf16 for the next GEMMs.
+      const float gn = __bfloat162float(g.h[m * g.N + n]) > 0.0f ? v : 0.0f;
+      g.out_bf16[m * g.N + n] = __float2bfloat16(gn * expf(g.logs[n]));
+    } else {
+      g.out_f32[m * g.N + n] = v;
+    }
+  }
+
+  if (EP == EPI_RELU_GRAD_BF16 && tid < 2 * BN) {
+    // Block partials over this block's rows, in row order: thread c sums
+    // g_a of column c, thread BN + c sums g_an * h (a_n == h where the
+    // ReLU passes).  f32, before the bf16 cast, as the reference sums.
+    const int c = tid % BN, n = n0 + c;
+    if (n < g.N) {
+      const float el = expf(g.logs[n]);
+      float s = 0.0f;
+      for (int r = 0; r < BM && m0 + r < g.M; ++r) {
+        const float hv = __bfloat162float(g.h[(m0 + r) * g.N + n]);
+        const float gn = hv > 0.0f ? Cs[r * LDC + c] : 0.0f;
+        s += tid < BN ? gn * el : gn * hv;
+      }
+      (tid < BN ? g.part_b : g.part_l)[blockIdx.x * g.N + n] = s;
+    }
+  }
+}
+
+// The 1x1 channel mix in f32, one output element per thread.
+//   forward: out = W @ ((z + b) * e^l)      reverse: out = (W @ z) * e^-l - b
+template <bool REVERSE>
+__global__ void mix_kernel(int M, int C, const float* zin, const float* w, const float* anb,
+                           const float* anl, float* out) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= M * C) return;
+  const int m = idx / C, o = idx - m * C;
+  const float* row = zin + m * C;
+  const float* wr = w + o * C;
+  float acc = 0.0f;
+  for (int i = 0; i < C; ++i) {
+    float v = row[i];
+    if (!REVERSE) v = (v + anb[i]) * expf(anl[i]);
+    acc = fmaf(wr[i], v, acc);
+  }
+  if (REVERSE) acc = acc * expf(-anl[o]) - anb[o];
+  out[idx] = acc;
+}
+
+// Zero-conv output channel c at pixel (py, px) of image img from the
+// tap-packed y (M, 9*cout): taps summed in order k = 0..8.
+__device__ __forceinline__ float zero_conv_at(const float* y, int img, int hh, int ww, int py,
+                                              int px, int cout, int c, const float* b3,
+                                              const float* l3) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int yy = py + k / 3 - 1, xx = px + k % 3 - 1;
+    if (yy >= 0 && yy < hh && xx >= 0 && xx < ww)
+      acc += y[((img * hh + yy) * ww + xx) * 9 * cout + k * cout + c];
+  }
+  return (acc + b3[c]) * expf(l3[c] * 3.0f);
+}
+
+template <int AL, int EP>
+cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
+  dim3 grid((g.M + BM - 1) / BM, (g.N + BN - 1) / BN);
+  gemm_kernel<AL, EP><<<grid, GEMM_THREADS, 0, stream>>>(g);
+  return cudaGetLastError();
+}
+
+template <bool REVERSE>
+cudaError_t launch_mix(int M, int C, const float* zin, const float* w, const float* anb,
+                       const float* anl, float* out, cudaStream_t stream) {
+  const int total = M * C;
+  mix_kernel<REVERSE><<<(total + 255) / 256, 256, 0, stream>>>(M, C, zin, w, anb, anl, out);
+  return cudaGetLastError();
+}
+
+// f() of the coupling from the mixed z: h1, h2 (bf16) and the tap-packed
+// zero-conv product y (f32), the same three launches in both directions
+// and in the backward's recompute.
+inline cudaError_t launch_net(int M, int hh, int ww, int c, int hidden, int cout,
+                              const float* z1_src, const void* w1, const float* a1b,
+                              const float* a1l, const void* w2, const float* a2b,
+                              const float* a2l, const void* w3, void* h1, void* h2, float* y,
+                              cudaStream_t stream) {
+  const int ch = c / 2;
+  GemmArgs g1 = {};
+  g1.M = M; g1.N = hidden; g1.K = 9 * ch;
+  g1.z = z1_src; g1.ldz = c; g1.hh = hh; g1.ww = ww; g1.cin = ch;
+  g1.w = (const __nv_bfloat16*)w1; g1.bias = a1b; g1.logs = a1l;
+  g1.out_bf16 = (__nv_bfloat16*)h1;
+  cudaError_t err = launch_gemm<A_CONV3X3, EPI_ACTNORM_RELU_BF16>(g1, stream);
+  if (err != cudaSuccess) return err;
+
+  GemmArgs g2 = {};
+  g2.M = M; g2.N = hidden; g2.K = hidden; g2.hh = hh; g2.ww = ww;
+  g2.a = (const __nv_bfloat16*)h1; g2.w = (const __nv_bfloat16*)w2;
+  g2.bias = a2b; g2.logs = a2l; g2.out_bf16 = (__nv_bfloat16*)h2;
+  err = launch_gemm<A_DENSE, EPI_ACTNORM_RELU_BF16>(g2, stream);
+  if (err != cudaSuccess) return err;
+
+  GemmArgs g3 = {};
+  g3.M = M; g3.N = 9 * cout; g3.K = hidden; g3.hh = hh; g3.ww = ww;
+  g3.a = (const __nv_bfloat16*)h2; g3.w = (const __nv_bfloat16*)w3; g3.out_f32 = y;
+  return launch_gemm<A_DENSE, EPI_F32>(g3, stream);
+}
+
+}  // namespace
+
+#define GLOW_TRY(expr)              \
+  do {                              \
+    cudaError_t err_ = (expr);      \
+    if (err_ != cudaSuccess) return (int)err_; \
+  } while (0)

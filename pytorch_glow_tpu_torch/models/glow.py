@@ -9,14 +9,17 @@ Flow steps run one of two ways per `cfg.flowstep_impl`:
 
 * "pallas": the fused flow step of `ops/flowstep.py` — the hand-written
   CUDA kernels on a CUDA tensor, their plain PyTorch version on a CPU
-  tensor.  Each level keeps the NHWC (pixel-major) layout the kernels take
-  and adds the z-free logdet terms, H*W * sum(param_logdet), outside them.
+  tensor, through the autograd Functions `FusedStep` / `FusedStepReverse`
+  (the backward kernel K3 recomputes the step from its saved input).  Each
+  level keeps the NHWC (pixel-major) layout the kernels take and adds the
+  z-free logdet terms, H*W * sum(param_logdet), outside them; those and the
+  weight packing are plain autograd.
 * "xla": the unfused layer math of `models/layers.py` at `compute_dtype`.
 
 `ddi_init` always runs the unfused path, as the JAX package does.
 
-Not in this slice: y-conditioning, `nll_bound`, `loss_fn`, variational
-dequantization, and the plain / fixed channel permutations.
+Not ported yet: y-conditioning, `nll_bound`, variational dequantization,
+and the plain / fixed channel permutations.
 """
 
 from __future__ import annotations
@@ -96,7 +99,8 @@ class Glow(nn.Module):
         affine = self.cfg.flow_coupling == "affine"
         z = z.float().contiguous()
         for step in steps:
-            z, ld = fs.step_forward(fs.pack_weights(step, affine, reverse=False), z, affine)
+            packed = fs.pack_weights(step, affine, False, fs.COUPLING_DTYPE)
+            z, ld = fs.FusedStep.apply(z, affine, *packed)
             logdet = logdet + ld
         plds = torch.stack([fs.param_logdet(step) for step in steps]).sum()
         return z, logdet + z.shape[1] * z.shape[2] * plds
@@ -109,7 +113,8 @@ class Glow(nn.Module):
         affine = self.cfg.flow_coupling == "affine"
         z = z.float().contiguous()
         for step in reversed(steps):
-            z = fs.step_reverse(fs.pack_weights(step, affine, reverse=True), z, affine)
+            packed = fs.pack_weights(step, affine, True, fs.COUPLING_DTYPE)
+            z = fs.FusedStepReverse.apply(z, affine, *packed)
         return z
 
     # -- encode / decode -----------------------------------------------------
@@ -196,6 +201,13 @@ class Glow(nn.Module):
         objective = objective + gaussian_logp(mean, logs, z.float())
         return {"z": z, "objective": objective, "nll": bits_per_dim(objective, dims)}
 
+    def loss_fn(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        """Training loss on [0,1) images: mean nll in bits/dim ->
+        (loss, {"nll", "loss"}); with a generator the input is dequantized
+        first.  The class losses of y-conditioning are not ported."""
+        loss = self.log_prob(x, generator)["nll"].mean()
+        return loss, {"nll": loss, "loss": loss}
+
     def sample(self, n: int, temperature: float = 1.0,
                generator: torch.Generator | None = None) -> torch.Tensor:
         """Temperature sampling -> float images in [0,1)."""
@@ -233,9 +245,10 @@ class Glow(nn.Module):
 
 
 def init_glow(cfg: GlowConfig, generator: torch.Generator | None = None,
-              device: torch.device | str = "cpu") -> Glow:
+              device: torch.device | str = "cuda") -> Glow:
     """Build the model with weights drawn from `generator` (a CPU generator),
-    then move it to `device`."""
+    then move it to `device`: the card unless the caller passes "cpu".
+    Without a card, "cuda" raises; nothing falls back to the CPU."""
     return Glow(cfg, generator).to(device)
 
 
@@ -246,6 +259,10 @@ def ddi_init(model: Glow, x: torch.Tensor) -> Glow:
 
 def log_prob(model: Glow, x: torch.Tensor, generator: torch.Generator | None = None) -> dict:
     return model.log_prob(x, generator)
+
+
+def loss_fn(model: Glow, x: torch.Tensor, generator: torch.Generator | None = None):
+    return model.loss_fn(x, generator)
 
 
 def sample(model: Glow, n: int, temperature: float = 1.0,

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels in `csrc/`.
 
-At first use, `library()` compiles every `csrc/*.cu` with nvcc for sm_90a
-into a shared library with a plain C interface, under `_build/<hash>/` in
-this package (the hash covers the sources and the flags, so an edited
+At first use, `library()` compiles every `csrc/*.cu` with nvcc for sm_90a,
+one nvcc process per source, all started together, then links the objects
+into a shared library with a plain C interface under `_build/<hash>/` in
+this package (the hash covers the sources, headers and flags, so an edited
 kernel rebuilds), and loads it with ctypes.  A missing nvcc or a failed
 build raises: nothing falls back.
 """
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 _LIB_NAME = "libglow_kernels.so"
 
 
@@ -52,9 +53,23 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.glow_flowstep.argtypes = [i32] * 7 + [ptr] * 19 + [ptr]
     lib.glow_flowstep.restype = i32
+    lib.glow_flowstep_bwd_workspace.argtypes = [i32] * 6
+    lib.glow_flowstep_bwd_workspace.restype = ctypes.c_size_t
+    lib.glow_flowstep_bwd.argtypes = [i32] * 6 + [ptr] * 33
+    lib.glow_flowstep_bwd.restype = i32
     lib.glow_error_string.argtypes = [i32]
     lib.glow_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side, wait for all, raise on the first failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
 
 
 @functools.cache
@@ -65,17 +80,14 @@ def library() -> ctypes.CDLL:
     if not lib_path.exists():
         nvcc = _nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            cu = sorted(SRC_DIR.glob("*.cu"))
+            objs = [os.path.join(tmp, src.stem + ".o") for src in cu]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                      for obj, src in zip(objs, cu)])
+            so = os.path.join(tmp, _LIB_NAME)
+            _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", so, *objs]])
+            os.replace(so, lib_path)
     return _declare(ctypes.CDLL(str(lib_path)))
 
 

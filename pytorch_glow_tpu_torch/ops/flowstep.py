@@ -1,23 +1,28 @@
-"""The fused flow step: weight packing, its plain PyTorch version, and the
-wrappers that launch the hand-written CUDA kernels (`csrc/flowstep.cu`).
+"""The fused flow step: weight packing, its plain PyTorch version, the
+wrappers that launch the hand-written CUDA kernels, and the autograd
+Functions around them.
 
 Counterpart of the non-kernel parts of `pytorch_glow_tpu/ops/flowstep_pallas.py`
 (`pack_weights`, `_cross_perm`, `param_logdet`, `step_forward`,
-`step_reverse`).  The kernels replace that module's `_make_kernel`
-(reverse=False and reverse=True).
+`step_reverse`, `step_backward_t`) and of the custom VJPs in
+`pytorch_glow_tpu/models/glow.py` (`_fused_step_forward`,
+`_fused_step_reverse`).  `csrc/flowstep.cu` replaces that module's
+`_make_kernel` (reverse=False and reverse=True), `csrc/flowstep_bwd.cu` its
+`_make_bwd_kernel`.
 
 Layout: the port keeps NHWC at its public functions, which is already
 pixel-major; the kernels take the (B*H*W, C) view of it.
 
-`step_forward` / `step_reverse` pick the implementation from the tensor's
-device only: a CPU tensor runs the plain version `step_*_ref`, a CUDA tensor
+`step_forward` / `step_reverse` / `step_backward` pick the implementation
+from the tensor's device only: a CPU tensor runs the plain version `step_*_ref`, a CUDA tensor
 launches the kernel chain or raises.  Nothing falls back.
 
 The plain version computes the kernel's math, not the layer math of
 `models/layers.py`: f32 actnorm and f32 mix; coupling-net operands rounded
 to bf16 and multiplied in f32 (exact products, f32 sums, as the JAX
 kernel's `_dot_bf16` in interpret mode); the conv actnorms in f32 before
-the bf16 cast.
+the bf16 cast.  It runs at the coupling dtype of the packed w1 (bf16, or
+f32 where a test packs f32 weights to check the algebra).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ COUPLING_DTYPE = torch.bfloat16
 N_WEIGHTS = 12
 
 # Kernel launches per direction; one per flow step launched on the card.
-launches = {"forward": 0, "reverse": 0}
+launches = {"forward": 0, "reverse": 0, "backward": 0}
 
 
 def reset_launches() -> None:
@@ -108,9 +113,18 @@ def _taps(x: torch.Tensor) -> list[torch.Tensor]:
     return [xp[:, dy:dy + h, dx:dx + w, :] for dy in range(3) for dx in range(3)]
 
 
-def _net_ref(z1: torch.Tensor, weights, dtype: torch.dtype) -> torch.Tensor:
-    """The coupling net f() as the kernel computes it: NHWC z1 (f32) ->
-    (B, H, W, cout) f32."""
+def _shift_back(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The transpose of tap k of `_taps`: out[p] = x[p - off_k], zero where
+    p - off_k leaves the image (off_k = (dy - 1, dx - 1))."""
+    _, h, w, _ = x.shape
+    dy, dx = divmod(k, 3)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return xp[:, 2 - dy:2 - dy + h, 2 - dx:2 - dx + w, :]
+
+
+def _net_parts(z1: torch.Tensor, weights, dtype: torch.dtype):
+    """The coupling net f() as the kernel computes it, with its
+    intermediates: NHWC z1 (f32) -> (p1, h1, h2, out (B, H, W, cout) f32)."""
     _, _, _, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3 = weights
     b, h, w, _ = z1.shape
     cout = w3.shape[0] // 9
@@ -125,7 +139,12 @@ def _net_ref(z1: torch.Tensor, weights, dtype: torch.dtype) -> torch.Tensor:
     acc = torch.zeros(b, h, w, cout, dtype=torch.float32, device=z1.device)
     for k, tap in enumerate(_taps(y)):
         acc = acc + tap[..., k * cout:(k + 1) * cout]
-    return (acc + b3.view(-1)) * torch.exp(l3.view(-1) * 3.0)
+    return p1, h1, h2, (acc + b3.view(-1)) * torch.exp(l3.view(-1) * 3.0)
+
+
+def _net_ref(z1: torch.Tensor, weights, dtype: torch.dtype) -> torch.Tensor:
+    """The coupling net f(): NHWC z1 (f32) -> (B, H, W, cout) f32."""
+    return _net_parts(z1, weights, dtype)[3]
 
 
 def step_forward_ref(weights, z: torch.Tensor, affine: bool,
@@ -164,12 +183,73 @@ def step_reverse_ref(weights, z: torch.Tensor, affine: bool,
     return z * torch.exp(-anl.view(-1)) - anb.view(-1)
 
 
+def step_backward_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
+                      affine: bool, dtype: torch.dtype = COUPLING_DTYPE):
+    """The backward of `step_forward_ref`, written out as the kernel computes
+    it (the JAX kernel's `_make_bwd_kernel` math): recompute, then the
+    cotangents.  NHWC z, g_zn (cotangent of z_next) and g_ld (B,) ->
+    (g_z, [12 f32 weight grads in the packed shapes]).  bf16 roundings at the
+    kernel's places: the patches, h1, h2, gy, g_a2 and g_a1."""
+    wmat, anb, anl, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3 = weights
+    ch = z.shape[-1] // 2
+
+    def cast(t):
+        return t.to(dtype).float()
+
+    def flat(t):
+        return t.reshape(-1, t.shape[-1])
+
+    def colsum(t):
+        return flat(t).sum(0).reshape(-1, 1)
+
+    u = (z.float() + anb.view(-1)) * torch.exp(anl.view(-1))
+    v = u @ wmat.T
+    v2 = v[..., ch:]
+    p1, h1, h2, out = _net_parts(v[..., :ch], weights, dtype)
+    g_zn = g_zn.float()
+    go1, go2 = g_zn[..., :ch], g_zn[..., ch:]
+    if affine:
+        shift = out[..., :ch]
+        s = torch.sigmoid(out[..., ch:] + 2.0)
+        # The saturation-safe form: g_ld * (1 - s) is d log_sigmoid / d raw,
+        # finite where s underflows to 0.
+        g_raw = go2 * (v2 + shift) * (s * (1.0 - s)) + g_ld.float().view(-1, 1, 1, 1) * (1.0 - s)
+        g_v2 = go2 * s
+        g_out = torch.cat([g_v2, g_raw], dim=-1)
+    else:
+        g_v2 = g_out = go2
+    g_acc = g_out * torch.exp(l3.view(-1) * 3.0)
+    gy = cast(torch.cat([_shift_back(g_acc, k) for k in range(9)], dim=-1))
+
+    g_a2n = (gy @ w3.float()) * (h2 > 0)
+    g_a2 = g_a2n * torch.exp(a2l.view(-1))
+    g_a2b = cast(g_a2)
+    g_a1n = (g_a2b @ w2.float()) * (h1 > 0)
+    g_a1 = g_a1n * torch.exp(a1l.view(-1))
+    g_a1b = cast(g_a1)
+    g_p1 = g_a1b @ w1.float()
+    g_v1 = go1
+    for k in range(9):
+        g_v1 = g_v1 + _shift_back(g_p1[..., k * ch:(k + 1) * ch], k)
+    g_v = torch.cat([g_v1, g_v2], dim=-1)
+    g_u = g_v @ wmat
+    g_z = g_u * torch.exp(anl.view(-1))
+    grads = [
+        flat(g_v).T @ flat(u), colsum(g_z), colsum(g_u * u),
+        flat(g_a1b).T @ flat(p1), colsum(g_a1), colsum(g_a1n * h1),
+        flat(g_a2b).T @ flat(h1), colsum(g_a2), colsum(g_a2n * h2),
+        flat(gy).T @ flat(h2), colsum(g_acc), 3.0 * colsum(g_out * out),
+    ]
+    return g_z, grads
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(weights, z: torch.Tensor, affine: bool) -> tuple[int, int]:
+def _check_operands(weights, z: torch.Tensor, affine: bool,
+                    halo: str = "_make_kernel_halo") -> tuple[int, int]:
     if z.device.type != "cuda":
         raise ValueError(f"the flow-step kernel takes CUDA tensors, got {z.device}")
     if z.dtype != torch.float32 or z.dim() != 4:
@@ -200,7 +280,7 @@ def _check_operands(weights, z: torch.Tensor, affine: bool) -> tuple[int, int]:
         raise NotImplementedError(
             f"flow-step kernel does not take (b={b}, h={h}, w={w}, c={c}, "
             f"hidden={hidden}); the halo-tiled kernel (flowstep_pallas "
-            f"_make_kernel_halo) is not yet ported"
+            f"{halo}) is not yet ported"
         )
     return hidden, cout
 
@@ -231,17 +311,105 @@ def _launch(weights, z: torch.Tensor, affine: bool, reverse: bool):
     return out, ld
 
 
+def _launch_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
+                     affine: bool):
+    hidden, _ = _check_operands(weights, z, affine, halo="_make_bwd_kernel_halo")
+    b, h, w, c = z.shape
+    if g_zn.shape != z.shape or g_ld.shape != (b,):
+        raise ValueError(f"cotangents {tuple(g_zn.shape)}, {tuple(g_ld.shape)} do not match "
+                         f"z {tuple(z.shape)}")
+    if g_zn.device != z.device or g_ld.device != z.device:
+        raise ValueError("the cotangents must lie on z's device")
+    lib = _build.library()
+    dev = z.device
+    z = z.contiguous()
+    g_zn = g_zn.float().contiguous()
+    g_ld = g_ld.float().contiguous()
+    transposed = [weights[i].t().contiguous() for i in (3, 6, 9)]  # w1t, w2t, w3t
+    g_z = torch.empty_like(z)
+    grads = [torch.empty(wt.shape, dtype=torch.float32, device=dev) for wt in weights]
+    nbytes = lib.glow_flowstep_bwd_workspace(int(affine), b, h, w, c, hidden)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.glow_flowstep_bwd(
+            int(affine), b, h, w, c, hidden,
+            z.data_ptr(), *(wt.data_ptr() for wt in weights),
+            *(wt.data_ptr() for wt in transposed), g_zn.data_ptr(), g_ld.data_ptr(),
+            g_z.data_ptr(), *(g.data_ptr() for g in grads), workspace.data_ptr(), stream,
+        )
+    _build.check(lib, status, "glow_flowstep_bwd")
+    launches["backward"] += 1
+    return g_z, grads
+
+
 def step_forward(weights, z: torch.Tensor, affine: bool):
     """NHWC z -> (z_next, coupling logdet (B,)); `weights` from
     `pack_weights(..., reverse=False)`."""
     if z.device.type == "cpu":
-        return step_forward_ref(weights, z, affine)
+        return step_forward_ref(weights, z, affine, weights[3].dtype)
     return _launch(weights, z, affine, reverse=False)
 
 
 def step_reverse(weights, z: torch.Tensor, affine: bool) -> torch.Tensor:
     """Inverse step; `weights` from `pack_weights(..., reverse=True)`."""
     if z.device.type == "cpu":
-        return step_reverse_ref(weights, z, affine)
+        return step_reverse_ref(weights, z, affine, weights[3].dtype)
     out, _ = _launch(weights, z, affine, reverse=True)
     return out
+
+
+def step_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
+                  affine: bool):
+    """Backward of `step_forward` at input z: (g_z, [12 f32 weight grads])."""
+    if z.device.type == "cpu":
+        return step_backward_ref(weights, z, g_zn, g_ld, affine, weights[3].dtype)
+    return _launch_backward(weights, z, g_zn, g_ld, affine)
+
+
+# ---------------------------------------------------------------------------
+# Autograd around the kernels
+# ---------------------------------------------------------------------------
+
+
+class FusedStep(torch.autograd.Function):
+    """(z, affine, *packed) -> (z_next, logdet): the forward kernel, and a
+    backward that recomputes the step inside the backward kernel from the
+    saved input, as the JAX package's custom VJP does.  Weight grads come
+    back in the packed dtypes (bf16 for w1, w2, w3, as the JAX package
+    rounds them); `pack_weights`' own autograd maps them to the parameters.
+    Under `torch.no_grad()` apply records no graph and keeps no residuals."""
+
+    @staticmethod
+    def forward(ctx, z, affine, *weights):
+        ctx.affine = affine
+        ctx.save_for_backward(z, *weights)
+        return step_forward(weights, z, affine)
+
+    @staticmethod
+    def backward(ctx, g_zn, g_ld):
+        z, *weights = ctx.saved_tensors
+        g_z, grads = step_backward(weights, z, g_zn, g_ld, ctx.affine)
+        return (g_z, None, *(g.to(wt.dtype) for g, wt in zip(grads, weights)))
+
+
+class FusedStepReverse(torch.autograd.Function):
+    """(z, affine, *packed reverse) -> z_prev: the reverse kernel, and
+    autograd over the plain version for the backward (sampling is not
+    trained through, so no kernel; the JAX package differentiates its XLA
+    math there too)."""
+
+    @staticmethod
+    def forward(ctx, z, affine, *weights):
+        ctx.affine = affine
+        ctx.save_for_backward(z, *weights)
+        return step_reverse(weights, z, affine)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, *weights = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = step_reverse_ref(weights, z, ctx.affine, weights[3].dtype)
+            grads = torch.autograd.grad(out, [z, *weights], g)
+        return (grads[0], None, *grads[1:])
+

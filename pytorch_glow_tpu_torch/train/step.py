@@ -1,0 +1,143 @@
+"""Train and eval steps over a state dict.
+
+Counterpart of `pytorch_glow_tpu/train/step.py` (`init_state`,
+`ema_params`, `make_train_step`, `make_train_step_n`, `make_eval_step`).
+The state is {"step": int, "model": Glow, "opt_state": dict, "seed": int,
+and "ema": list of tensors when ema_decay > 0}; the model holds the
+parameters and is updated in place.
+
+Per-step randomness comes from a `torch.Generator` seeded from (seed, step)
+alone, so a resumed run draws the same noise; the flips use a separate
+stream, as the JAX package's `fold_in(rng, 0xF11B)` does.  The numbers
+differ from `jax.random`'s: tests hand both sides the same numpy noise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from pytorch_glow_tpu_torch.config import GlowConfig
+from pytorch_glow_tpu_torch.models.glow import Glow
+from pytorch_glow_tpu_torch.train.optim import Optimizer
+
+State = dict[str, Any]
+FLIP_STREAM = 0xF11B
+
+
+def trainable(model: Glow) -> list[tuple[str, torch.Tensor]]:
+    """The trainable parameters, in `named_parameters` order.  The LU
+    permutation and signs are buffers, so nothing frozen is among them."""
+    return [(name, p) for name, p in model.named_parameters() if p.requires_grad]
+
+
+def init_state(model: Glow, tx: Optimizer, ema_decay: float = 0.0, seed: int = 0) -> State:
+    """Fresh training state (the model still needs `ddi_init` on a batch)."""
+    params = [p for _, p in trainable(model)]
+    state = {"step": 0, "model": model, "opt_state": tx.init(params), "seed": seed}
+    if ema_decay > 0:
+        state["ema"] = [p.detach().clone() for p in params]
+    return state
+
+
+def ema_params(state: State) -> dict[str, torch.Tensor]:
+    """The model's `state_dict` with the EMA trainables (the live ones
+    without an EMA), for `load_state_dict` into an eval copy."""
+    sd = state["model"].state_dict()
+    if "ema" in state:
+        sd.update({name: e for (name, _), e in zip(trainable(state["model"]), state["ema"])})
+    return sd
+
+
+def step_generator(seed: int, step: int, device, stream: int | None = None) -> torch.Generator:
+    """The generator of one step (or one of its side streams)."""
+    key = (seed, step) if stream is None else (seed, step, stream)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0] >> 1))
+    return gen
+
+
+def ema_decay_at(decay: float, step: int) -> float:
+    """min(decay, (1 + s) / (10 + s)) in f32, as the JAX step computes it."""
+    s = np.float32(step)
+    return float(np.minimum(np.float32(decay), (np.float32(1.0) + s) / (np.float32(10.0) + s)))
+
+
+def _check_model(model: Glow, cfg: GlowConfig) -> None:
+    if model.cfg != cfg:
+        raise ValueError("the state's model was built from another GlowConfig than this step's")
+
+
+def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
+                        schedule=None, augment_flip: bool = False):
+    def train_step(state: State, batch: torch.Tensor):
+        model: Glow = state["model"]
+        _check_model(model, cfg)
+        step = state["step"]
+        dev = model.device
+        batch = batch.to(dev)
+        x = model.preprocess(batch) if batch.dtype == torch.uint8 else batch.float()
+        gen = step_generator(state["seed"], step, dev)
+        if augment_flip:
+            flip_gen = step_generator(state["seed"], step, dev, FLIP_STREAM)
+            flip = torch.rand(x.shape[0], generator=flip_gen, device=dev) < 0.5
+            x = torch.where(flip[:, None, None, None], x.flip(2), x)
+        names_params = trainable(model)
+        params = [p for _, p in names_params]
+        loss, metrics = model.loss_fn(x, gen)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        flat = tx.flatten(params, grads)
+        updates, opt_state = tx.update(flat, state["opt_state"])
+        tx.apply(params, updates)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = torch.linalg.vector_norm(flat)
+        if schedule is not None:
+            metrics["lr"] = schedule(torch.tensor(step, dtype=torch.int32, device=dev))
+        new_state = {**state, "step": step + 1, "opt_state": opt_state}
+        if ema_decay > 0:
+            d = ema_decay_at(ema_decay, step)
+            with torch.no_grad():
+                ema = state["ema"]
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, torch._foreach_mul(params, float(np.float32(1.0) - d)))
+        return new_state, metrics
+
+    return train_step
+
+
+def make_train_step(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0, schedule=None,
+                    augment_flip: bool = False) -> Callable:
+    """-> (state, image batch) -> (state, metrics); metrics stay on the device."""
+    return _make_train_step_fn(cfg, tx, ema_decay, schedule, augment_flip)
+
+
+def make_train_step_n(cfg: GlowConfig, tx: Optimizer, n: int, ema_decay: float = 0.0,
+                      schedule=None, augment_flip: bool = False) -> Callable:
+    """n train steps per call over stacked (n, B, H, W, C) batches, with the
+    trajectory of n single calls; returns the last step's metrics."""
+    one = _make_train_step_fn(cfg, tx, ema_decay, schedule, augment_flip)
+
+    def train_step_n(state: State, batches: torch.Tensor):
+        if batches.shape[0] != n:
+            raise ValueError(f"expected {n} stacked batches, got {batches.shape[0]}")
+        metrics = {}
+        for i in range(n):
+            state, metrics = one(state, batches[i])
+        return state, metrics
+
+    return train_step_n
+
+
+def make_eval_step(cfg: GlowConfig) -> Callable:
+    """(model, batch) -> {"nll": mean bits/dim}, without dequantization noise."""
+
+    @torch.no_grad()
+    def eval_step(model: Glow, batch: torch.Tensor):
+        _check_model(model, cfg)
+        batch = batch.to(model.device)
+        x = model.preprocess(batch) if batch.dtype == torch.uint8 else batch.float()
+        return {"nll": model.log_prob(x)["nll"].mean()}
+
+    return eval_step

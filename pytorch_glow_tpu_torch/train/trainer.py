@@ -1,0 +1,111 @@
+"""Trainer: the step loop with scalar logs and the non-finite-loss guard.
+
+Counterpart of `pytorch_glow_tpu/train/trainer.py` `train`: calls of
+`steps_per_call` steps from the state's step (a second call on the same
+`Built` continues where the first stopped), the images/sec window
+restarted after the first call, scalars every `scalar_log_gap` steps (CSV
+under out_dir/name and stdout), and the guard that stops on persistent
+non-finite losses.  The
+device syncs only at log boundaries.
+
+Not ported yet, each raising NotImplementedError when first reached (not
+at build time, so a few steps of any preset run): sample/recon grids
+(`plot_gap`), held-out eval (`eval_gap`), SWD (`swd_gap`), checkpoints
+(`checkpoint_gap`), the profiler (`profile_step`), the step-liveness
+watchdog (a call that takes longer than `step_timeout_s`) and graceful
+preemption (SIGTERM).  No final snapshot is written: the result says so
+with "checkpoint_saved": False.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import signal
+import threading
+import time
+
+import torch
+
+from pytorch_glow_tpu_torch.train.builder import Built
+from pytorch_glow_tpu_torch.utils.metrics import MetricLogger
+
+
+def _not_ported(what: str, step: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (reached at step {step})")
+
+
+def _on_sigterm(signum, frame):
+    raise NotImplementedError("graceful preemption on SIGTERM is not ported yet")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> dict:
+    p = built.profile
+    t = p.train
+    num_steps = num_steps if num_steps is not None else t.num_steps
+    logger = MetricLogger(os.path.join(p.out_dir, p.name), t.batch_size, quiet=quiet)
+    state = built.state
+    step = first_step = state["step"]
+    spc = t.steps_per_call
+    last_metrics: dict = {}
+    nonfinite_logs = 0
+    t_start = time.perf_counter()
+
+    in_main = threading.current_thread() is threading.main_thread()
+    prev_handler = signal.signal(signal.SIGTERM, _on_sigterm) if in_main else None
+    try:
+        while step < num_steps:
+            if t.profile_step and step == t.profile_step:
+                raise _not_ported("the profiler (profile_step)", step)
+            t_call = time.perf_counter()
+            images = [torch.from_numpy(next(built.data)["image"]) for _ in range(spc)]
+            batch = torch.stack(images) if spc > 1 else images[0]
+            state, metrics = built.train_step(state, batch.to(built.device))
+            step += spc
+            if step == first_step + spc:
+                # The first call pays the kernel build and warm-up; its images
+                # are not counted either.
+                _sync(built.device)
+                logger.throughput.reset_clock()
+            else:
+                logger.throughput.update(spc)
+
+            if step % t.scalar_log_gap == 0 or step == num_steps:
+                host = {k: float(v) for k, v in metrics.items()}
+                host["images_per_sec"] = logger.throughput.rate_and_reset()
+                logger.scalars(step, host)
+                last_metrics = host
+                if not math.isfinite(host["loss"]):
+                    # With skip_nonfinite_updates the optimizer drops bad
+                    # steps, so only persistent non-finite logs stop the run.
+                    nonfinite_logs += 1
+                    limit = 3 if t.skip_nonfinite_updates else 1
+                    if nonfinite_logs >= limit:
+                        raise FloatingPointError(
+                            f"non-finite loss at step {step} "
+                            f"({nonfinite_logs} consecutive logs): {host}")
+                else:
+                    nonfinite_logs = 0
+            if t.step_timeout_s:
+                _sync(built.device)
+                if time.perf_counter() - t_call > t.step_timeout_s:
+                    raise _not_ported(f"the step-liveness watchdog (a call took more than "
+                                      f"step_timeout_s={t.step_timeout_s} s)", step)
+            for gap_name, what in (("checkpoint_gap", "checkpointing"),
+                                   ("plot_gap", "sample/recon grids"),
+                                   ("eval_gap", "held-out eval"), ("swd_gap", "SWD")):
+                gap = getattr(t, gap_name)
+                if gap and step % gap == 0:
+                    raise _not_ported(f"{what} ({gap_name}={gap})", step)
+    finally:
+        built.state = state  # the model was updated in place either way
+        if in_main:
+            signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
+
+    return {"final_step": step, "wall_s": time.perf_counter() - t_start,
+            "checkpoint_saved": False, **last_metrics}

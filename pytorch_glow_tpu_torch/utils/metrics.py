@@ -1,0 +1,87 @@
+"""Metrics: CSV scalars, an images/sec meter, and the logger over both.
+
+A copy of the numpy-only parts of `pytorch_glow_tpu/utils/metrics.py`
+(`CsvWriter`, `Throughput`, `MetricLogger`).  The TensorBoard writer is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import time
+from typing import Any
+
+
+class CsvWriter:
+    """CSV scalars with a growable schema: rows append in O(1); only a
+    late-appearing metric extending the header triggers a one-off rewrite
+    of the file."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self.path = path
+        self._fields: list[str] = []
+        self._rows: list[dict] = []
+        if os.path.isfile(path):
+            with open(path, newline="") as f:
+                reader = csv.DictReader(f)
+                self._fields = list(reader.fieldnames or [])
+                self._rows = list(reader)
+
+    def _rewrite(self) -> None:
+        with open(self.path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=self._fields, restval="")
+            w.writeheader()
+            w.writerows(self._rows)
+
+    def scalars(self, step: int, values: dict[str, float]) -> None:
+        row = {"step": step, **{k: float(v) for k, v in values.items()}}
+        grew = False
+        for k in row:
+            if k not in self._fields:
+                self._fields.append(k)
+                grew = True
+        self._rows.append(row)
+        if grew or not os.path.isfile(self.path):
+            self._rewrite()
+        else:
+            with open(self.path, "a", newline="") as f:
+                csv.DictWriter(f, fieldnames=self._fields, restval="").writerow(row)
+
+
+class Throughput:
+    """images/sec meter over a window of steps."""
+
+    def __init__(self, batch_size: int):
+        self.batch_size = batch_size
+        self._t0 = time.perf_counter()
+        self._steps = 0
+
+    def update(self, n_steps: int = 1) -> None:
+        self._steps += n_steps
+
+    def reset_clock(self) -> None:
+        """Restart the window (drops the first call's warm-up)."""
+        self._t0 = time.perf_counter()
+        self._steps = 0
+
+    def rate_and_reset(self) -> float:
+        t1 = time.perf_counter()
+        rate = self._steps * self.batch_size / max(1e-9, t1 - self._t0)
+        self._t0, self._steps = t1, 0
+        return rate
+
+
+class MetricLogger:
+    def __init__(self, out_dir: str, batch_size: int, quiet: bool = False):
+        self.csv = CsvWriter(os.path.join(out_dir, "metrics.csv"))
+        self.throughput = Throughput(batch_size)
+        self.quiet = quiet
+
+    def scalars(self, step: int, values: dict[str, Any]) -> None:
+        vals = {k: float(v) for k, v in values.items()}
+        self.csv.scalars(step, vals)
+        if not self.quiet:
+            msg = " ".join(f"{k}={v:.4g}" for k, v in vals.items())
+            print(f"[step {step}] {msg}", flush=True)

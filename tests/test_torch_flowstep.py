@@ -128,7 +128,7 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
         out, ld = tfs.step_forward(tfs.pack_weights(step, True, False), z, True)
         ref, ref_ld = tfs.step_forward_ref(tfs.pack_weights(step, True, False), z, True)
     assert torch.equal(out, ref) and torch.equal(ld, ref_ld)
-    assert tfs.launches == {"forward": 0, "reverse": 0}
+    assert tfs.launches == {"forward": 0, "reverse": 0, "backward": 0}
 
 
 @pytest.mark.parametrize("reverse", [False, True])

@@ -51,7 +51,7 @@ def _nontrivial_params(cfg, seed=0):
 
 
 def _port(params, tcfg):
-    model = init_glow(tcfg)
+    model = init_glow(tcfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray, params), tcfg))
     return model.eval()
 
@@ -69,7 +69,7 @@ def test_state_dict_matches_export(name):
     assert sorted(sd) == sorted(ref)
     for key, val in ref.items():
         np.testing.assert_array_equal(sd[key].numpy(), val, err_msg=key)
-    model = init_glow(tcfg)
+    model = init_glow(tcfg, device="cpu")
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == {
         k: tuple(v.shape) for k, v in sd.items()
     }
@@ -155,7 +155,7 @@ def test_fused_reconstruct_exact_and_sample_on_cpu():
     """As the JAX package's own fused test: init + DDI, both directions on
     the fused path (its plain version here)."""
     _, tcfg = _cfgs(PALLAS)
-    model = init_glow(tcfg, torch.Generator().manual_seed(0))
+    model = init_glow(tcfg, torch.Generator().manual_seed(0), "cpu")
     x = torch.from_numpy(_x((4, *tcfg.image_shape), 1))
     model.ddi_init(x)
     with torch.no_grad():
@@ -180,7 +180,7 @@ def test_fused_matches_unfused_bf16():
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_inferer_serves_on_cpu(impl):
     tcfg = GlowConfig(**dict(PALLAS, flowstep_impl=impl))
-    model = init_glow(tcfg, torch.Generator().manual_seed(0))
+    model = init_glow(tcfg, torch.Generator().manual_seed(0), "cpu")
     images = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 8, 8, 3), dtype=np.uint8))
     model.ddi_init(model.dequantize(model.preprocess(images), torch.Generator().manual_seed(2)))
     inf = Inferer(model)
