@@ -12,7 +12,9 @@
    shapes, both directions, affine and additive coupling, with the repo's
    bf16 bounds (tests/test_flowstep_pallas.py): elementwise atol/rtol 5e-2,
    mean |diff| < 2e-3, logdet atol 2e-1 / rtol 2e-2; and the per-step
-   round-trip under the kernel to 2e-5.  Times each step beside its plain
+   round-trip under the kernel to 2e-5 (or to twice the plain f32
+   version's own round-trip, where the C x C mix is wider and that is
+   larger).  Times each step beside its plain
    version and the library yardstick (one unfused bf16 `FlowStep` call).
 4. Serves the celeba64 preset at full width (K=32, L=4, hidden 512) with
    random weights from a seed: `init_glow`, DDI on a uint8 batch, then an
@@ -45,10 +47,43 @@
    rtol 2e-2 after the third; and the train step's time, images/s and
    peak memory on both paths.
 
-With --profile, also prints torch.profiler's device time by kernel, and
-the device's idle share, for one fused and one unfused train step.
+8. Holds K1/K2 at celebahq256's levels 1-5 and K3 at its levels 2-5, the
+   shapes they run at on its path (b=64, additive, the preset's coupling),
+   as in 3 and 6, timed; there each weight grad is held to the
+   f32-coupling grads by 7's rule
+   (no further than 1.5x the plain bf16 version's distance plus 1e-3),
+   since at these widths the plain version's own sum order moves w2's grad
+   by several percent of its largest magnitude.
+9. Holds the row-band kernels (`csrc/flowstep_band.cu`, K4, and
+   `csrc/flowstep_band_bwd.cu`, K5) at celebahq256's band levels,
+   128x128x12 and 64x64x24 (b=64), affine and additive: K4 against its
+   plain band version at the bounds of 3, its z output bitwise equal to
+   the whole chain's in both directions, the per-step round-trip to 2e-5;
+   K5 against `step_backward_ref` at the bound of 6, a second launch
+   bitwise equal; the chooser's copy of the backward workspace size
+   against the library's.  Times each case beside the plain band version,
+   the library yardstick and the bound of the centre work.
+10. Serves the celebahq256 preset at full width (K=32, L=6, hidden 512,
+   additive, 5-bit) with random weights from a seed, b=64: init + DDI,
+   then nll, a T=0.7 sample and reconstruct, with the launches each
+   request must make (level 0 on K4: 32 band_forward and 160 forward per
+   nll, 32 band_reverse and 160 reverse per sample); reconstruct exact to
+   2e-4; nll against the unfused path within rtol 2e-2 (and again with
+   perturbed zero-convs); nll of 256 images (levels 0 and 1 on K4) whose
+   first 64 match the b=64 call within rtol 1e-5; times and peak memory.
+11. Trains the celebahq256 preset at full width, b=64, on synthetic
+   textured data, as in 7: `build`, one `train` call of 2 steps (each 32
+   band_forward, 160 forward, 64 band_backward and 128 backward), the
+   per-parameter grad rule, fused vs unfused (with remat) over 3 steps,
+   step time, images/s and peak memory.
 
-Prints a JSON line of per-kernel results, the card line, and last
+With --profile, also prints torch.profiler's device time by kernel, and
+the device's idle share, for one fused and one unfused train step of each
+preset.
+
+Prints a JSON line of per-kernel results (each kernel's launches from the
+main-path run that drives it: K1/K2 from 4, K3 from 7, K4 from 10, K5 from
+11), the card line, and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, with no result line,
 without a CUDA device or when any check fails.
 """
@@ -75,6 +110,15 @@ KERNEL_SOURCE = "pytorch_glow_tpu_torch/csrc/flowstep.cu"
 TPU_KERNEL = "pytorch_glow_tpu/ops/flowstep_pallas.py:248"
 BWD_SOURCE = "pytorch_glow_tpu_torch/csrc/flowstep_bwd.cu"
 BWD_TPU_KERNEL = "pytorch_glow_tpu/ops/flowstep_pallas.py:701"
+BAND_SOURCE = "pytorch_glow_tpu_torch/csrc/flowstep_band.cu"
+BAND_TPU_KERNEL = "pytorch_glow_tpu/ops/flowstep_pallas.py:341"
+BAND_BWD_SOURCE = "pytorch_glow_tpu_torch/csrc/flowstep_band_bwd.cu"
+BAND_BWD_TPU_KERNEL = "pytorch_glow_tpu/ops/flowstep_pallas.py:886"
+# celebahq256 (K=32, L=6, additive; served and trained at b=64): the two
+# levels the chooser sends to row bands (level 1 in the backward only), and
+# the levels K1/K2 (all but level 0) and K3 (levels 2-5) run.
+HQ_BAND_SHAPES = [(128, 128, 12), (64, 64, 24)]
+HQ_WHOLE_SHAPES = [(64, 64, 24), (32, 32, 48), (16, 16, 96), (8, 8, 192), (4, 4, 384)]
 # Published H100 SXM peaks at 700 W: dense bf16 tensor cores, f32 outside
 # them, HBM3.
 PEAK_BF16 = 989e12
@@ -149,12 +193,53 @@ def noisy_step(c: int, mode: str, generator, torch):
     return step.cuda()
 
 
-def check_kernels(torch, fs, results: dict) -> None:
-    """Kernel vs plain version for every level shape and the odd shapes."""
-    gen = torch.Generator().manual_seed(SEED + 10)
-    cases = [(BATCH, *shape) for shape in LEVEL_SHAPES] + [(ODD_BATCH, *shape) for shape in ODD_SHAPES]
+def hold_outputs(torch, tag: str, name: str, got, want, results: dict) -> None:
+    """A forward or reverse kernel output against its plain version, the
+    repo's bf16 bounds: elementwise atol/rtol 5e-2, mean |diff| < 2e-3."""
+    err = (got - want).abs()
+    require(bool(torch.isfinite(got).all()), f"{tag} {name}: non-finite output")
+    require(bool((err <= 5e-2 + 5e-2 * want.abs()).all()),
+            f"{tag} {name}: max |diff| {float(err.max())} beyond atol/rtol 5e-2")
+    require(float(err.mean()) < 2e-3, f"{tag} {name}: mean |diff| {float(err.mean())}")
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], float(err.max()))
+
+
+def hold_logdet_and_round_trip(tag: str, ldk, ldr, rt_err: float, rt_bound: float = 2e-5) -> None:
+    ld_err = float((ldk - ldr).abs().max())
+    require(bool(((ldk - ldr).abs() <= 2e-1 + 2e-2 * ldr.abs()).all()), f"{tag}: logdet |diff| {ld_err}")
+    require(rt_err <= rt_bound, f"{tag}: step round-trip error {rt_err} (bound {rt_bound})")
+
+
+def describe(torch, zk, zr, ldk, ldr, xk, xr, rt_err: float) -> str:
+    fwd, rev = (zk - zr).abs(), (xk - xr).abs()
+    return (f"fwd max {float(fwd.max()):.3e} mean {float(fwd.mean()):.3e} | logdet max "
+            f"{float((ldk - ldr).abs().max()):.3e} | rev max {float(rev.max()):.3e} mean "
+            f"{float(rev.mean()):.3e} | round-trip {rt_err:.3e}")
+
+
+def print_times(tag: str, times: dict, b, h, w, c, affine, results: dict, record: bool) -> None:
+    """Print each kernel's (kernel, plain, library) ms beside its bound;
+    with `record`, keep them as that kernel's numbers in `results`."""
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        bound, by = bound_ms(name.removeprefix("band_"), b, h, w, c, 512, affine)
+        print(f"time step {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        if record:
+            results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                                 bound_by=by)
+
+
+def check_kernels(torch, fs, results: dict, cases=None, time_all: bool = False,
+                  modes=("affine", "additive")) -> None:
+    """Kernel vs plain version for every level shape and the odd shapes
+    (or the given (b, h, w, c) cases and coupling modes); times the b=64
+    affine cases, or every case with `time_all`."""
+    gen = torch.Generator().manual_seed(SEED + 10 + (cases is not None))
+    if cases is None:
+        cases = ([(BATCH, *shape) for shape in LEVEL_SHAPES]
+                 + [(ODD_BATCH, *shape) for shape in ODD_SHAPES])
     cases = [(b, h, w, c, mode, noisy_step(c, mode, gen, torch))
-             for b, h, w, c in cases for mode in ("affine", "additive")]
+             for b, h, w, c in cases for mode in modes]
 
     for b, h, w, c, mode, step in cases:
         affine = mode == "affine"
@@ -166,26 +251,19 @@ def check_kernels(torch, fs, results: dict) -> None:
             zr, ldr = fs.step_forward_ref(wf, z, affine)
             xk = fs.step_reverse(wr, zk, affine)
             xr = fs.step_reverse_ref(wr, zk, affine)
+            plain_rt = float((fs.step_reverse_ref(wr, zr, affine) - z).abs().max())
         torch.cuda.synchronize()
         tag = f"{b}x{h}x{w}x{c} {mode}"
-        fwd_err = (zk - zr).abs()
-        rev_err = (xk - xr).abs()
+        hold_outputs(torch, tag, "forward", zk, zr, results)
+        hold_outputs(torch, tag, "reverse", xk, xr, results)
         rt_err = float((xk - z).abs().max())
-        for name, got, want, err in (("forward", zk, zr, fwd_err), ("reverse", xk, xr, rev_err)):
-            require(bool(torch.isfinite(got).all()), f"{tag} {name}: non-finite output")
-            require(bool((err <= 5e-2 + 5e-2 * want.abs()).all()),
-                    f"{tag} {name}: max |diff| {float(err.max())} beyond atol/rtol 5e-2")
-            require(float(err.mean()) < 2e-3, f"{tag} {name}: mean |diff| {float(err.mean())}")
-            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], float(err.max()))
-        ld_err = (ldk - ldr).abs()
-        require(bool((ld_err <= 2e-1 + 2e-2 * ldr.abs()).all()),
-                f"{tag}: logdet |diff| {float(ld_err.max())}")
-        require(rt_err <= 2e-5, f"{tag}: step round-trip error {rt_err}")
-        print(f"kernel {tag}: fwd max {float(fwd_err.max()):.3e} mean {float(fwd_err.mean()):.3e}"
-              f" | logdet max {float(ld_err.max()):.3e} | rev max {float(rev_err.max()):.3e}"
-              f" mean {float(rev_err.mean()):.3e} | round-trip {rt_err:.3e}")
+        # The f32 mix and its inverse round more as C grows; at C <= 96 the
+        # plain version's own round-trip is about 1e-6.
+        hold_logdet_and_round_trip(tag, ldk, ldr, rt_err, max(2e-5, 2.0 * plain_rt))
+        print(f"kernel {tag}: {describe(torch, zk, zr, ldk, ldr, xk, xr, rt_err)} (plain f32 "
+              f"{plain_rt:.3e})")
 
-        if b == BATCH and affine:
+        if (b == BATCH and affine) or time_all:
             zeros = torch.zeros(b, device=z.device)
             with torch.no_grad():
                 times = {
@@ -196,83 +274,115 @@ def check_kernels(torch, fs, results: dict) -> None:
                                 median_ms(lambda: fs.step_reverse_ref(wr, zk, affine), torch),
                                 median_ms(lambda: step.reverse(zk), torch)),
                 }
-            for name, (ms, plain_ms, lib_ms) in times.items():
-                bound, by = bound_ms(name, b, h, w, c, 512, affine)
-                print(f"time step {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"library {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-                if (h, w, c) == LEVEL_SHAPES[0]:
-                    results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                         bound_ms=bound, bound_by=by)
+            print_times(tag, times, b, h, w, c, affine, results, (h, w, c) == LEVEL_SHAPES[0])
 
 
-def check_backward(torch, fs, results: dict) -> None:
-    """Backward kernel vs plain version at every level shape (b=128) and
-    the odd shapes, affine and additive; bitwise repeat; noise floor of the
-    plain version itself; times beside the plain version and the library."""
-    gen = torch.Generator().manual_seed(SEED + 20)
-    cases = ([(TRAIN_BATCH, *shape) for shape in LEVEL_SHAPES]
-             + [(ODD_BATCH, *shape) for shape in ODD_SHAPES])
-    worst = 0.0
+def rel_l2(g, r) -> float:
+    d, n = float((g - r).norm()), float(r.norm())
+    return d / n if n > 0 else (0.0 if d == 0 else math.inf)
+
+
+def hold_backward(torch, fs, tag: str, step, affine: bool, z, gzn, gld, launch, name: str,
+                  results: dict, f32_rule: bool = False) -> None:
+    """One backward kernel (`launch`) against `step_backward_ref`: a second
+    launch bitwise equal; g_z within 5e-2 of the plain version's largest
+    magnitude (elementwise rtol 5e-2, mean |diff| < 2e-3 of that scale),
+    since the plain version's own sum order moves g_z by more than an
+    absolute 5e-2 at full width, a noise floor printed for the first
+    images; each weight grad within 5e-2 of its plain version's largest
+    magnitude, or with `f32_rule` no further from the f32-coupling grads,
+    in relative l2, than 1.5x the plain bf16 version plus 1e-3 (at C >= 96
+    the plain version alone moves w2's grad by a few percent of its largest
+    magnitude between the CPU and the card)."""
+    b, h, w, _ = z.shape
+    with torch.no_grad():
+        wf = fs.pack_weights(step, affine, reverse=False)
+        gz, grads = launch(wf, z, gzn, gld, affine)
+        gz2, grads2 = launch(wf, z, gzn, gld, affine)
+        rz, rgrads = fs.step_backward_ref(wf, z, gzn, gld, affine)
+    torch.cuda.synchronize()
+    require(torch.equal(gz, gz2) and all(torch.equal(a, a2) for a, a2 in zip(grads, grads2)),
+            f"{tag} {name}: a second launch differs")
+    del gz2, grads2
+    scale = float(rz.abs().max())
+    err = (gz - rz).abs()
+    require(bool(torch.isfinite(gz).all()), f"{tag} {name}: non-finite g_z")
+    require(bool((err <= 5e-2 * scale + 5e-2 * rz.abs()).all()),
+            f"{tag} {name}: g_z max |diff| {float(err.max())} at scale {scale}")
+    require(float(err.mean()) < 2e-3 * scale,
+            f"{tag} {name}: g_z mean |diff| {float(err.mean())} at scale {scale}")
+    rel = [float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+           for g, r in zip(grads, rgrads)]
+    if f32_rule:
+        with torch.no_grad():
+            w32 = fs.pack_weights(step, affine, False, torch.float32)
+            _, fgrads = fs.step_backward_ref(w32, z, gzn, gld, affine, torch.float32)
+        f32_rows = [(rel_l2(g, f), rel_l2(r, f)) for g, r, f in zip(grads, rgrads, fgrads)]
+        print(f"{name} {tag}: weight grads relative l2 to f32 coupling, kernel / plain bf16: "
+              + ", ".join(f"{k:.2e}/{p_:.2e}" for k, p_ in f32_rows))
+    for i, (g, r) in enumerate(zip(grads, rgrads)):
+        require(bool(torch.isfinite(g).all()), f"{tag} {name}: non-finite grad {i}")
+        if f32_rule:
+            k, p_ = f32_rows[i]
+            require(k <= 1.5 * p_ + 1e-3,
+                    f"{tag} {name}: weight grad {i} relative l2 to f32 {k}, plain bf16 {p_}")
+        else:
+            gmax = float((g - r).abs().max())
+            require(gmax <= 5e-2 * float(r.abs().max()),
+                    f"{tag} {name}: weight grad {i} max |diff| {gmax}")
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], float(err.max()))
+    # The plain version's own sum-order noise, CPU vs card, on the first
+    # images (g_z of an image depends on that image alone).
+    nb = max(1, min(b, 4096 // (h * w)))
+    with torch.no_grad():
+        cz, _ = fs.step_backward_ref([t.cpu() for t in wf], z[:nb].cpu(), gzn[:nb].cpu(),
+                                     gld[:nb].cpu(), affine)
+    floor = float((cz.cuda() - rz[:nb]).abs().max())
+    print(f"{name} {tag}: g_z max {float(err.max()):.3e} mean {float(err.mean()):.3e} "
+          f"scale {scale:.3f} | weight grads max rel {max(rel):.2e} | noise floor "
+          f"(plain CPU vs card, {nb} images) g_z max {floor:.3e}, kernel on them "
+          f"{float(err[:nb].max()):.3e}")
+
+
+def library_backward(torch, step, z, gzn, gld):
+    """The yardstick: one unfused bf16 `FlowStep` forward plus autograd.grad."""
+    params = [z.detach().requires_grad_(), *step.parameters()]
+    zeros = torch.zeros(z.shape[0], device=z.device)
+
+    def library():
+        out = step(params[0], zeros)
+        torch.autograd.grad(out, params, (gzn, gld))
+
+    return library
+
+
+def check_backward(torch, fs, results: dict, cases=None, time_all: bool = False,
+                   modes=("affine", "additive"), f32_rule: bool = False) -> None:
+    """Backward kernel vs plain version (`hold_backward`) at every level
+    shape (b=128) and the odd shapes (or the given (b, h, w, c) cases and
+    coupling modes); times beside the plain version and the library (b=128
+    affine, or every case with `time_all`)."""
+    gen = torch.Generator().manual_seed(SEED + 20 + (cases is not None))
+    if cases is None:
+        cases = ([(TRAIN_BATCH, *shape) for shape in LEVEL_SHAPES]
+                 + [(ODD_BATCH, *shape) for shape in ODD_SHAPES])
     for b, h, w, c in cases:
-        for mode in ("affine", "additive"):
+        for mode in modes:
             affine = mode == "affine"
             step = noisy_step(c, mode, gen, torch)
             z, gzn = (torch.randn(b, h, w, c, generator=gen).cuda() for _ in range(2))
             gld = torch.randn(b, generator=gen).cuda()
-            with torch.no_grad():
-                wf = fs.pack_weights(step, affine, reverse=False)
-                gz, grads = fs.step_backward(wf, z, gzn, gld, affine)
-                gz2, grads2 = fs.step_backward(wf, z, gzn, gld, affine)
-                rz, rgrads = fs.step_backward_ref(wf, z, gzn, gld, affine)
-            torch.cuda.synchronize()
             tag = f"{b}x{h}x{w}x{c} {mode}"
-            require(torch.equal(gz, gz2) and all(torch.equal(a, a2) for a, a2 in zip(grads, grads2)),
-                    f"{tag} backward: a second launch differs")
-            scale = float(rz.abs().max())
-            err = (gz - rz).abs()
-            require(bool(torch.isfinite(gz).all()), f"{tag} backward: non-finite g_z")
-            require(bool((err <= 5e-2 * scale + 5e-2 * rz.abs()).all()),
-                    f"{tag} backward: g_z max |diff| {float(err.max())} at scale {scale}")
-            require(float(err.mean()) < 2e-3 * scale,
-                    f"{tag} backward: g_z mean |diff| {float(err.mean())} at scale {scale}")
-            rel = [float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
-                   for g, r in zip(grads, rgrads)]
-            for i, (g, r) in enumerate(zip(grads, rgrads)):
-                gmax = float((g - r).abs().max())
-                require(bool(torch.isfinite(g).all()), f"{tag} backward: non-finite grad {i}")
-                require(gmax <= 5e-2 * float(r.abs().max()),
-                        f"{tag} backward: weight grad {i} max |diff| {gmax}")
-            worst = max(worst, float(err.max()))
-            # The plain version's own sum-order noise, CPU vs card, on the
-            # first images (g_z of an image depends on that image alone).
-            nb = max(1, min(b, 4096 // (h * w)))
-            with torch.no_grad():
-                cz, _ = fs.step_backward_ref([t.cpu() for t in wf], z[:nb].cpu(), gzn[:nb].cpu(),
-                                             gld[:nb].cpu(), affine)
-            floor = float((cz.cuda() - rz[:nb]).abs().max())
-            print(f"backward {tag}: g_z max {float(err.max()):.3e} mean {float(err.mean()):.3e} "
-                  f"scale {scale:.3f} | weight grads max rel {max(rel):.2e} | noise floor "
-                  f"(plain CPU vs card, {nb} images) g_z max {floor:.3e}, kernel on them "
-                  f"{float(err[:nb].max()):.3e}")
-
-            if b == TRAIN_BATCH and affine:
-                params = [z.detach().requires_grad_(), *step.parameters()]
-                zeros = torch.zeros(b, device=z.device)
-
-                def library():
-                    out = step(params[0], zeros)
-                    torch.autograd.grad(out, params, (gzn, gld))
-
-                ms = median_ms(lambda: fs.step_backward(wf, z, gzn, gld, affine), torch)
-                plain_ms = median_ms(lambda: fs.step_backward_ref(wf, z, gzn, gld, affine), torch)
-                lib_ms = median_ms(library, torch)
-                bound, by = bound_ms("backward", b, h, w, c, 512, affine)
-                print(f"time step backward {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"library {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-                if (h, w, c) == LEVEL_SHAPES[0]:
-                    results["backward"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                               bound_ms=bound, bound_by=by)
-    results["backward"]["max_abs_err"] = worst
+            hold_backward(torch, fs, tag, step, affine, z, gzn, gld, fs.step_backward, "backward",
+                          results, f32_rule)
+            if (b == TRAIN_BATCH and affine) or time_all:
+                with torch.no_grad():
+                    wf = fs.pack_weights(step, affine, reverse=False)
+                    times = {"backward": (
+                        median_ms(lambda: fs.step_backward(wf, z, gzn, gld, affine), torch),
+                        median_ms(lambda: fs.step_backward_ref(wf, z, gzn, gld, affine), torch))}
+                times["backward"] += (median_ms(library_backward(torch, step, z, gzn, gld), torch),)
+                print_times(tag, times, b, h, w, c, affine, results, (h, w, c) == LEVEL_SHAPES[0])
 
 
 def clone_state(state: dict, model) -> dict:
@@ -324,32 +434,58 @@ def profile_step(step_fn, state, batch, torch, what: str) -> None:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:100]}")
 
 
-def check_training(torch, fs, card: str, profiling: bool = False) -> dict:
-    """The training path: celeba64 at full width, b=128."""
+def counts(fs, **kw) -> dict:
+    """A launch-count dict with every chain's key, zero unless given."""
+    return {key: kw.get(key, 0) for key in fs.launches}
+
+
+def expected_launches(fs, cfg, b: int, directions, times: int = 1) -> dict:
+    """Launches of `times` passes of the model in each direction: K per
+    level, on the chain `tiling()` picks for that level."""
+    out = counts(fs)
+    for h, w, c in cfg.latent_shapes():
+        for d in directions:
+            whole = fs.tiling(d, b, h, w, c, cfg.hidden_channels, cfg.flow_coupling == "affine")
+            out[d if whole == "whole" else "band_" + d] += times * cfg.K
+    return out
+
+
+def check_training(torch, fs, card: str, profiling: bool = False, preset: str = "celeba64",
+                   batch: int = TRAIN_BATCH, num_steps: int | None = None,
+                   time_steps: int = 3, want: dict | None = None) -> dict:
+    """The training path of a preset at full width and its own batch: one
+    `train` call of `num_steps` steps (default: steps_per_call), whose
+    launches must be `want` (default: each level's chain, K per step)."""
     from pytorch_glow_tpu_torch import PRESETS, build, init_glow, train
     from pytorch_glow_tpu_torch.train import step as steplib
 
-    profile = PRESETS["celeba64"]
+    profile = PRESETS[preset]
     profile = profile.replace(data=dataclasses.replace(profile.data, name="synthetic_textured"))
     cfg, t = profile.glow, profile.train
-    require(t.batch_size == TRAIN_BATCH, f"celeba64 batch {t.batch_size}")
-    steps = cfg.K * cfg.L
+    require(t.batch_size == batch, f"{preset} batch {t.batch_size}")
+    num_steps = num_steps or t.steps_per_call
     t0 = time.perf_counter()
     built = build(profile)
     torch.cuda.synchronize()
-    print(f"train build (celeba64, K={cfg.K}, L={cfg.L}, hidden {cfg.hidden_channels}, "
-          f"b={t.batch_size}, steps_per_call={t.steps_per_call}): {time.perf_counter() - t0:.2f} s")
+    print(f"train build ({preset}, K={cfg.K}, L={cfg.L}, hidden {cfg.hidden_channels}, "
+          f"{cfg.flow_coupling}, {cfg.n_bits_x}-bit, remat={cfg.remat}, b={t.batch_size}, "
+          f"steps_per_call={t.steps_per_call}): {time.perf_counter() - t0:.2f} s")
 
     # -- the main path: one train call --------------------------------------
     fs.reset_launches()
-    result = train(built, num_steps=t.steps_per_call, quiet=True)
+    t0 = time.perf_counter()
+    result = train(built, num_steps=num_steps, quiet=True)
     torch.cuda.synchronize()
     launches = dict(fs.launches)
-    print(f"train: {result}; launches {launches} (K*L = {steps} per step)")
-    require(result["final_step"] == t.steps_per_call and math.isfinite(result["loss"]),
+    per_step = expected_launches(fs, cfg, batch, ("forward", "backward"))
+    print(f"train ({preset}, {num_steps} steps, {time.perf_counter() - t0:.2f} s): {result}; "
+          f"launches {launches} (per step {per_step})")
+    require(result["final_step"] == num_steps and math.isfinite(result["loss"]),
             f"train result {result}")
-    require(launches == {"forward": t.steps_per_call * steps, "reverse": 0,
-                         "backward": t.steps_per_call * steps}, f"train launches {launches}")
+    require(launches == expected_launches(fs, cfg, batch, ("forward", "backward"), num_steps),
+            f"train launches {launches}")
+    if want is not None:
+        require(per_step == want, f"{preset} launches per train step {per_step}, want {want}")
 
     # -- fault 1: every coupling net gets gradients through the kernels, and
     # every parameter's grad is as close to the f32 grad as the unfused
@@ -384,10 +520,6 @@ def check_training(torch, fs, card: str, profiling: bool = False) -> dict:
     # A wrong gradient is off by its own size.  So each tensor's fused grad
     # must be no further from the f32-coupling grad than 1.5x the unfused
     # bf16 grad's distance, plus 1e-3, in relative l2: |g - ref| / |ref|.
-    def rel_l2(g, r):
-        d, n = float((g - r).norm()), float(r.norm())
-        return d / n if n > 0 else (0.0 if d == 0 else math.inf)
-
     def rel_max(g, r):
         d, n = float((g - r).abs().max()), float(r.abs().max())
         return d / n if n > 0 else (0.0 if d == 0 else math.inf)
@@ -432,73 +564,126 @@ def check_training(torch, fs, card: str, profiling: bool = False) -> dict:
             f"fused vs unfused loss after 3 steps: {lf} vs {lp}")
 
     # -- times: train step, fused and unfused -------------------------------
-    batches = [torch.from_numpy(next(built.data)["image"]).cuda() for _ in range(4)]
+    batches = [torch.from_numpy(next(built.data)["image"]).cuda() for _ in range(time_steps + 1)]
     del state_p
     fused_ms, fused_mem = train_step_ms(fused_step, state_f, batches, torch)
     plain_ms, plain_mem = train_step_ms(plain_step, clone_state(state_f, plain), batches, torch)
     b = t.batch_size
-    print(f"time train step b={b}: fused {fused_ms:.3f} ms ({b * 1e3 / fused_ms:.1f} img/s, "
+    print(f"time train step {preset} b={b}: fused {fused_ms:.3f} ms ({b * 1e3 / fused_ms:.1f} img/s, "
           f"peak {fused_mem / 2**30:.2f} GiB), unfused {plain_ms:.3f} ms "
           f"({b * 1e3 / plain_ms:.1f} img/s, peak {plain_mem / 2**30:.2f} GiB)")
     print(f"card for these times: {card}")
     if profiling:
-        profile_step(fused_step, state_f, batches[0], torch, "fused")
-        profile_step(plain_step, clone_state(state_f, plain), batches[0], torch, "unfused")
+        profile_step(fused_step, state_f, batches[0], torch, f"{preset} fused")
+        profile_step(plain_step, clone_state(state_f, plain), batches[0], torch, f"{preset} unfused")
     return launches
 
 
-def compare_nll(inf, plain_inf, images, what: str) -> None:
-    """Fused-kernel nll against the unfused PyTorch layers, the repo's rtol 2e-2."""
-    nll, nll_plain = inf.nll(images), plain_inf.nll(images)
-    rel = float(((nll - nll_plain).abs() / nll_plain.abs()).max())
-    print(f"nll fused vs unfused PyTorch path ({what}): max rel diff {rel:.3e}, "
-          f"mean bits/dim {float(nll.mean()):.6f} vs {float(nll_plain.mean()):.6f}")
-    require(rel <= 2e-2, f"fused nll vs plain path rel diff {rel} ({what})")
+def check_band(torch, fs, lib, results: dict) -> None:
+    """K4 and K5 at the celebahq256 band levels (b=64), affine and additive:
+    K4 against its plain band version at the bounds of check_kernels, its z
+    output bitwise equal to the whole chain's in both directions, the
+    per-step round-trip to 2e-5; K5 by `hold_backward`.  Times each case
+    beside the plain band version, the library yardstick and the bound of
+    the centre work.  Also holds the CPU chooser's copy of the backward
+    workspace size to the library's."""
+    for b, (h, w, c) in [(BATCH, s) for s in HQ_BAND_SHAPES] + [(TRAIN_BATCH, LEVEL_SHAPES[0])]:
+        for affine in (True, False):
+            got = lib.glow_flowstep_bwd_workspace(int(affine), b, h, w, c, 512)
+            want = fs.bwd_workspace_bytes(b * h * w, c, 512, affine)
+            require(got == want, f"backward workspace {b}x{h}x{w}x{c}: library {got}, chooser {want}")
+    gen = torch.Generator().manual_seed(SEED + 30)
+    b = BATCH
+    for h, w, c in HQ_BAND_SHAPES:
+        for mode in ("affine", "additive"):
+            affine = mode == "affine"
+            step = noisy_step(c, mode, gen, torch)
+            z, gzn = (torch.randn(b, h, w, c, generator=gen).cuda() for _ in range(2))
+            gld = torch.randn(b, generator=gen).cuda()
+            groups = [fs.bands_per_launch(d, b, h, w, c, 512, affine)
+                      for d in ("forward", "reverse", "backward")]
+            tag = f"{b}x{h}x{w}x{c} {mode} (R={fs.band_rows(h, w)}, G={groups})"
+            with torch.no_grad():
+                wf = fs.pack_weights(step, affine, reverse=False)
+                wr = fs.pack_weights(step, affine, reverse=True)
+                zk, ldk = fs._launch_band(wf, z, affine, reverse=False)
+                zr, ldr = fs.step_forward_band_ref(wf, z, affine)
+                zw, _ = fs._launch(wf, z, affine, reverse=False)
+                xk, _ = fs._launch_band(wr, zk, affine, reverse=True)
+                xr = fs.step_reverse_band_ref(wr, zk, affine)
+                xw, _ = fs._launch(wr, zk, affine, reverse=True)
+            torch.cuda.synchronize()
+            require(torch.equal(zk, zw) and torch.equal(xk, xw),
+                    f"{tag}: band output differs from the whole chain's")
+            hold_outputs(torch, tag, "band_forward", zk, zr, results)
+            hold_outputs(torch, tag, "band_reverse", xk, xr, results)
+            rt_err = float((xk - z).abs().max())
+            hold_logdet_and_round_trip(tag, ldk, ldr, rt_err)
+            print(f"band kernel {tag}: {describe(torch, zk, zr, ldk, ldr, xk, xr, rt_err)} | "
+                  f"bitwise = whole chain")
+            del zr, xr, zw, xw
+            hold_backward(torch, fs, tag, step, affine, z, gzn, gld, fs._launch_band_backward,
+                          "band_backward", results)
+            torch.cuda.empty_cache()
+
+            def timed(fn):
+                return median_ms(fn, torch, reps=3, inner=2)
+
+            zeros = torch.zeros(b, device=z.device)
+            with torch.no_grad():
+                times = {
+                    "band_forward": (timed(lambda: fs._launch_band(wf, z, affine, False)),
+                                     timed(lambda: fs.step_forward_band_ref(wf, z, affine)),
+                                     timed(lambda: step(z, zeros))),
+                    "band_reverse": (timed(lambda: fs._launch_band(wr, zk, affine, True)),
+                                     timed(lambda: fs.step_reverse_band_ref(wr, zk, affine)),
+                                     timed(lambda: step.reverse(zk))),
+                    "band_backward": (
+                        timed(lambda: fs._launch_band_backward(wf, z, gzn, gld, affine)),
+                        timed(lambda: fs.step_backward_band_ref(wf, z, gzn, gld, affine))),
+                }
+            times["band_backward"] += (timed(library_backward(torch, step, z, gzn, gld)),)
+            print_times(tag, times, b, h, w, c, affine, results,
+                        (h, w, c) == HQ_BAND_SHAPES[0] and not affine)
+            del step, z, zk, xk, gzn
+            torch.cuda.empty_cache()
 
 
-def main() -> int:
+def check_serving(torch, fs, card: str, preset: str, want_nll=None, want_sample=None,
+                  big_batch: int | None = None) -> dict:
+    """A preset's serving path at full width with random weights from a
+    seed: init + DDI on a uint8 batch of BATCH images, then an Inferer
+    answers nll, a T=0.7 sample and a reconstruct, with the launches each
+    request must make (K per level, on the chain `tiling()` picks; with
+    `want_*` also those literal counts); reconstruct exact to 2e-4 and
+    within one input bin; fused nll against the unfused path within rtol
+    2e-2; with `big_batch`, nll of that many images whose first BATCH match
+    the BATCH call within rtol 1e-5; times; then, with the zero-convs
+    perturbed so every coupling depends on the data, nll against the
+    unfused path again.  Returns the launches of nll + sample +
+    reconstruct x2."""
     import numpy as np
-    import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
     from pytorch_glow_tpu_torch import PRESETS, Inferer, init_glow
-    from pytorch_glow_tpu_torch.ops import _build
-    from pytorch_glow_tpu_torch.ops import flowstep as fs
 
-    card = card_line()
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
-
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s")
-
-    cfg = PRESETS["celeba64"].glow
+    cfg = PRESETS[preset].glow
     t0 = time.perf_counter()
     model = init_glow(cfg, torch.Generator().manual_seed(SEED), "cuda")
     rng = np.random.default_rng(SEED)
-    images = torch.from_numpy(rng.integers(0, 256, (BATCH, *cfg.image_shape), dtype="uint8")).cuda()
+    all_images = torch.from_numpy(
+        rng.integers(0, 256, (big_batch or BATCH, *cfg.image_shape), dtype="uint8")).cuda()
+    images = all_images[:BATCH]
     cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     model.ddi_init(model.dequantize(model.preprocess(images), cuda_gen))
     torch.cuda.synchronize()
-    print(f"init + DDI (celeba64, K={cfg.K}, L={cfg.L}, hidden {cfg.hidden_channels}, "
-          f"b={BATCH}): {time.perf_counter() - t0:.2f} s")
-
-    results = {d: {"max_abs_err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
-                   "bound_by": None, "library_ms": None}
-               for d in ("forward", "reverse", "backward")}
-    check_kernels(torch, fs, results)
+    print(f"init + DDI ({preset}, K={cfg.K}, L={cfg.L}, hidden {cfg.hidden_channels}, "
+          f"{cfg.flow_coupling}, {cfg.n_bits_x}-bit, b={BATCH}): {time.perf_counter() - t0:.2f} s")
 
     # -- the main path: an Inferer answers nll, sample and reconstruct -------
-    steps = cfg.K * cfg.L
+    nll_launches = expected_launches(fs, cfg, BATCH, ("forward",))
+    smp_launches = expected_launches(fs, cfg, BATCH, ("reverse",))
+    require(want_nll in (None, nll_launches) and want_sample in (None, smp_launches),
+            f"{preset} tiling: nll {nll_launches}, sample {smp_launches}")
     inf = Inferer(model)
     x = model.preprocess(images)
     fs.reset_launches()
@@ -515,41 +700,58 @@ def main() -> int:
     rec_u8 = inf.reconstruct(images)
     torch.cuda.synchronize()
     launches = dict(fs.launches)
-    print(f"launches: after nll {after_nll}, after sample {after_sample}, "
-          f"after reconstruct x2 {launches} (K*L = {steps})")
-    require(nll.shape == (BATCH,) and bool(torch.isfinite(nll).all()), "nll finite, shape (64,)")
-    require(after_nll == {"forward": steps, "reverse": 0, "backward": 0},
-            f"nll launches {after_nll}")
-    require(bool(torch.isfinite(xs).all()), "sample finite")
-    require(imgs.dtype == torch.uint8 and imgs.shape == (BATCH, *cfg.image_shape), "sample images")
-    require(after_sample == {"forward": steps, "reverse": steps, "backward": 0},
-            f"sample launches {after_sample}")
-    require(launches == {"forward": 3 * steps, "reverse": 3 * steps, "backward": 0},
-            f"reconstruct launches {launches}")
+    print(f"{preset} launches: after nll {after_nll}, after sample {after_sample}, "
+          f"after reconstruct x2 {launches}")
+    require(nll.shape == (BATCH,) and bool(torch.isfinite(nll).all()), f"{preset} nll finite, shape")
+    require(after_nll == nll_launches, f"{preset} nll launches {after_nll}")
+    require(bool(torch.isfinite(xs).all()), f"{preset} sample finite")
+    require(imgs.dtype == torch.uint8 and imgs.shape == (BATCH, *cfg.image_shape),
+            f"{preset} sample images")
+    both = {k: nll_launches[k] + smp_launches[k] for k in nll_launches}
+    require(after_sample == both, f"{preset} sample launches {after_sample}")
+    require(launches == {k: 3 * v for k, v in both.items()},
+            f"{preset} reconstruct launches {launches}")
     rec_err = float((rec - x).abs().max())
-    bin_err = int((rec_u8.int() - images.int()).abs().max())
+    bin_err = int((rec_u8.int() - model.postprocess(x).int()).abs().max())
     in_range = float(((xs >= 0) & (xs <= 1)).float().mean())
-    print(f"nll bits/dim: mean {float(nll.mean()):.6f} min {float(nll.min()):.6f} "
+    bin_width = int(256 / cfg.n_bins)
+    print(f"{preset} nll bits/dim: mean {float(nll.mean()):.6f} min {float(nll.min()):.6f} "
           f"max {float(nll.max()):.6f}")
-    print(f"sample T=0.7: float range [{float(xs.min()):.4f}, {float(xs.max()):.4f}], "
+    print(f"{preset} sample T=0.7: float range [{float(xs.min()):.4f}, {float(xs.max()):.4f}], "
           f"share in [0,1] {in_range:.4f}")
-    print(f"reconstruct: max |x - rec| {rec_err:.3e}, max uint8 diff {bin_err}")
-    require(rec_err <= 2e-4, f"reconstruct error {rec_err}")
-    require(bin_err <= 1, f"reconstruct uint8 diff {bin_err}")
+    print(f"{preset} reconstruct: max |x - rec| {rec_err:.3e}, max uint8 diff {bin_err} "
+          f"(one input bin is {bin_width})")
+    require(rec_err <= 2e-4, f"{preset} reconstruct error {rec_err}")
+    require(bin_err <= bin_width, f"{preset} reconstruct uint8 diff {bin_err}")
 
     plain = init_glow(dataclasses.replace(cfg, flowstep_impl="xla"), device="cuda")
     plain.load_state_dict(model.state_dict())
     plain_inf = Inferer(plain)
-    compare_nll(inf, plain_inf, images, "init + DDI")
+    compare_nll(inf, plain_inf, images, f"{preset}, init + DDI")
+
+    if big_batch:
+        fs.reset_launches()
+        nll_all = inf.nll(all_images)
+        torch.cuda.synchronize()
+        rel = float(((nll_all[:BATCH] - nll).abs() / nll.abs()).max())
+        print(f"{preset} nll b={big_batch}: launches {dict(fs.launches)}; first {BATCH} against "
+              f"the b={BATCH} call: max rel diff {rel:.3e}")
+        require(bool(torch.isfinite(nll_all).all()) and rel <= 1e-5,
+                f"{preset} nll b={big_batch} rel diff {rel}")
 
     nll_ms = median_ms(lambda: inf.nll(images), torch, reps=3, inner=1)
     nll_plain_ms = median_ms(lambda: plain_inf.nll(images), torch, reps=3, inner=1)
     smp_ms = median_ms(lambda: inf.sample(BATCH, 0.7, cuda_gen), torch, reps=3, inner=1)
     smp_plain_ms = median_ms(lambda: plain_inf.sample(BATCH, 0.7, cuda_gen), torch, reps=3, inner=1)
-    print(f"time nll b={BATCH}: kernel {nll_ms:.3f} ms ({BATCH * 1e3 / nll_ms:.1f} img/s), "
-          f"plain {nll_plain_ms:.3f} ms ({BATCH * 1e3 / nll_plain_ms:.1f} img/s)")
-    print(f"time sample b={BATCH} T=0.7: kernel {smp_ms:.3f} ms ({BATCH * 1e3 / smp_ms:.1f} img/s), "
-          f"plain {smp_plain_ms:.3f} ms ({BATCH * 1e3 / smp_plain_ms:.1f} img/s)")
+    torch.cuda.reset_peak_memory_stats()
+    inf.nll(images)
+    nll_mem = torch.cuda.max_memory_allocated()
+    print(f"time {preset} nll b={BATCH}: kernel {nll_ms:.3f} ms ({BATCH * 1e3 / nll_ms:.1f} img/s, "
+          f"peak {nll_mem / 2**30:.2f} GiB), plain {nll_plain_ms:.3f} ms "
+          f"({BATCH * 1e3 / nll_plain_ms:.1f} img/s)")
+    print(f"time {preset} sample b={BATCH} T=0.7: kernel {smp_ms:.3f} ms "
+          f"({BATCH * 1e3 / smp_ms:.1f} img/s), plain {smp_plain_ms:.3f} ms "
+          f"({BATCH * 1e3 / smp_plain_ms:.1f} img/s)")
     print(f"card for these times: {card}")
 
     # -- couplings that depend on the data ------------------------------------
@@ -563,29 +765,95 @@ def main() -> int:
             if ".f.4." in name:
                 p.add_(0.003 * torch.randn(p.shape, generator=gen).cuda())
     plain.load_state_dict(model.state_dict())
-    compare_nll(inf, plain_inf, images, "perturbed zero-convs")
+    compare_nll(inf, plain_inf, images, f"{preset}, perturbed zero-convs")
     with torch.no_grad():
         rec = model.reconstruct(x)
-    print(f"perturbed zero-convs: reconstruct max |x - rec| {float((rec - x).abs().max()):.3e} "
-          f"(bf16 coupling: not bit-exact once f() depends on z1; see PERF.md)")
-    require(bool(torch.isfinite(rec).all()), "perturbed reconstruct finite")
+    print(f"{preset} perturbed zero-convs: reconstruct max |x - rec| "
+          f"{float((rec - x).abs().max()):.3e} (bf16 coupling: not bit-exact once f() depends "
+          f"on z1; see PERF.md)")
+    require(bool(torch.isfinite(rec).all()), f"{preset} perturbed reconstruct finite")
     del plain, plain_inf, inf, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def compare_nll(inf, plain_inf, images, what: str) -> None:
+    """Fused-kernel nll against the unfused PyTorch layers, the repo's rtol 2e-2."""
+    nll, nll_plain = inf.nll(images), plain_inf.nll(images)
+    rel = float(((nll - nll_plain).abs() / nll_plain.abs()).max())
+    print(f"nll fused vs unfused PyTorch path ({what}): max rel diff {rel:.3e}, "
+          f"mean bits/dim {float(nll.mean()):.6f} vs {float(nll_plain.mean()):.6f}")
+    require(rel <= 2e-2, f"fused nll vs plain path rel diff {rel} ({what})")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from pytorch_glow_tpu_torch.ops import _build
+    from pytorch_glow_tpu_torch.ops import flowstep as fs
+
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+
+    results = {d: {"max_abs_err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
+                   "bound_by": None, "library_ms": None}
+               for d in fs.launches}
+    check_kernels(torch, fs, results)
+    launches = check_serving(torch, fs, card, "celeba64")
 
     # -- the training path ----------------------------------------------------
     check_backward(torch, fs, results)
     train_launches = check_training(torch, fs, card, "--profile" in sys.argv[1:])
 
-    # Launches: forward and reverse from the serving run, backward from the
-    # training run (its forward launches are checked and printed above).
+    # -- the 256x256 path: celebahq256 ---------------------------------------
+    # K1-K3 at the level shapes they run at, in the preset's (additive) coupling.
+    hq_cases = [(BATCH, *shape) for shape in HQ_WHOLE_SHAPES]
+    check_kernels(torch, fs, results, hq_cases, time_all=True, modes=("additive",))
+    check_backward(torch, fs, results, hq_cases[1:], time_all=True, modes=("additive",),
+                   f32_rule=True)
+    check_band(torch, fs, _build.library(), results)
+    hq_launches = check_serving(
+        torch, fs, card, "celebahq256", want_nll=counts(fs, band_forward=32, forward=160),
+        want_sample=counts(fs, band_reverse=32, reverse=160), big_batch=4 * BATCH)
+    hq_train_launches = check_training(
+        torch, fs, card, "--profile" in sys.argv[1:], preset="celebahq256", batch=BATCH,
+        num_steps=2, time_steps=2,
+        want=counts(fs, band_forward=32, forward=160, band_backward=64, backward=128))
+
+    # Launches: each kernel's count from the main-path run that drives it:
+    # K1/K2 from the celeba64 serving run, K3 from the celeba64 training
+    # run, K4 from the celebahq256 serving run, K5 from the celebahq256
+    # training run (their other launches are checked and printed above).
     launches["backward"] = train_launches["backward"]
-    print(f"training-run launches: {train_launches}")
+    for d in ("band_forward", "band_reverse"):
+        launches[d] = hq_launches[d]
+    launches["band_backward"] = hq_train_launches["band_backward"]
+    print(f"training-run launches: celeba64 {train_launches}, celebahq256 {hq_train_launches}")
+    sources = {"forward": (KERNEL_SOURCE, TPU_KERNEL), "reverse": (KERNEL_SOURCE, TPU_KERNEL),
+               "backward": (BWD_SOURCE, BWD_TPU_KERNEL),
+               "band_forward": (BAND_SOURCE, BAND_TPU_KERNEL),
+               "band_reverse": (BAND_SOURCE, BAND_TPU_KERNEL),
+               "band_backward": (BAND_BWD_SOURCE, BAND_BWD_TPU_KERNEL)}
     kernels = [
-        {"name": f"flowstep_{d}", "route": "cuda",
-         "source": BWD_SOURCE if d == "backward" else KERNEL_SOURCE,
-         "replaces": BWD_TPU_KERNEL if d == "backward" else TPU_KERNEL,
-         "launches": launches[d], **results[d]}
-        for d in ("forward", "reverse", "backward")
+        {"name": f"flowstep_{d}", "route": "cuda", "source": sources[d][0],
+         "replaces": sources[d][1], "launches": launches[d], **results[d]}
+        for d in sources
     ]
+    require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,13 +8,19 @@ imported here without pulling in JAX through its package `__init__`.
 How the port reads the knobs that name JAX machinery:
 
 * `flowstep_impl="pallas"`: the fused flow-step kernel.  On a CUDA tensor
-  that is the hand-written kernel chain in `csrc/flowstep.cu`; on a CPU
-  tensor its plain PyTorch version (`ops/flowstep.py`).
+  that is the hand-written kernel chain in `csrc/` (whole-batch, or row
+  bands where the whole batch's staging is large, `ops/flowstep.tiling`);
+  on a CPU tensor its plain PyTorch version (`ops/flowstep.py`).
 * `flowstep_impl="xla"`: unfused layer math (`models/layers.py`) at
   `compute_dtype`.
-* `invconv_impl`, `invconv_precision`, `remat`, `scan_unroll`,
-  `shard_spatial`: kept for field parity; the serving slice reads none of
-  them (the 1x1 mix always runs in full f32).
+* `remat`: on the unfused path, each flow step runs under activation
+  checkpointing while grad is enabled (not under DDI), as the JAX package
+  checkpoints its scan body.  The fused path has nothing to add: its
+  autograd Function saves only each step's input and the backward kernel
+  recomputes the step.
+* `invconv_impl`, `invconv_precision`, `scan_unroll`, `shard_spatial`: kept
+  for field parity; the port reads none of them (the 1x1 mix always runs
+  in full f32).
 """
 
 from __future__ import annotations

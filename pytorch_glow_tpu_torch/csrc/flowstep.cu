@@ -45,10 +45,6 @@
 
 namespace {
 
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
-}
-
 // Coupling update and per-image logdet; one block per image.  zsrc and
 // zdst may alias (forward updates the mixed z in place): each element is
 // read and written by the same thread only.
@@ -68,9 +64,10 @@ __global__ void __launch_bounds__(ROW_THREADS)
     for (int j = 0; j < ch; ++j) {
       const float z1 = src[j];
       float z2 = src[ch + j];
-      const float h = zero_conv_at(y, img, hh, ww, py, px, cout, j, b3, l3);
+      const float h = zero_conv_at<false>(y, img, hh, ww, py, px, cout, j, b3, l3, Band{});
       if (AFFINE) {
-        const float raw = zero_conv_at(y, img, hh, ww, py, px, cout, ch + j, b3, l3) + 2.0f;
+        const float raw =
+            zero_conv_at<false>(y, img, hh, ww, py, px, cout, ch + j, b3, l3, Band{}) + 2.0f;
         const float s = 1.0f / (1.0f + expf(-raw));
         z2 = REVERSE ? z2 / s - h : (z2 + h) * s;
         if (!REVERSE) part += log_sigmoid(raw);

@@ -10,29 +10,11 @@
 // wrapper's transposed bf16 copies w1t (9*ch, hid), w2t (hid, hid) and
 // w3t (hid, 9*cout).
 //
-// Chain:
-//   recompute        v = mix(z), h1, h2, y with the forward's own kernels
-//                    (flowstep_common.cuh), so the ReLU masks agree bit for bit
-//   coupling_bwd     per (pixel, j): g_raw in the saturation-safe form
-//                    go2*(v2+shift)*s(1-s) + g_ld*(1-s), g_v2 = go2*s,
-//                    g_acc = g_out*e^{3 l3}, and g_out*out for l3's grad
-//   gy_kernel        tap-packed zero-conv cotangent gy (M, 9*cout) in bf16:
-//                    the transpose of the forward's 9-tap shift-sum
-//   gemm             g_h2 = gy @ w3; epilogue: ReLU mask of h2, * e^{a2l},
-//                    g_a2 in bf16, block partials of its bias/logs grads
-//   gemm             g_h1 = g_a2 @ w2; the same epilogue with h1
-//   gemm             g_p1 = g_a1 @ w1 (f32)
-//   gv1_kernel       g_v1 = go1 + col2im(g_p1), the conv1 gather transposed
-//   mix_bwd          g_u = W^T g_v, g_z = g_u * e^{anl}, u recomputed
-//   wgrad_kernel     gW2 = g_a2^T h1, gW1 = g_a1^T p1 (p1 gathered into
-//                    shared memory as conv1 gathers it), gW3 = gy^T h2:
-//                    "K = M" products, one partial per chunk of pixels
-//   col_partial,     the bias/logs column sums and the C x C mix gradient,
-//   outer_partial    one partial per chunk of pixels
-//   reduce_partials  each partial set summed in chunk order
-//
-// No float atomics: every sum runs in a fixed order, so two launches on the
-// same inputs give the same bits.
+// The chain itself (recompute, coupling and zero-conv cotangents, three
+// data-gradient GEMMs, col2im and mix backward, three "K = M" weight-grad
+// GEMMs, column sums) is `backward_chain` in flowstep_bwd_common.cuh,
+// shared with the row-band backward (flowstep_band_bwd.cu); this file runs
+// it once over the whole batch.
 //
 // What bounds it on this card: operations.  Per step 3 * 2*M*hid*(9*ch +
 // hid + 9*cout) + 12*M*C^2, about 272 GFLOP at celeba64 level 0 with b=128
@@ -41,317 +23,14 @@
 // device memory and runs the seven GEMM-shaped products on the simple
 // 64x64 wmma tiles of the forward; it is written to be right first.
 
-#include "flowstep_common.cuh"
-
-namespace {
-
-constexpr int WG_LD = BM + 8;    // wgrad shared tile row stride (bf16, multiple of 8)
-constexpr int WG_TARGET_BLOCKS = 264;  // about two blocks per SM
-constexpr int COL_CHUNK = 256;   // pixels per column-sum partial
-
-__host__ __device__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// Pixels per wgrad partial: enough chunks to give the card about
-// WG_TARGET_BLOCKS blocks, each chunk a whole number of BK slices.
-int wgrad_chunk(int M, int n1, int n2) {
-  const int tiles = ceil_div(n1, BM) * ceil_div(n2, BN);
-  int chunks = ceil_div(WG_TARGET_BLOCKS, tiles);
-  chunks = chunks < 1 ? 1 : chunks;
-  const int rows = ceil_div(ceil_div(M, chunks), BK) * BK;
-  return rows;
-}
-
-template <bool AFFINE>
-__global__ void coupling_bwd_kernel(int M, int hh, int ww, int C, const float* v, const float* y,
-                                    const float* b3, const float* l3, const float* gzn,
-                                    const float* gld, float* gv, float* gacc, float* t3) {
-  const int ch = C / 2, cout = AFFINE ? C : ch, hw = hh * ww;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * ch) return;
-  const int m = idx / ch, j = idx - m * ch;
-  const int img = m / hw, q = m - img * hw;
-  const int py = q / ww, px = q - py * ww;
-  const float go1 = gzn[m * C + j], go2 = gzn[m * C + ch + j];
-  gv[m * C + j] = go1;  // gv1_kernel adds the conv1 cotangent
-  const float shift = zero_conv_at(y, img, hh, ww, py, px, cout, j, b3, l3);
-  float g_v2;
-  if (AFFINE) {
-    const float raw = zero_conv_at(y, img, hh, ww, py, px, cout, ch + j, b3, l3);
-    const float s = 1.0f / (1.0f + expf(-(raw + 2.0f)));
-    const float v2 = v[m * C + ch + j];
-    const float g_raw = go2 * (v2 + shift) * (s * (1.0f - s)) + gld[img] * (1.0f - s);
-    g_v2 = go2 * s;
-    gacc[m * cout + ch + j] = g_raw * expf(l3[ch + j] * 3.0f);
-    t3[m * cout + ch + j] = g_raw * raw;
-  } else {
-    g_v2 = go2;
-  }
-  gacc[m * cout + j] = g_v2 * expf(l3[j] * 3.0f);  // d z2 / d shift = s (or 1)
-  t3[m * cout + j] = g_v2 * shift;
-  gv[m * C + ch + j] = g_v2;
-}
-
-// gy[q, k*cout + c] = g_acc[q - off_k, c] where that pixel is in the image:
-// the forward summed y[p + off_k, k*cout + c] into pixel p.
-__global__ void gy_kernel(int M, int hh, int ww, int cout, const float* gacc,
-                          __nv_bfloat16* gy) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * 9 * cout) return;
-  const int hw = hh * ww;
-  const int m = idx / (9 * cout), r = idx - m * 9 * cout;
-  const int k = r / cout, c = r - k * cout;
-  const int img = m / hw, q = m - img * hw;
-  const int py = q / ww - (k / 3 - 1), px = q % ww - (k % 3 - 1);
-  float v = 0.0f;
-  if (py >= 0 && py < hh && px >= 0 && px < ww) v = gacc[(img * hw + py * ww + px) * cout + c];
-  gy[idx] = __float2bfloat16(v);
-}
-
-// g_v1[p, i] += sum_k g_p1[p - off_k, k*ch + i] over in-image pixels, taps
-// in order k = 0..8: the conv1 gather read v1[q + off_k] into patch row q.
-__global__ void gv1_kernel(int M, int hh, int ww, int C, const float* gp1, float* gv) {
-  const int ch = C / 2, hw = hh * ww;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * ch) return;
-  const int m = idx / ch, i = idx - m * ch;
-  const int img = m / hw, q = m - img * hw;
-  float acc = gv[m * C + i];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int yy = q / ww - (k / 3 - 1), xx = q % ww - (k % 3 - 1);
-    if (yy >= 0 && yy < hh && xx >= 0 && xx < ww)
-      acc += gp1[(img * hw + yy * ww + xx) * 9 * ch + k * ch + i];
-  }
-  gv[m * C + i] = acc;
-}
-
-// g_u = W^T g_v, g_z = g_u * e^{anl}; u = (z + anb) * e^{anl} recomputed.
-__global__ void mix_bwd_kernel(int M, int C, const float* z, const float* w, const float* anb,
-                               const float* anl, const float* gv, float* gz, float* u,
-                               float* gu) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * C) return;
-  const int m = idx / C, i = idx - m * C;
-  const float* row = gv + m * C;
-  float acc = 0.0f;
-  for (int o = 0; o < C; ++o) acc = fmaf(w[o * C + i], row[o], acc);
-  const float el = expf(anl[i]);
-  gz[idx] = acc * el;
-  u[idx] = (z[idx] + anb[i]) * el;
-  gu[idx] = acc;
-}
-
-enum BLoad { B_DENSE = 0, B_CONV3X3 = 1 };
-
-struct WgradArgs {
-  int M, N1, N2, chunk;
-  const __nv_bfloat16* a;   // (M, N1) row-major
-  const __nv_bfloat16* b;   // B_DENSE: (M, N2) row-major
-  const float* z;           // B_CONV3X3: z1 = z[:, :cin] gathered as conv1's patches
-  int ldz, hh, ww, cin;
-  float* part;              // (chunks, N1, N2)
-};
-
-// part[chunk, n1, n2] = sum over the chunk's pixels p of A[p, n1] * B[p, n2],
-// bf16 operands, f32 accumulation, pixels in order within the chunk.
-template <int BL>
-__global__ void __launch_bounds__(GEMM_THREADS) wgrad_kernel(WgradArgs g) {
-  __shared__ __align__(32) __nv_bfloat16 As[BK * WG_LD];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK * WG_LD];
-  __shared__ __align__(32) float Cs[BM * LDC];
-
-  const int n10 = blockIdx.x * BM, n20 = blockIdx.y * BN;
-  const int p_begin = blockIdx.z * g.chunk;
-  const int p_end = min(p_begin + g.chunk, g.M);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int p0 = p_begin; p0 < p_end; p0 += BK) {
-    for (int idx = tid; idx < BK * BM; idx += GEMM_THREADS) {
-      const int r = idx / BM, c = idx % BM;
-      const int p = p0 + r, n1 = n10 + c;
-      As[r * WG_LD + c] =
-          (p < p_end && n1 < g.N1) ? g.a[p * g.N1 + n1] : __float2bfloat16(0.0f);
-    }
-    for (int idx = tid; idx < BK * BN; idx += GEMM_THREADS) {
-      const int r = idx / BN, c = idx % BN;
-      const int p = p0 + r, n2 = n20 + c;
-      __nv_bfloat16 v = __float2bfloat16(0.0f);
-      if (p < p_end && n2 < g.N2) {
-        if (BL == B_DENSE)
-          v = g.b[p * g.N2 + n2];
-        else
-          v = conv3x3_patch(g.z, g.ldz, g.hh, g.ww, g.cin, p, n2);
-      }
-      Bs[r * WG_LD + c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // A^T tile (n1 x p) is the p-major As read column-major.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + kk * WG_LD + wm * 32 + i * 16, WG_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * WG_LD + wn * 32 + j * 16, WG_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  float* part = g.part + (size_t)blockIdx.z * g.N1 * g.N2;
-  for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
-    const int r = idx / BN, c = idx % BN;
-    const int n1 = n10 + r, n2 = n20 + c;
-    if (n1 < g.N1 && n2 < g.N2) part[n1 * g.N2 + n2] = Cs[r * LDC + c];
-  }
-}
-
-// part[chunk, n] = sum over the chunk's pixels of a[p, n] (* b[p, n]).
-template <bool PROD>
-__global__ void col_partial_kernel(int M, int N, const float* a, const float* b, float* part) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int chunks = ceil_div(M, COL_CHUNK);
-  if (idx >= chunks * N) return;
-  const int chunk = idx / N, n = idx - chunk * N;
-  const int end = min((chunk + 1) * COL_CHUNK, M);
-  float s = 0.0f;
-  for (int p = chunk * COL_CHUNK; p < end; ++p)
-    s += PROD ? a[p * N + n] * b[p * N + n] : a[p * N + n];
-  part[idx] = s;
-}
-
-// part[chunk, o, i] = sum over the chunk's pixels of gv[p, o] * u[p, i]: the
-// mix gradient g_v u^T, in f32.
-__global__ void outer_partial_kernel(int M, int C, const float* gv, const float* u,
-                                     float* part) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int chunks = ceil_div(M, COL_CHUNK);
-  if (idx >= chunks * C * C) return;
-  const int chunk = idx / (C * C), r = idx - chunk * C * C;
-  const int o = r / C, i = r - o * C;
-  const int end = min((chunk + 1) * COL_CHUNK, M);
-  float s = 0.0f;
-  for (int p = chunk * COL_CHUNK; p < end; ++p) s = fmaf(gv[p * C + o], u[p * C + i], s);
-  part[idx] = s;
-}
-
-// out[n] = scale * sum over parts, in part order.
-__global__ void reduce_partials_kernel(int parts, int N, const float* part, float scale,
-                                       float* out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  float s = 0.0f;
-  for (int i = 0; i < parts; ++i) s += part[(size_t)i * N + n];
-  out[n] = s * scale;
-}
-
-cudaError_t reduce(int parts, int N, const float* part, float scale, float* out,
-                   cudaStream_t stream) {
-  reduce_partials_kernel<<<ceil_div(N, 256), 256, 0, stream>>>(parts, N, part, scale, out);
-  return cudaGetLastError();
-}
-
-template <bool PROD>
-cudaError_t col_sum(int M, int N, const float* a, const float* b, float scale, float* part,
-                    float* out, cudaStream_t stream) {
-  const int chunks = ceil_div(M, COL_CHUNK);
-  col_partial_kernel<PROD><<<ceil_div(chunks * N, 256), 256, 0, stream>>>(M, N, a, b, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce(chunks, N, part, scale, out, stream);
-}
-
-template <int BL>
-cudaError_t wgrad(WgradArgs g, float* out, cudaStream_t stream) {
-  g.chunk = wgrad_chunk(g.M, g.N1, g.N2);
-  const int chunks = ceil_div(g.M, g.chunk);
-  dim3 grid(ceil_div(g.N1, BM), ceil_div(g.N2, BN), chunks);
-  wgrad_kernel<BL><<<grid, GEMM_THREADS, 0, stream>>>(g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce(chunks, g.N1 * g.N2, g.part, 1.0f, out, stream);
-}
-
-// The workspace: every intermediate, each region aligned to 256 bytes.
-struct Workspace {
-  float *v, *y, *gacc, *t3, *gp1, *gv, *u, *gu;
-  __nv_bfloat16 *h1, *h2, *gy, *ga2, *ga1;
-  float *part_a2b, *part_a2l, *part_a1b, *part_a1l, *part_w, *part_col;
-  size_t bytes;
-};
-
-Workspace carve(char* base, int M, int c, int hidden, int cout) {
-  const int ch = c / 2;
-  const size_t gm = (size_t)ceil_div(M, BM);
-  const size_t col_chunks = (size_t)ceil_div(M, COL_CHUNK);
-  size_t wmax = 0;
-  const int dims[3][2] = {{hidden, 9 * ch}, {hidden, hidden}, {9 * cout, hidden}};
-  for (const auto& d : dims) {
-    const size_t chunks = (size_t)ceil_div(M, wgrad_chunk(M, d[0], d[1]));
-    const size_t n = chunks * d[0] * d[1];
-    wmax = n > wmax ? n : wmax;
-  }
-  const size_t col_max = col_chunks * (size_t)(c * c > hidden ? c * c : hidden);
-  Workspace w = {};
-  size_t off = 0;
-  auto take = [&](size_t bytes) {
-    char* p = base ? base + off : nullptr;
-    off += (bytes + 255) / 256 * 256;
-    return p;
-  };
-  const size_t mm = (size_t)M;
-  w.v = (float*)take(mm * c * 4);
-  w.h1 = (__nv_bfloat16*)take(mm * hidden * 2);
-  w.h2 = (__nv_bfloat16*)take(mm * hidden * 2);
-  w.y = (float*)take(mm * 9 * cout * 4);
-  w.gacc = (float*)take(mm * cout * 4);
-  w.t3 = (float*)take(mm * cout * 4);
-  w.gy = (__nv_bfloat16*)take(mm * 9 * cout * 2);
-  w.ga2 = (__nv_bfloat16*)take(mm * hidden * 2);
-  w.ga1 = (__nv_bfloat16*)take(mm * hidden * 2);
-  w.gp1 = (float*)take(mm * 9 * ch * 4);
-  w.gv = (float*)take(mm * c * 4);
-  w.u = (float*)take(mm * c * 4);
-  w.gu = (float*)take(mm * c * 4);
-  w.part_a2b = (float*)take(gm * hidden * 4);
-  w.part_a2l = (float*)take(gm * hidden * 4);
-  w.part_a1b = (float*)take(gm * hidden * 4);
-  w.part_a1l = (float*)take(gm * hidden * 4);
-  w.part_w = (float*)take(wmax * 4);
-  w.part_col = (float*)take(col_max * 4);
-  w.bytes = off;
-  return w;
-}
-
-}  // namespace
+#include "flowstep_bwd_common.cuh"
 
 extern "C" {
 
 // Bytes of scratch `glow_flowstep_bwd` needs for this shape.
 size_t glow_flowstep_bwd_workspace(int affine, int b, int hh, int ww, int c, int hidden) {
-  return carve(nullptr, b * hh * ww, c, hidden, affine ? c : c / 2).bytes;
+  Carver cv = {nullptr, 0};
+  return carve(cv, b * hh * ww, c, hidden, affine ? c : c / 2).bytes;
 }
 
 // Backward of one forward flow step.  z: (b*hh*ww, c) f32 step input;
@@ -370,82 +49,14 @@ int glow_flowstep_bwd(int affine, int b, int hh, int ww, int c, int hidden, cons
                       float* g_a2l, float* g_w3, float* g_b3, float* g_l3, void* workspace,
                       void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int M = b * hh * ww, ch = c / 2;
-  const int cout = affine ? c : ch;
-  const Workspace ws = carve((char*)workspace, M, c, hidden, cout);
-  const int gm = ceil_div(M, BM);
-
-  // -- recompute, with the forward's kernels -----------------------------
-  GLOW_TRY(launch_mix<false>(M, c, z, wmat, anb, anl, ws.v, stream));
-  GLOW_TRY(launch_net(M, hh, ww, c, hidden, cout, ws.v, w1, a1b, a1l, w2, a2b, a2l, w3, ws.h1,
-                      ws.h2, ws.y, stream));
-
-  // -- coupling and zero-conv ---------------------------------------------
-  if (affine)
-    coupling_bwd_kernel<true><<<ceil_div(M * ch, 256), 256, 0, stream>>>(
-        M, hh, ww, c, ws.v, ws.y, b3, l3, gzn, gld, ws.gv, ws.gacc, ws.t3);
-  else
-    coupling_bwd_kernel<false><<<ceil_div(M * ch, 256), 256, 0, stream>>>(
-        M, hh, ww, c, ws.v, ws.y, b3, l3, gzn, gld, ws.gv, ws.gacc, ws.t3);
-  GLOW_TRY(cudaGetLastError());
-  gy_kernel<<<ceil_div(M * 9 * cout, 256), 256, 0, stream>>>(M, hh, ww, cout, ws.gacc, ws.gy);
-  GLOW_TRY(cudaGetLastError());
-
-  // -- data gradients through the coupling net ----------------------------
-  GemmArgs g3 = {};
-  g3.M = M; g3.N = hidden; g3.K = 9 * cout;
-  g3.a = ws.gy; g3.w = (const __nv_bfloat16*)w3t; g3.logs = a2l; g3.h = ws.h2;
-  g3.out_bf16 = ws.ga2; g3.part_b = ws.part_a2b; g3.part_l = ws.part_a2l;
-  GLOW_TRY((launch_gemm<A_DENSE, EPI_RELU_GRAD_BF16>(g3, stream)));
-
-  GemmArgs g2 = {};
-  g2.M = M; g2.N = hidden; g2.K = hidden;
-  g2.a = ws.ga2; g2.w = (const __nv_bfloat16*)w2t; g2.logs = a1l; g2.h = ws.h1;
-  g2.out_bf16 = ws.ga1; g2.part_b = ws.part_a1b; g2.part_l = ws.part_a1l;
-  GLOW_TRY((launch_gemm<A_DENSE, EPI_RELU_GRAD_BF16>(g2, stream)));
-
-  GemmArgs g1 = {};
-  g1.M = M; g1.N = 9 * ch; g1.K = hidden;
-  g1.a = ws.ga1; g1.w = (const __nv_bfloat16*)w1t; g1.out_f32 = ws.gp1;
-  GLOW_TRY((launch_gemm<A_DENSE, EPI_F32>(g1, stream)));
-
-  // -- mix and actnorm ------------------------------------------------------
-  gv1_kernel<<<ceil_div(M * ch, 256), 256, 0, stream>>>(M, hh, ww, c, ws.gp1, ws.gv);
-  GLOW_TRY(cudaGetLastError());
-  mix_bwd_kernel<<<ceil_div(M * c, 256), 256, 0, stream>>>(M, c, z, wmat, anb, anl, ws.gv, gz,
-                                                           ws.u, ws.gu);
-  GLOW_TRY(cudaGetLastError());
-
-  // -- weight gradients -------------------------------------------------------
-  WgradArgs w2g = {};
-  w2g.M = M; w2g.N1 = hidden; w2g.N2 = hidden; w2g.a = ws.ga2; w2g.b = ws.h1;
-  w2g.part = ws.part_w;
-  GLOW_TRY(wgrad<B_DENSE>(w2g, g_w2, stream));
-
-  WgradArgs w1g = {};
-  w1g.M = M; w1g.N1 = hidden; w1g.N2 = 9 * ch; w1g.a = ws.ga1;
-  w1g.z = ws.v; w1g.ldz = c; w1g.hh = hh; w1g.ww = ww; w1g.cin = ch; w1g.part = ws.part_w;
-  GLOW_TRY(wgrad<B_CONV3X3>(w1g, g_w1, stream));
-
-  WgradArgs w3g = {};
-  w3g.M = M; w3g.N1 = 9 * cout; w3g.N2 = hidden; w3g.a = ws.gy; w3g.b = ws.h2;
-  w3g.part = ws.part_w;
-  GLOW_TRY(wgrad<B_DENSE>(w3g, g_w3, stream));
-
-  GLOW_TRY(reduce(gm, hidden, ws.part_a2b, 1.0f, g_a2b, stream));
-  GLOW_TRY(reduce(gm, hidden, ws.part_a2l, 1.0f, g_a2l, stream));
-  GLOW_TRY(reduce(gm, hidden, ws.part_a1b, 1.0f, g_a1b, stream));
-  GLOW_TRY(reduce(gm, hidden, ws.part_a1l, 1.0f, g_a1l, stream));
-  GLOW_TRY(col_sum<false>(M, cout, ws.gacc, nullptr, 1.0f, ws.part_col, g_b3, stream));
-  GLOW_TRY(col_sum<false>(M, cout, ws.t3, nullptr, 3.0f, ws.part_col, g_l3, stream));
-  GLOW_TRY(col_sum<false>(M, c, gz, nullptr, 1.0f, ws.part_col, g_anb, stream));
-  GLOW_TRY(col_sum<true>(M, c, ws.gu, ws.u, 1.0f, ws.part_col, g_anl, stream));
-
-  const int chunks = ceil_div(M, COL_CHUNK);
-  outer_partial_kernel<<<ceil_div(chunks * c * c, 256), 256, 0, stream>>>(M, c, ws.gv, ws.u,
-                                                                          ws.part_col);
-  GLOW_TRY(cudaGetLastError());
-  GLOW_TRY(reduce(chunks, c * c, ws.part_col, 1.0f, g_wmat, stream));
+  const int M = b * hh * ww;
+  Carver cv = {(char*)workspace, 0};
+  const Workspace ws = carve(cv, M, c, hidden, affine ? c : c / 2);
+  const StepWeights sw = {wmat, anb, anl, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3};
+  float* const grads[N_WEIGHTS] = {g_wmat, g_anb, g_anl, g_w1, g_a1b, g_a1l,
+                                   g_w2,   g_a2b, g_a2l, g_w3, g_b3,  g_l3};
+  GLOW_TRY(backward_chain<false>(affine, M, hh, ww, c, hidden, Band{}, z, sw, w1t, w2t, w3t, gzn,
+                                 gld, gz, grads, ws, stream));
   return 0;
 }
 

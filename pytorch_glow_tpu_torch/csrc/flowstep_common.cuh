@@ -1,9 +1,12 @@
-// Kernels shared by the flow step's forward/reverse chain (flowstep.cu) and
-// its backward (flowstep_bwd.cu): the bf16 wmma GEMM with its operand
-// loaders and epilogues, the f32 channel mix, and the zero-conv tap sum.
+// Kernels shared by the flow step's forward/reverse chain (flowstep.cu), its
+// backward (flowstep_bwd.cu) and their row-band variants (flowstep_band.cu,
+// flowstep_band_bwd.cu): the bf16 wmma GEMM with its operand loaders and
+// epilogues, the f32 channel mix, the zero-conv tap sum, and the row-band
+// geometry with its gather.
 //
-// Both translation units compile this same code with the same flags, so
-// the backward's recompute of h1, h2 and y is bit for bit the forward's.
+// Every translation unit compiles this same code with the same flags, so
+// the backward's recompute of h1, h2 and y is bit for bit the forward's,
+// and a band's centre rows are bit for bit the whole chain's.
 
 #pragma once
 
@@ -23,8 +26,29 @@ constexpr int LDS = BK + 8;   // bf16 tile row stride (multiple of 8)
 constexpr int LDC = BN + 4;   // f32 staging row stride (multiple of 4)
 constexpr int ROW_THREADS = 256;
 
-enum ALoad { A_DENSE = 0, A_CONV3X3 = 1 };
+enum ALoad { A_DENSE = 0, A_CONV3X3 = 1, A_CONV3X3_BAND = 2 };
 enum Epilogue { EPI_ACTNORM_RELU_BF16 = 0, EPI_F32 = 1, EPI_RELU_GRAD_BF16 = 2 };
+
+// Row-band geometry.  A band launch stages `count` consecutive bands of R
+// rows, each extended by a 2-row halo above and below (the coupling net's
+// receptive field) into an (R+4)-row "image" of the staging buffers.  Band
+// j of the launch is band first + j of the batch: image (first + j) / T,
+// absolute first row ((first + j) % T) * R - 2, of an image `height` rows
+// high.  Taps are masked on absolute rows, so halo rows outside the image
+// (above row 0, below the last row) read as zero.
+struct Band {
+  int first, per_image, rows, height;  // first band, T, R, true image height
+};
+
+// Whether local row yy of staged image img lies inside the true image:
+// always for whole images; for a band, when its absolute row is in
+// [0, height).
+template <bool BAND>
+__device__ __forceinline__ bool row_in_image(const Band& bd, int img, int yy) {
+  if (!BAND) return true;
+  const int row = ((bd.first + img) % bd.per_image) * bd.rows - 2 + yy;
+  return row >= 0 && row < bd.height;
+}
 
 struct GemmArgs {
   int M, N, K;
@@ -39,19 +63,22 @@ struct GemmArgs {
   float* out_f32;               // (M, N)
   float* part_b;                // EPI_RELU_GRAD_BF16: (M / BM blocks, N) partials
   float* part_l;                //   of sum g_a and of sum g_an * h
+  Band band;                    // A_CONV3X3_BAND: hh is the staged R + 4 rows
 };
 
 // Patch element k = tap * cin + ci of pixel m: z1 at the tap's neighbour,
 // zero where the tap leaves the image (SAME padding, masked on (y, x)
-// inside each image).  Taps k = 3*dy + dx, neighbour (y + dy - 1, x + dx - 1).
+// inside each image, and for a band on the absolute row).  Taps
+// k = 3*dy + dx, neighbour (y + dy - 1, x + dx - 1).
+template <bool BAND>
 __device__ __forceinline__ __nv_bfloat16 conv3x3_patch(const float* z, int ldz, int hh, int ww,
-                                                       int cin, int m, int k) {
+                                                       int cin, int m, int k, const Band& bd) {
   const int hw = hh * ww;
   const int tap = k / cin, ci = k - tap * cin;
   const int dy = tap / 3 - 1, dx = tap % 3 - 1;
   const int img = m / hw, rem = m - img * hw;
   const int y = rem / ww + dy, x = rem % ww + dx;
-  if (y >= 0 && y < hh && x >= 0 && x < ww)
+  if (y >= 0 && y < hh && x >= 0 && x < ww && row_in_image<BAND>(bd, img, y))
     return __float2bfloat16(z[(img * hw + y * ww + x) * ldz + ci]);
   return __float2bfloat16(0.0f);
 }
@@ -85,7 +112,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
         if (AL == A_DENSE)
           v = g.a[m * g.K + k];
         else
-          v = conv3x3_patch(g.z, g.ldz, g.hh, g.ww, g.cin, m, k);
+          v = conv3x3_patch<AL == A_CONV3X3_BAND>(g.z, g.ldz, g.hh, g.ww, g.cin, m, k, g.band);
       }
       As[r * LDS + kk] = v;
     }
@@ -178,18 +205,24 @@ __global__ void mix_kernel(int M, int C, const float* zin, const float* w, const
 }
 
 // Zero-conv output channel c at pixel (py, px) of image img from the
-// tap-packed y (M, 9*cout): taps summed in order k = 0..8.
+// tap-packed y (M, 9*cout): taps summed in order k = 0..8, masked as the
+// conv1 patches are.
+template <bool BAND>
 __device__ __forceinline__ float zero_conv_at(const float* y, int img, int hh, int ww, int py,
                                               int px, int cout, int c, const float* b3,
-                                              const float* l3) {
+                                              const float* l3, const Band& bd) {
   float acc = 0.0f;
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int yy = py + k / 3 - 1, xx = px + k % 3 - 1;
-    if (yy >= 0 && yy < hh && xx >= 0 && xx < ww)
+    if (yy >= 0 && yy < hh && xx >= 0 && xx < ww && row_in_image<BAND>(bd, img, yy))
       acc += y[((img * hh + yy) * ww + xx) * 9 * cout + k * cout + c];
   }
   return (acc + b3[c]) * expf(l3[c] * 3.0f);
+}
+
+__device__ __forceinline__ float log_sigmoid(float x) {
+  return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
 }
 
 template <int AL, int EP>
@@ -209,19 +242,21 @@ cudaError_t launch_mix(int M, int C, const float* zin, const float* w, const flo
 
 // f() of the coupling from the mixed z: h1, h2 (bf16) and the tap-packed
 // zero-conv product y (f32), the same three launches in both directions
-// and in the backward's recompute.
+// and in the backward's recompute; with BAND, over staged row bands.
+template <bool BAND = false>
 inline cudaError_t launch_net(int M, int hh, int ww, int c, int hidden, int cout,
                               const float* z1_src, const void* w1, const float* a1b,
                               const float* a1l, const void* w2, const float* a2b,
                               const float* a2l, const void* w3, void* h1, void* h2, float* y,
-                              cudaStream_t stream) {
+                              cudaStream_t stream, Band bd = Band{}) {
   const int ch = c / 2;
   GemmArgs g1 = {};
   g1.M = M; g1.N = hidden; g1.K = 9 * ch;
   g1.z = z1_src; g1.ldz = c; g1.hh = hh; g1.ww = ww; g1.cin = ch;
   g1.w = (const __nv_bfloat16*)w1; g1.bias = a1b; g1.logs = a1l;
-  g1.out_bf16 = (__nv_bfloat16*)h1;
-  cudaError_t err = launch_gemm<A_CONV3X3, EPI_ACTNORM_RELU_BF16>(g1, stream);
+  g1.out_bf16 = (__nv_bfloat16*)h1; g1.band = bd;
+  cudaError_t err =
+      launch_gemm<BAND ? A_CONV3X3_BAND : A_CONV3X3, EPI_ACTNORM_RELU_BF16>(g1, stream);
   if (err != cudaSuccess) return err;
 
   GemmArgs g2 = {};
@@ -237,10 +272,46 @@ inline cudaError_t launch_net(int M, int hh, int ww, int c, int hidden, int cout
   return launch_gemm<A_DENSE, EPI_F32>(g3, stream);
 }
 
+// Stage `count` bands of the batch (b, height, ww, c) f32 into ext
+// (count * (R+4) * ww, c): rows outside the image are zero, and with
+// CENTRE_ONLY the halo rows too (a cotangent that belongs to the
+// neighbouring bands).  Global offsets in 64 bits.
+template <bool CENTRE_ONLY>
+__global__ void gather_band_kernel(int count, int ww, int c, Band bd, const float* src,
+                                   float* ext) {
+  const int ext_rows = bd.rows + 4;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= count * ext_rows * ww * c) return;
+  const int ch = idx % c, px = idx / c;
+  const int x = px % ww, r = px / ww;
+  const int j = r / ext_rows, yy = r - j * ext_rows;
+  const int band = bd.first + j;
+  const int img = band / bd.per_image;
+  const int row = (band % bd.per_image) * bd.rows - 2 + yy;
+  const bool keep = row >= 0 && row < bd.height && (!CENTRE_ONLY || (yy >= 2 && yy < bd.rows + 2));
+  ext[idx] = keep ? src[(((size_t)img * bd.height + row) * ww + x) * c + ch] : 0.0f;
+}
+
+template <bool CENTRE_ONLY>
+cudaError_t gather_band(int count, int ww, int c, const Band& bd, const float* src, float* ext,
+                        cudaStream_t stream) {
+  const int total = count * (bd.rows + 4) * ww * c;
+  gather_band_kernel<CENTRE_ONLY><<<(total + 255) / 256, 256, 0, stream>>>(count, ww, c, bd, src,
+                                                                           ext);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// In a C entry (returns int) and in a chain helper (returns cudaError_t):
+// return the first failing launch's error.
 #define GLOW_TRY(expr)              \
   do {                              \
     cudaError_t err_ = (expr);      \
     if (err_ != cudaSuccess) return (int)err_; \
+  } while (0)
+#define GLOW_CHECK(expr)            \
+  do {                              \
+    cudaError_t err_ = (expr);      \
+    if (err_ != cudaSuccess) return err_; \
   } while (0)

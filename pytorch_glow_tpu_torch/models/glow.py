@@ -15,6 +15,13 @@ Flow steps run one of two ways per `cfg.flowstep_impl`:
   z-free logdet terms, H*W * sum(param_logdet), outside them; those and the
   weight packing are plain autograd.
 * "xla": the unfused layer math of `models/layers.py` at `compute_dtype`.
+  With `cfg.remat`, while grad is enabled, each flow step runs under
+  activation checkpointing (`torch.utils.checkpoint`, non-reentrant): the
+  backward recomputes the step from its input, as the JAX package's
+  `jax.checkpoint` of the scan body does.  Not under DDI, which the JAX
+  package also runs without it.  On the fused path remat has nothing to
+  add: `FusedStep` already saves only each step's input, and its backward
+  kernel recomputes the step.
 
 `ddi_init` always runs the unfused path, as the JAX package does.
 
@@ -28,6 +35,7 @@ from contextlib import contextmanager
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pytorch_glow_tpu_torch.config import GlowConfig
 from pytorch_glow_tpu_torch.models.layers import ActNorm, Conv2dZeros, FlowStep, Split2d, Squeeze
@@ -93,8 +101,12 @@ class Glow(nn.Module):
 
     def _steps_forward(self, steps: list[FlowStep], z: torch.Tensor, logdet: torch.Tensor):
         if not self._fused():
+            remat = self.cfg.remat and not self._ddi and torch.is_grad_enabled()
             for step in steps:
-                z, logdet = step(z, logdet)
+                if remat:
+                    z, logdet = checkpoint(step, z, logdet, use_reentrant=False)
+                else:
+                    z, logdet = step(z, logdet)
             return z, logdet
         affine = self.cfg.flow_coupling == "affine"
         z = z.float().contiguous()

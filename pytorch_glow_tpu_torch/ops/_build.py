@@ -57,6 +57,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glow_flowstep_bwd_workspace.restype = ctypes.c_size_t
     lib.glow_flowstep_bwd.argtypes = [i32] * 6 + [ptr] * 33
     lib.glow_flowstep_bwd.restype = i32
+    lib.glow_flowstep_band.argtypes = [i32] * 9 + [ptr] * 22 + [ptr]
+    lib.glow_flowstep_band.restype = i32
+    lib.glow_flowstep_band_bwd_workspace.argtypes = [i32] * 8
+    lib.glow_flowstep_band_bwd_workspace.restype = ctypes.c_size_t
+    lib.glow_flowstep_band_bwd.argtypes = [i32] * 8 + [ptr] * 33
+    lib.glow_flowstep_band_bwd.restype = i32
     lib.glow_error_string.argtypes = [i32]
     lib.glow_error_string.restype = ctypes.c_char_p
     return lib

@@ -8,14 +8,24 @@ Counterpart of the non-kernel parts of `pytorch_glow_tpu/ops/flowstep_pallas.py`
 `pytorch_glow_tpu/models/glow.py` (`_fused_step_forward`,
 `_fused_step_reverse`).  `csrc/flowstep.cu` replaces that module's
 `_make_kernel` (reverse=False and reverse=True), `csrc/flowstep_bwd.cu` its
-`_make_bwd_kernel`.
+`_make_bwd_kernel`, `csrc/flowstep_band.cu` its `_make_kernel_halo` and
+`csrc/flowstep_band_bwd.cu` its `_make_bwd_kernel_halo`.
 
 Layout: the port keeps NHWC at its public functions, which is already
 pixel-major; the kernels take the (B*H*W, C) view of it.
 
-`step_forward` / `step_reverse` / `step_backward` pick the implementation
-from the tensor's device only: a CPU tensor runs the plain version `step_*_ref`, a CUDA tensor
-launches the kernel chain or raises.  Nothing falls back.
+Tiling (`tiling`): the kernel chains stage their intermediates in device
+memory and index them in 32 bits.  A call whose whole-batch staging fits
+`STAGING_BUDGET_BYTES` and whose indices fit in int32 runs the whole chain
+(K1-K3); any other runs the row-band chain (K4/K5), which stages G bands
+of R rows at a time, each with the 2-row halo the coupling net's two 3x3
+convs see (`band_rows`, `bands_per_launch`).  The TPU kernels cut bands for
+VMEM; these rules are the card's own.
+
+`step_forward` / `step_reverse` / `step_backward` pick whole or band by
+`tiling()` and the implementation from the tensor's device only: a CPU
+tensor runs the plain version (`step_*_ref` or `step_*_band_ref`), a CUDA
+tensor launches the kernel chain or raises.  Nothing falls back.
 
 The plain version computes the kernel's math, not the layer math of
 `models/layers.py`: f32 actnorm and f32 mix; coupling-net operands rounded
@@ -34,9 +44,13 @@ from pytorch_glow_tpu_torch.ops import _build
 
 COUPLING_DTYPE = torch.bfloat16
 N_WEIGHTS = 12
+# The tiling chooser's knobs, module-level so that tests can patch them.
+STAGING_BUDGET_BYTES = 2**30  # device staging one chain launch may take
+BAND_PIXELS = 4096  # centre pixels of one band, at most
 
-# Kernel launches per direction; one per flow step launched on the card.
-launches = {"forward": 0, "reverse": 0, "backward": 0}
+# Kernel launches per chain; one per flow step launched on the card.
+launches = {"forward": 0, "reverse": 0, "backward": 0,
+            "band_forward": 0, "band_reverse": 0, "band_backward": 0}
 
 
 def reset_launches() -> None:
@@ -89,16 +103,125 @@ def param_logdet(step) -> torch.Tensor:
     return step.actnorm.logs.sum() + step.invconv.logdet()
 
 
+# ---------------------------------------------------------------------------
+# Tiling: the whole-batch chain or row bands
+# ---------------------------------------------------------------------------
+
+# The backward workspace's constants (csrc/flowstep_common.cuh BM, BK;
+# csrc/flowstep_bwd_common.cuh WG_TARGET_BLOCKS, COL_CHUNK).
+_BM, _BK, _WG_TARGET_BLOCKS, _COL_CHUNK = 64, 32, 264, 256
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align(nbytes: int) -> int:
+    return _ceil(nbytes, 256) * 256
+
+
+def _cout(c: int, affine: bool) -> int:
+    return c if affine else c // 2
+
+
+def _wgrad_chunk(m: int, n1: int, n2: int) -> int:
+    chunks = max(1, _ceil(_WG_TARGET_BLOCKS, _ceil(n1, _BM) * _ceil(n2, _BM)))
+    return _ceil(_ceil(m, chunks), _BK) * _BK
+
+
+def bwd_workspace_bytes(m: int, c: int, hidden: int, affine: bool) -> int:
+    """Bytes of the backward chain's workspace over m staged pixels, as
+    `glow_flowstep_bwd_workspace` counts them (csrc/flowstep_bwd_common.cuh
+    `carve`): 13 per-pixel intermediates and the partial sums."""
+    ch, cout = c // 2, _cout(c, affine)
+    wmax = max(_ceil(m, _wgrad_chunk(m, n1, n2)) * n1 * n2
+               for n1, n2 in ((hidden, 9 * ch), (hidden, hidden), (9 * cout, hidden)))
+    per_pixel = [4 * c, 2 * hidden, 2 * hidden, 36 * cout, 4 * cout, 4 * cout, 18 * cout,
+                 2 * hidden, 2 * hidden, 36 * ch, 4 * c, 4 * c, 4 * c]
+    partials = [4 * hidden * _ceil(m, _BM)] * 4 + [4 * wmax,
+                                                  4 * _ceil(m, _COL_CHUNK) * max(c * c, hidden)]
+    return sum(_align(m * n) for n in per_pixel) + sum(_align(n) for n in partials)
+
+
+def _staging_bytes(direction: str, m: int, c: int, hidden: int, affine: bool) -> int:
+    """Device staging of one whole-chain launch over m pixels: h1, h2 and
+    the tap-packed y (and the reverse's scratch), or the backward's
+    workspace."""
+    if direction == "backward":
+        return bwd_workspace_bytes(m, c, hidden, affine)
+    nbytes = m * (4 * hidden + 36 * _cout(c, affine))
+    return nbytes + (4 * m * c if direction == "reverse" else 0)
+
+
+def _band_staging_bytes(direction: str, g: int, r: int, w: int, c: int, hidden: int,
+                        affine: bool) -> int:
+    """Device staging of one band-chain launch of g bands of r rows: the
+    whole chain's over their g*(r+4)*w staged pixels, plus the staged z
+    (and the forward's mixed z, the reverse's centre scratch, the
+    backward's staged cotangent and g_z).  The backward's per-band halo
+    rows and per-group weight-grad slots, a few MB, are not staging."""
+    me = g * (r + 4) * w
+    ext = 4 * me * c
+    if direction == "backward":
+        return bwd_workspace_bytes(me, c, hidden, affine) + 3 * _align(ext)
+    nbytes = me * (4 * hidden + 36 * _cout(c, affine)) + ext
+    return nbytes + (ext if direction == "forward" else 4 * g * r * w * c)
+
+
+def _fits_int32(m: int, c: int, hidden: int, affine: bool) -> bool:
+    """The chains index their per-pixel buffers in 32 bits."""
+    return m * max(hidden, 9 * _cout(c, affine), c) < 2**31
+
+
+def band_rows(h: int, w: int) -> int:
+    """Band height R: the largest divisor of h with R >= 4 and
+    R * w <= BAND_PIXELS; h itself when h * w <= BAND_PIXELS or no divisor
+    qualifies."""
+    if h * w <= BAND_PIXELS:
+        return h
+    rows = [r for r in range(4, h) if h % r == 0 and r * w <= BAND_PIXELS]
+    return rows[-1] if rows else h
+
+
+def bands_per_launch(direction: str, b: int, h: int, w: int, c: int, hidden: int,
+                     affine: bool = True) -> int:
+    """G: how many (R+4)-row extended bands one band-chain launch stages
+    within STAGING_BUDGET_BYTES and 32-bit indexing (at least one)."""
+    r = band_rows(h, w)
+    index_cap = (2**31 - 1) // ((r + 4) * w * max(hidden, 9 * _cout(c, affine), c))
+    lo, hi = 1, max(1, min(b * (h // r), index_cap))
+    while lo < hi:  # the largest g whose staging fits (staging grows with g)
+        mid = (lo + hi + 1) // 2
+        if _band_staging_bytes(direction, mid, r, w, c, hidden, affine) <= STAGING_BUDGET_BYTES:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def tiling(direction: str, b: int, h: int, w: int, c: int, hidden: int,
+           affine: bool = True) -> str:
+    """"whole" when the whole-batch chain's staging fits STAGING_BUDGET_BYTES
+    and its indices fit in int32, else "band".  direction: "forward",
+    "reverse" or "backward".  Raises for a shape no tiling takes."""
+    if not supported(h, w, c, hidden, affine, b):
+        raise NotImplementedError(
+            f"no flow-step kernel tiling takes (b={b}, h={h}, w={w}, c={c}, hidden={hidden})")
+    m = b * h * w
+    whole = _fits_int32(m, c, hidden, affine)
+    if whole and _staging_bytes(direction, m, c, hidden, affine) <= STAGING_BUDGET_BYTES:
+        return "whole"
+    return "band" if _fits_int32((band_rows(h, w) + 4) * w, c, hidden, affine) else "whole"
+
+
 def supported(h: int, w: int, c: int, hidden: int, affine: bool = True,
               b: int | None = None) -> bool:
-    """Shapes the CUDA kernel chain takes.  It stages h1, h2 and the
-    tap-packed conv3 output in device memory, so no on-chip budget bounds
-    the image; the bound is its 32-bit element indexing of those buffers."""
+    """Shapes some tiling takes: an even channel count, and 32-bit indices
+    over the whole batch or over one extended band."""
     if c < 2 or c % 2 or hidden < 1 or h < 1 or w < 1:
         return False
-    cout = c if affine else c // 2
-    rows = (b or 1) * h * w
-    return rows * max(hidden, 9 * cout, c) < 2**31
+    return (_fits_int32((b or 1) * h * w, c, hidden, affine)
+            or _fits_int32((band_rows(h, w) + 4) * w, c, hidden, affine))
 
 
 # ---------------------------------------------------------------------------
@@ -122,13 +245,19 @@ def _shift_back(x: torch.Tensor, k: int) -> torch.Tensor:
     return xp[:, 2 - dy:2 - dy + h, 2 - dx:2 - dx + w, :]
 
 
-def _net_parts(z1: torch.Tensor, weights, dtype: torch.dtype):
+def _net_parts(z1: torch.Tensor, weights, dtype: torch.dtype, valid: torch.Tensor | None = None):
     """The coupling net f() as the kernel computes it, with its
-    intermediates: NHWC z1 (f32) -> (p1, h1, h2, out (B, H, W, cout) f32)."""
+    intermediates: NHWC z1 (f32) -> (p1, h1, h2, out (B, H, W, cout) f32).
+    `valid` (B, H) marks the rows inside the true image (staged bands): the
+    taps read rows outside it as zero."""
     _, _, _, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3 = weights
     b, h, w, _ = z1.shape
     cout = w3.shape[0] // 9
-    p1 = torch.cat(_taps(z1.float()), dim=-1).to(dtype).float()
+    z1 = z1.float()
+    if valid is not None:
+        rows = valid[..., None, None]
+        z1 = torch.where(rows, z1, 0.0)
+    p1 = torch.cat(_taps(z1), dim=-1).to(dtype).float()
     a = p1 @ w1.float().T
     a = (a + a1b.view(-1)) * torch.exp(a1l.view(-1))
     h1 = torch.relu(a).to(dtype).float()
@@ -136,62 +265,87 @@ def _net_parts(z1: torch.Tensor, weights, dtype: torch.dtype):
     a = (a + a2b.view(-1)) * torch.exp(a2l.view(-1))
     h2 = torch.relu(a).to(dtype).float()
     y = h2 @ w3.float().T  # tap-packed zero-conv: (B, H, W, 9*cout)
+    if valid is not None:
+        y = torch.where(rows, y, 0.0)
     acc = torch.zeros(b, h, w, cout, dtype=torch.float32, device=z1.device)
     for k, tap in enumerate(_taps(y)):
         acc = acc + tap[..., k * cout:(k + 1) * cout]
     return p1, h1, h2, (acc + b3.view(-1)) * torch.exp(l3.view(-1) * 3.0)
 
 
-def _net_ref(z1: torch.Tensor, weights, dtype: torch.dtype) -> torch.Tensor:
+def _net_ref(z1: torch.Tensor, weights, dtype: torch.dtype,
+             valid: torch.Tensor | None = None) -> torch.Tensor:
     """The coupling net f(): NHWC z1 (f32) -> (B, H, W, cout) f32."""
-    return _net_parts(z1, weights, dtype)[3]
+    return _net_parts(z1, weights, dtype, valid)[3]
 
 
-def step_forward_ref(weights, z: torch.Tensor, affine: bool,
-                     dtype: torch.dtype = COUPLING_DTYPE):
-    """NHWC z -> (z_next, coupling logdet (B,)), the kernel's math in PyTorch."""
+def _forward_parts(weights, z: torch.Tensor, affine: bool, dtype: torch.dtype,
+                   valid: torch.Tensor | None = None):
+    """NHWC z -> (z_next, log_sigmoid(raw + 2) per pixel, or None when
+    additive)."""
     wmat, anb, anl = weights[:3]
     ch = z.shape[-1] // 2
     z = (z.float() + anb.view(-1)) * torch.exp(anl.view(-1))
     z = z @ wmat.T
     z1, z2 = z[..., :ch], z[..., ch:]
-    h = _net_ref(z1, weights, dtype)
-    if affine:
-        shift, raw = h[..., :ch], h[..., ch:]
-        z2 = (z2 + shift) * torch.sigmoid(raw + 2.0)
-        ld = F.logsigmoid(raw + 2.0).sum(dim=(1, 2, 3))
-    else:
-        z2 = z2 + h
-        ld = torch.zeros(z.shape[0], dtype=torch.float32, device=z.device)
-    return torch.cat([z1, z2], dim=-1), ld
+    h = _net_ref(z1, weights, dtype, valid)
+    if not affine:
+        return torch.cat([z1, z2 + h], dim=-1), None
+    shift, raw = h[..., :ch], h[..., ch:]
+    z2 = (z2 + shift) * torch.sigmoid(raw + 2.0)
+    return torch.cat([z1, z2], dim=-1), F.logsigmoid(raw + 2.0)
 
 
-def step_reverse_ref(weights, z: torch.Tensor, affine: bool,
-                     dtype: torch.dtype = COUPLING_DTYPE) -> torch.Tensor:
-    """Inverse of `step_forward_ref` (weights packed with reverse=True)."""
-    wmat, anb, anl = weights[:3]
+def step_forward_ref(weights, z: torch.Tensor, affine: bool,
+                     dtype: torch.dtype = COUPLING_DTYPE):
+    """NHWC z -> (z_next, coupling logdet (B,)), the kernel's math in PyTorch."""
+    z_next, logsig = _forward_parts(weights, z, affine, dtype)
+    if logsig is None:
+        return z_next, torch.zeros(z.shape[0], dtype=torch.float32, device=z.device)
+    return z_next, logsig.sum(dim=(1, 2, 3))
+
+
+def _reverse_coupling(weights, z: torch.Tensor, affine: bool, dtype: torch.dtype,
+                      valid: torch.Tensor | None = None) -> torch.Tensor:
     ch = z.shape[-1] // 2
     z = z.float()
     z1, z2 = z[..., :ch], z[..., ch:]
-    h = _net_ref(z1, weights, dtype)
+    h = _net_ref(z1, weights, dtype, valid)
     if affine:
         shift, raw = h[..., :ch], h[..., ch:]
         z2 = z2 / torch.sigmoid(raw + 2.0) - shift
     else:
         z2 = z2 - h
-    z = torch.cat([z1, z2], dim=-1) @ wmat.T
-    return z * torch.exp(-anl.view(-1)) - anb.view(-1)
+    return torch.cat([z1, z2], dim=-1)
+
+
+def _reverse_mix(weights, t: torch.Tensor) -> torch.Tensor:
+    """The W^-1 mix and the actnorm inverse, per pixel."""
+    wmat, anb, anl = weights[:3]
+    return (t @ wmat.T) * torch.exp(-anl.view(-1)) - anb.view(-1)
+
+
+def step_reverse_ref(weights, z: torch.Tensor, affine: bool,
+                     dtype: torch.dtype = COUPLING_DTYPE) -> torch.Tensor:
+    """Inverse of `step_forward_ref` (weights packed with reverse=True)."""
+    return _reverse_mix(weights, _reverse_coupling(weights, z, affine, dtype))
 
 
 def step_backward_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
-                      affine: bool, dtype: torch.dtype = COUPLING_DTYPE):
+                      affine: bool, dtype: torch.dtype = COUPLING_DTYPE,
+                      valid: torch.Tensor | None = None):
     """The backward of `step_forward_ref`, written out as the kernel computes
     it (the JAX kernel's `_make_bwd_kernel` math): recompute, then the
     cotangents.  NHWC z, g_zn (cotangent of z_next) and g_ld (B,) ->
     (g_z, [12 f32 weight grads in the packed shapes]).  bf16 roundings at the
-    kernel's places: the patches, h1, h2, gy, g_a2 and g_a1."""
+    kernel's places: the patches, h1, h2, gy, g_a2 and g_a1.
+
+    For staged bands (`step_backward_band_ref`): `valid` (B, H) marks the
+    rows inside the true image, as in `_net_parts`, and g_ld may be given
+    per row, (B, H), zero on the halo rows."""
     wmat, anb, anl, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3 = weights
     ch = z.shape[-1] // 2
+    rows = None if valid is None else valid[..., None, None]
 
     def cast(t):
         return t.to(dtype).float()
@@ -202,24 +356,28 @@ def step_backward_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.
     def colsum(t):
         return flat(t).sum(0).reshape(-1, 1)
 
+    def in_image(t):  # a transposed tap lands only on rows inside the image
+        return t if rows is None else torch.where(rows, t, 0.0)
+
     u = (z.float() + anb.view(-1)) * torch.exp(anl.view(-1))
     v = u @ wmat.T
     v2 = v[..., ch:]
-    p1, h1, h2, out = _net_parts(v[..., :ch], weights, dtype)
+    p1, h1, h2, out = _net_parts(v[..., :ch], weights, dtype, valid)
     g_zn = g_zn.float()
     go1, go2 = g_zn[..., :ch], g_zn[..., ch:]
     if affine:
         shift = out[..., :ch]
         s = torch.sigmoid(out[..., ch:] + 2.0)
+        gl = g_ld.float().view(g_ld.shape[0], -1, 1, 1)
         # The saturation-safe form: g_ld * (1 - s) is d log_sigmoid / d raw,
         # finite where s underflows to 0.
-        g_raw = go2 * (v2 + shift) * (s * (1.0 - s)) + g_ld.float().view(-1, 1, 1, 1) * (1.0 - s)
+        g_raw = go2 * (v2 + shift) * (s * (1.0 - s)) + gl * (1.0 - s)
         g_v2 = go2 * s
         g_out = torch.cat([g_v2, g_raw], dim=-1)
     else:
         g_v2 = g_out = go2
     g_acc = g_out * torch.exp(l3.view(-1) * 3.0)
-    gy = cast(torch.cat([_shift_back(g_acc, k) for k in range(9)], dim=-1))
+    gy = cast(in_image(torch.cat([_shift_back(g_acc, k) for k in range(9)], dim=-1)))
 
     g_a2n = (gy @ w3.float()) * (h2 > 0)
     g_a2 = g_a2n * torch.exp(a2l.view(-1))
@@ -230,7 +388,7 @@ def step_backward_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.
     g_p1 = g_a1b @ w1.float()
     g_v1 = go1
     for k in range(9):
-        g_v1 = g_v1 + _shift_back(g_p1[..., k * ch:(k + 1) * ch], k)
+        g_v1 = g_v1 + in_image(_shift_back(g_p1[..., k * ch:(k + 1) * ch], k))
     g_v = torch.cat([g_v1, g_v2], dim=-1)
     g_u = g_v @ wmat
     g_z = g_u * torch.exp(anl.view(-1))
@@ -244,12 +402,111 @@ def step_backward_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.
 
 
 # ---------------------------------------------------------------------------
+# Plain band versions: the kernels' row-band math in PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _band_plan(direction: str, z: torch.Tensor, hidden: int, affine: bool):
+    """(R, T bands per image, G bands per group, number of bands) for z."""
+    b, h, w, c = z.shape
+    r = band_rows(h, w)
+    return r, h // r, bands_per_launch(direction, b, h, w, c, hidden, affine), b * (h // r)
+
+
+def _band_regions(x: torch.Tensor, r: int, first: int, count: int):
+    """Bands first .. first+count-1 of NHWC x, each with its 2 rows above and
+    below: ((count, r+4, W, C) f32 with rows outside the image zero, the
+    rows' in-image mask (count, r+4))."""
+    _, h, _, _ = x.shape
+    t = h // r
+    bands = torch.arange(first, first + count, device=x.device)
+    rows = ((bands % t) * r - 2)[:, None] + torch.arange(r + 4, device=x.device)
+    valid = (rows >= 0) & (rows < h)
+    ext = x.float()[(bands // t)[:, None], rows.clamp(0, h - 1)]
+    return torch.where(valid[..., None, None], ext, 0.0), valid
+
+
+def step_forward_band_ref(weights, z: torch.Tensor, affine: bool,
+                          dtype: torch.dtype = COUPLING_DTYPE):
+    """`step_forward_ref` over row bands, as K4 computes it: each group of
+    bands staged with its halo (rows outside the image zero, taps masked on
+    absolute rows), the step run on the staged rows, the centre rows kept;
+    logdet over centre rows, each image's bands summed in band order."""
+    b, h, w, c = z.shape
+    r, t, g, nbands = _band_plan("forward", z, weights[3].shape[0], affine)
+    out = torch.empty(nbands, r, w, c, dtype=torch.float32, device=z.device)
+    parts = []
+    for first in range(0, nbands, g):
+        count = min(g, nbands - first)
+        ext, valid = _band_regions(z, r, first, count)
+        z_next, logsig = _forward_parts(weights, ext, affine, dtype, valid)
+        out[first:first + count] = z_next[:, 2:r + 2]
+        if logsig is not None:
+            parts.append(logsig[:, 2:r + 2].sum(dim=(1, 2, 3)))
+    ld = torch.zeros(b, dtype=torch.float32, device=z.device)
+    if parts:
+        per_band = torch.cat(parts).view(b, t)
+        for i in range(t):
+            ld = ld + per_band[:, i]
+    return out.view(b, h, w, c), ld
+
+
+def step_reverse_band_ref(weights, z: torch.Tensor, affine: bool,
+                          dtype: torch.dtype = COUPLING_DTYPE) -> torch.Tensor:
+    """`step_reverse_ref` over row bands, as K4's reverse computes it: f()
+    on the staged input bands, the coupling inverse, the W^-1 mix and the
+    actnorm inverse on the centre rows."""
+    b, h, w, c = z.shape
+    r, _, g, nbands = _band_plan("reverse", z, weights[3].shape[0], affine)
+    out = torch.empty(nbands, r, w, c, dtype=torch.float32, device=z.device)
+    for first in range(0, nbands, g):
+        count = min(g, nbands - first)
+        ext, valid = _band_regions(z, r, first, count)
+        coupled = _reverse_coupling(weights, ext, affine, dtype, valid)
+        out[first:first + count] = _reverse_mix(weights, coupled[:, 2:r + 2])
+    return out.view(b, h, w, c)
+
+
+def step_backward_band_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
+                           affine: bool, dtype: torch.dtype = COUPLING_DTYPE):
+    """`step_backward_ref` over row bands, as K5 computes it: per group of
+    bands, the backward on the staged rows with the output cotangent zero on
+    the halo rows (those outputs belong to the neighbouring bands) and g_ld
+    on the centre rows only; each band's g_z keeps its centre rows, and its
+    2 top and 2 bottom halo rows fold into the neighbouring bands of the
+    same image; the weight grads are summed over groups in group order."""
+    b, h, w, c = z.shape
+    r, t, g, nbands = _band_plan("backward", z, weights[3].shape[0], affine)
+    dev = z.device
+    g_z = torch.empty(nbands, r, w, c, dtype=torch.float32, device=dev)
+    tops = torch.empty(nbands, 2, w, c, dtype=torch.float32, device=dev)
+    bottoms = torch.empty_like(tops)
+    centre = torch.zeros(r + 4, dtype=torch.bool, device=dev)
+    centre[2:r + 2] = True
+    grads = None
+    for first in range(0, nbands, g):
+        count = min(g, nbands - first)
+        ext, valid = _band_regions(z, r, first, count)
+        g_ext = torch.where(centre[:, None, None], _band_regions(g_zn, r, first, count)[0], 0.0)
+        bands = torch.arange(first, first + count, device=dev)
+        g_ld_rows = torch.where(centre, g_ld.float()[bands // t][:, None], 0.0)
+        g_ext_z, part = step_backward_ref(weights, ext, g_ext, g_ld_rows, affine, dtype, valid)
+        g_z[first:first + count] = g_ext_z[:, 2:r + 2]
+        tops[first:first + count] = g_ext_z[:, :2]
+        bottoms[first:first + count] = g_ext_z[:, r + 2:]
+        grads = part if grads is None else [a + p for a, p in zip(grads, part)]
+    g_z = g_z.view(b, t, r, w, c)
+    g_z[:, 1:, :2] += bottoms.view(b, t, 2, w, c)[:, :-1]
+    g_z[:, :-1, r - 2:] += tops.view(b, t, 2, w, c)[:, 1:]
+    return g_z.view(b, h, w, c), grads
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(weights, z: torch.Tensor, affine: bool,
-                    halo: str = "_make_kernel_halo") -> tuple[int, int]:
+def _check_operands(weights, z: torch.Tensor, affine: bool) -> tuple[int, int]:
     if z.device.type != "cuda":
         raise ValueError(f"the flow-step kernel takes CUDA tensors, got {z.device}")
     if z.dtype != torch.float32 or z.dim() != 4:
@@ -278,11 +535,15 @@ def _check_operands(weights, z: torch.Tensor, affine: bool,
             raise ValueError(f"packed weight {i} is not contiguous")
     if not supported(h, w, c, hidden, affine, b):
         raise NotImplementedError(
-            f"flow-step kernel does not take (b={b}, h={h}, w={w}, c={c}, "
-            f"hidden={hidden}); the halo-tiled kernel (flowstep_pallas "
-            f"{halo}) is not yet ported"
+            f"no flow-step kernel tiling takes (b={b}, h={h}, w={w}, c={c}, hidden={hidden}): "
+            f"neither the whole batch nor one {band_rows(h, w)}-row band with its halo "
+            f"indexes in 32 bits"
         )
     return hidden, cout
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _launch(weights, z: torch.Tensor, affine: bool, reverse: bool):
@@ -299,72 +560,148 @@ def _launch(weights, z: torch.Tensor, affine: bool, reverse: bool):
     y = torch.empty(m, 9 * cout, dtype=torch.float32, device=dev)
     tmp = torch.empty_like(z) if reverse else out
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.glow_flowstep(
             int(reverse), int(affine), b, h, w, c, hidden,
             z.data_ptr(), *(wt.data_ptr() for wt in weights),
             out.data_ptr(), ld.data_ptr(), h1.data_ptr(), h2.data_ptr(),
-            y.data_ptr(), tmp.data_ptr(), stream,
+            y.data_ptr(), tmp.data_ptr(), _stream(dev),
         )
     _build.check(lib, status, "glow_flowstep")
     launches["reverse" if reverse else "forward"] += 1
     return out, ld
 
 
-def _launch_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
-                     affine: bool):
-    hidden, _ = _check_operands(weights, z, affine, halo="_make_bwd_kernel_halo")
+def _launch_band(weights, z: torch.Tensor, affine: bool, reverse: bool):
+    """K4: the step over row bands, G bands staged per group."""
+    hidden, cout = _check_operands(weights, z, affine)
+    lib = _build.library()
     b, h, w, c = z.shape
+    direction = "reverse" if reverse else "forward"
+    r = band_rows(h, w)
+    g = bands_per_launch(direction, b, h, w, c, hidden, affine)
+    me = g * (r + 4) * w
+    z = z.contiguous()
+    dev = z.device
+
+    def scratch(rows, cols, dtype=torch.float32):
+        return torch.empty(rows, cols, dtype=dtype, device=dev)
+
+    out = torch.empty_like(z)
+    ld = torch.empty(b, dtype=torch.float32, device=dev)
+    zext = scratch(me, c)
+    v = zext if reverse else scratch(me, c)
+    h1, h2 = scratch(me, hidden, torch.bfloat16), scratch(me, hidden, torch.bfloat16)
+    y = scratch(me, 9 * cout)
+    tmp = scratch(g * r * w, c) if reverse else out
+    ld_band = torch.empty(b * (h // r), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.glow_flowstep_band(
+            int(reverse), int(affine), b, h, w, c, hidden, r, g,
+            z.data_ptr(), *(wt.data_ptr() for wt in weights),
+            out.data_ptr(), ld.data_ptr(), zext.data_ptr(), v.data_ptr(), h1.data_ptr(),
+            h2.data_ptr(), y.data_ptr(), tmp.data_ptr(), ld_band.data_ptr(), _stream(dev),
+        )
+    _build.check(lib, status, "glow_flowstep_band")
+    launches["band_" + direction] += 1
+    return out, ld
+
+
+def _backward_operands(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
+                       affine: bool):
+    """Checked, contiguous backward operands, the bf16 transposes of w1, w2,
+    w3 and the outputs: (hidden, z, g_zn, g_ld, transposed, g_z, grads)."""
+    hidden, _ = _check_operands(weights, z, affine)
+    b = z.shape[0]
     if g_zn.shape != z.shape or g_ld.shape != (b,):
         raise ValueError(f"cotangents {tuple(g_zn.shape)}, {tuple(g_ld.shape)} do not match "
                          f"z {tuple(z.shape)}")
     if g_zn.device != z.device or g_ld.device != z.device:
         raise ValueError("the cotangents must lie on z's device")
-    lib = _build.library()
-    dev = z.device
     z = z.contiguous()
-    g_zn = g_zn.float().contiguous()
-    g_ld = g_ld.float().contiguous()
     transposed = [weights[i].t().contiguous() for i in (3, 6, 9)]  # w1t, w2t, w3t
-    g_z = torch.empty_like(z)
-    grads = [torch.empty(wt.shape, dtype=torch.float32, device=dev) for wt in weights]
+    grads = [torch.empty(wt.shape, dtype=torch.float32, device=z.device) for wt in weights]
+    return (hidden, z, g_zn.float().contiguous(), g_ld.float().contiguous(), transposed,
+            torch.empty_like(z), grads)
+
+
+def _launch_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
+                     affine: bool):
+    hidden, z, g_zn, g_ld, transposed, g_z, grads = _backward_operands(
+        weights, z, g_zn, g_ld, affine)
+    lib = _build.library()
+    b, h, w, c = z.shape
+    dev = z.device
     nbytes = lib.glow_flowstep_bwd_workspace(int(affine), b, h, w, c, hidden)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.glow_flowstep_bwd(
             int(affine), b, h, w, c, hidden,
             z.data_ptr(), *(wt.data_ptr() for wt in weights),
             *(wt.data_ptr() for wt in transposed), g_zn.data_ptr(), g_ld.data_ptr(),
-            g_z.data_ptr(), *(g.data_ptr() for g in grads), workspace.data_ptr(), stream,
+            g_z.data_ptr(), *(g.data_ptr() for g in grads), workspace.data_ptr(), _stream(dev),
         )
     _build.check(lib, status, "glow_flowstep_bwd")
     launches["backward"] += 1
     return g_z, grads
 
 
+def _launch_band_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
+                          affine: bool):
+    """K5: the backward over row bands, G bands staged per group."""
+    hidden, z, g_zn, g_ld, transposed, g_z, grads = _backward_operands(
+        weights, z, g_zn, g_ld, affine)
+    lib = _build.library()
+    b, h, w, c = z.shape
+    dev = z.device
+    r = band_rows(h, w)
+    g = bands_per_launch("backward", b, h, w, c, hidden, affine)
+    nbytes = lib.glow_flowstep_band_bwd_workspace(int(affine), b, h, w, c, hidden, r, g)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.glow_flowstep_band_bwd(
+            int(affine), b, h, w, c, hidden, r, g,
+            z.data_ptr(), *(wt.data_ptr() for wt in weights),
+            *(wt.data_ptr() for wt in transposed), g_zn.data_ptr(), g_ld.data_ptr(),
+            g_z.data_ptr(), *(gr.data_ptr() for gr in grads), workspace.data_ptr(), _stream(dev),
+        )
+    _build.check(lib, status, "glow_flowstep_band_bwd")
+    launches["band_backward"] += 1
+    return g_z, grads
+
+
+def _band(direction: str, weights, z: torch.Tensor, affine: bool) -> bool:
+    b, h, w, c = z.shape
+    return tiling(direction, b, h, w, c, weights[3].shape[0], affine) == "band"
+
+
 def step_forward(weights, z: torch.Tensor, affine: bool):
     """NHWC z -> (z_next, coupling logdet (B,)); `weights` from
     `pack_weights(..., reverse=False)`."""
+    band = _band("forward", weights, z, affine)
     if z.device.type == "cpu":
-        return step_forward_ref(weights, z, affine, weights[3].dtype)
-    return _launch(weights, z, affine, reverse=False)
+        ref = step_forward_band_ref if band else step_forward_ref
+        return ref(weights, z, affine, weights[3].dtype)
+    return (_launch_band if band else _launch)(weights, z, affine, reverse=False)
 
 
 def step_reverse(weights, z: torch.Tensor, affine: bool) -> torch.Tensor:
     """Inverse step; `weights` from `pack_weights(..., reverse=True)`."""
+    band = _band("reverse", weights, z, affine)
     if z.device.type == "cpu":
-        return step_reverse_ref(weights, z, affine, weights[3].dtype)
-    out, _ = _launch(weights, z, affine, reverse=True)
+        ref = step_reverse_band_ref if band else step_reverse_ref
+        return ref(weights, z, affine, weights[3].dtype)
+    out, _ = (_launch_band if band else _launch)(weights, z, affine, reverse=True)
     return out
 
 
 def step_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
                   affine: bool):
     """Backward of `step_forward` at input z: (g_z, [12 f32 weight grads])."""
+    band = _band("backward", weights, z, affine)
     if z.device.type == "cpu":
-        return step_backward_ref(weights, z, g_zn, g_ld, affine, weights[3].dtype)
-    return _launch_backward(weights, z, g_zn, g_ld, affine)
+        ref = step_backward_band_ref if band else step_backward_ref
+        return ref(weights, z, g_zn, g_ld, affine, weights[3].dtype)
+    return (_launch_band_backward if band else _launch_backward)(weights, z, g_zn, g_ld, affine)
 
 
 # ---------------------------------------------------------------------------

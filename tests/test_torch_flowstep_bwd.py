@@ -166,7 +166,8 @@ def test_backward_on_cpu_takes_plain_version_and_counts_no_launch():
         g_z, grads = tfs.step_backward(weights, z, gzn, gld, True)
         r_z, r_grads = tfs.step_backward_ref(weights, z, gzn, gld, True)
     assert torch.equal(g_z, r_z) and all(torch.equal(a, r) for a, r in zip(grads, r_grads))
-    assert tfs.launches == {"forward": 0, "reverse": 0, "backward": 0}
+    assert tfs.launches == {"forward": 0, "reverse": 0, "backward": 0,
+                            "band_forward": 0, "band_reverse": 0, "band_backward": 0}
 
 
 def test_backward_kernel_entry_raises_on_cpu_tensor():
