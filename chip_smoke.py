@@ -77,13 +77,41 @@
    per-parameter grad rule, fused vs unfused (with remat) over 3 steps,
    step time, images/s and peak memory.
 
+12. Holds the LU 1x1 conv kernels (`csrc/invconv.cu`: K6a builds W from
+   the LU factors and mixes, K6b mixes with W^-1) against their plain
+   versions on CUDA tensors at the cifar10 level shapes (b=256), the
+   celebahq256 DDI widths (C = 96, 192, 384) and two odd cases: y within
+   2e-5 * max(1, max|y|), the round-trip within 2e-4 (or twice the plain
+   f32 version's own), a second launch bitwise equal; timed beside the
+   plain version, the library yardstick and the bound, and the kernels'
+   own device time (torch.profiler) beside the host-bound call time.
+13. Serves cifar10 at full width (K=32, L=3, hidden 512, b=256) on the
+   unfused flow step with invconv_impl="pallas": DDI (96 K6a), nll (96
+   K6a), a T=0.7 sample (96 K6b), reconstruct (96 + 96, exact to 2e-4);
+   nll against invconv_impl="xla" within rtol 1e-4, also with perturbed
+   zero-convs; times and peak memory.
+14. DDIs celeba64 (the fused preset) with invconv_impl="pallas" (128 K6a)
+   against the "xla" DDI (rtol 1e-3, atol 1e-5; the bf16 coupling nets'
+   own actnorms to bf16 resolution), and again at f32 coupling; runs the plain
+   1x1 conv and the fixed shuffle / reverse permutations on the fused path
+   (K=4 celeba64, nll against the unfused path within rtol 2e-2).
+15. Trains cifar10 through the train CLI in-process (10 steps with
+   snapshots every 5, a second call that resumes to 15, against an
+   uninterrupted 15-step run within rtol 1e-5); grads of one loss_fn at
+   f32 coupling, K6 against the plain mix, within relative l2 1e-4 or
+   twice the plain path's own distance with its mix in f64; 3 bf16
+   steps on both within rtol 2e-2; step time.  Then the infer CLI on the
+   snapshot: nll, sample -n 16 (its PNG decoded and held to the same
+   samples drawn again), recon, and --exact with no K6 launch.
+
 With --profile, also prints torch.profiler's device time by kernel, and
-the device's idle share, for one fused and one unfused train step of each
-preset.
+the device's idle share, for one fused and one unfused train step of
+celeba64 and celebahq256, and one cifar10 unfused step with and without
+the K6 kernels.
 
 Prints a JSON line of per-kernel results (each kernel's launches from the
 main-path run that drives it: K1/K2 from 4, K3 from 7, K4 from 10, K5 from
-11), the card line, and last
+11, K6a/K6b from 13), the card line, and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, with no result line,
 without a CUDA device or when any check fails.
 """
@@ -94,9 +122,11 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -119,6 +149,14 @@ BAND_BWD_TPU_KERNEL = "pytorch_glow_tpu/ops/flowstep_pallas.py:886"
 # the levels K1/K2 (all but level 0) and K3 (levels 2-5) run.
 HQ_BAND_SHAPES = [(128, 128, 12), (64, 64, 24)]
 HQ_WHOLE_SHAPES = [(64, 64, 24), (32, 32, 48), (16, 16, 96), (8, 8, 192), (4, 4, 384)]
+INVCONV_SOURCE = "pytorch_glow_tpu_torch/csrc/invconv.cu"
+INVCONV_TPU_KERNELS = {"invconv_forward": "pytorch_glow_tpu/ops/invconv_pallas.py:52",
+                       "invconv_reverse": "pytorch_glow_tpu/ops/invconv_pallas.py:158"}
+# (N, C) of the K6 checks: the cifar10 levels at b=256 (the kernels line
+# takes the first), the celebahq256 DDI widths at b=64, two odd cases.
+INVCONV_CASES = [(65536, 12), (16384, 24), (4096, 48), (16384, 96), (4096, 192), (1024, 384),
+                 (1000, 6), (1025, 130)]
+CIFAR_BATCH = 256
 # Published H100 SXM peaks at 700 W: dense bf16 tensor cores, f32 outside
 # them, HBM3.
 PEAK_BF16 = 989e12
@@ -179,6 +217,24 @@ def median_ms(fn, torch, reps: int = 5, inner: int = 3) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
+
+
+def device_ms(fn, torch, reps: int = 20) -> float:
+    """Device time per call (torch.profiler): the sum of the kernels' own
+    device time over `reps` calls, over `reps`.  Unlike `median_ms` it
+    leaves out the host's time between launches, which bounds a short
+    kernel's back-to-back calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def noisy_step(c: int, mode: str, generator, torch):
@@ -385,6 +441,115 @@ def check_backward(torch, fs, results: dict, cases=None, time_all: bool = False,
                 print_times(tag, times, b, h, w, c, affine, results, (h, w, c) == LEVEL_SHAPES[0])
 
 
+def random_lu(c: int, generator, torch):
+    """LU factors of a random 1x1 conv, perturbed off the rotation as the
+    JAX package's own K6 tests perturb theirs (tests/test_invconv_pallas.py
+    `_lu`), on the card."""
+    from pytorch_glow_tpu_torch.models.layers import InvConv1x1LU
+
+    conv = InvConv1x1LU(c, generator)
+    with torch.no_grad():
+        conv.lower.add_(0.02 * torch.randn(c, c, generator=generator))
+        conv.upper.add_(0.02 * torch.randn(c, c, generator=generator))
+        conv.log_s.add_(0.1)
+    return conv.cuda()
+
+
+def invconv_bound_ms(kind: str, n: int, c: int):
+    """The least time of one K6 call: each input read once and each output
+    written once over the memory rate, against its f32 FMAs over the f32
+    peak.  K6a reads x and the LU factors (L, U, log_s, sign_s, the int64
+    permutation), builds W (sum over k <= min(p[i], j): about C^3 / 3
+    FMAs) and mixes; K6b reads x and W^-1 and mixes."""
+    if kind == "invconv_forward":
+        nbytes = 4 * (2 * n * c + 2 * c * c + 2 * c) + 8 * c
+        flops = 2 * n * c * c + 2 * c ** 3 / 3
+    else:
+        nbytes = 4 * (2 * n * c + c * c)
+        flops = 2 * n * c * c
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_invconv(torch, icf, results: dict, card: str) -> None:
+    """K6a and K6b against their plain versions on CUDA tensors: the cifar10
+    level shapes at b=256, the celebahq256 DDI widths (C = 96, 192, 384 at
+    b=64) and two odd cases.  y within 2e-5 * max(1, max|y|) (the JAX
+    bound, tests/test_invconv_pallas.py:34), the logdet equal to sum(log_s),
+    the reverse likewise against its plain version, the round-trip
+    K6b(K6a(x)) within 2e-4 (:52) or twice the plain f32 version's own where
+    C is wide, a second launch bitwise equal.  Times each case beside its
+    plain version, the library yardstick (the unfused `InvConv1x1LU.forward`
+    for K6a, one `torch.matmul(x, W.T)` for K6b) and the bound; the cifar10
+    level-0 case's numbers go into the kernels line."""
+    from pytorch_glow_tpu_torch.ops import invconv as ic
+
+    gen = torch.Generator().manual_seed(SEED + 40)
+    for n, c in INVCONV_CASES:
+        conv = random_lu(c, gen, torch)
+        x = torch.randn(n, c, generator=gen).cuda()
+        with torch.no_grad():
+            lu = conv.lu_params()
+            w, w_inv = ic.lu_assemble(lu), ic.lu_inverse(lu)
+            yk, ld = icf.invconv_lu_forward(x, lu)
+            yk2, _ = icf.invconv_lu_forward(x, lu)
+            yr = ic.mix_channels(x, w)
+            xk = icf.invconv_lu_reverse(yk, lu)
+            xk2 = icf.invconv_lu_reverse(yk, lu)
+            xr = ic.mix_channels(yk, w_inv)
+            plain_rt = float((ic.mix_channels(yr, w_inv) - x).abs().max())
+        torch.cuda.synchronize()
+        tag = f"K6 {n}x{c}"
+        require(torch.equal(yk, yk2) and torch.equal(xk, xk2), f"{tag}: a second launch differs")
+        require(bool(torch.isfinite(yk).all() and torch.isfinite(xk).all()), f"{tag}: non-finite")
+        fwd_err, rev_err = float((yk - yr).abs().max()), float((xk - xr).abs().max())
+        fwd_tol = 2e-5 * max(1.0, float(yr.abs().max()))
+        rev_tol = 2e-5 * max(1.0, float(xr.abs().max()))
+        rt_err = float((xk - x).abs().max())
+        rt_tol = max(2e-4, 2.0 * plain_rt)
+        print(f"kernel {tag}: forward max |diff| {fwd_err:.3e} (bound {fwd_tol:.3e}), reverse "
+              f"{rev_err:.3e} (bound {rev_tol:.3e}), round-trip {rt_err:.3e} (bound "
+              f"{rt_tol:.3e}, plain f32 {plain_rt:.3e})")
+        require(fwd_err <= fwd_tol, f"{tag}: forward max |diff| {fwd_err}")
+        require(rev_err <= rev_tol, f"{tag}: reverse max |diff| {rev_err}")
+        require(rt_err <= rt_tol, f"{tag}: round-trip {rt_err}")
+        require(torch.equal(ld, lu.log_s.sum()), f"{tag}: logdet is not sum(log_s)")
+        results["invconv_forward"]["max_abs_err"] = max(results["invconv_forward"]["max_abs_err"],
+                                                        fwd_err)
+        results["invconv_reverse"]["max_abs_err"] = max(results["invconv_reverse"]["max_abs_err"],
+                                                        rev_err)
+
+        # K6a from the LU factors, K6b from W^-1 (its solves are outside the
+        # kernel, timed apart), each beside its plain version on the same inputs.
+        x4 = x.view(1, 1, n, c)
+        with torch.no_grad():
+            times = {
+                "invconv_forward": (
+                    median_ms(lambda: icf._launch_forward(x, lu), torch),
+                    median_ms(lambda: ic.mix_channels(x, ic.lu_assemble(lu)), torch),
+                    median_ms(lambda: conv(x4), torch)),
+                "invconv_reverse": (
+                    median_ms(lambda: icf._launch_mix(yk, w_inv), torch),
+                    median_ms(lambda: ic.mix_channels(yk, w_inv), torch),
+                    median_ms(lambda: torch.matmul(yk, w_inv.T), torch)),
+            }
+            wrappers = (median_ms(lambda: icf.invconv_lu_forward(x, lu), torch),
+                        median_ms(lambda: icf.invconv_lu_reverse(yk, lu), torch),
+                        median_ms(lambda: ic.lu_inverse(lu), torch))
+            on_device = {"invconv_forward": device_ms(lambda: icf._launch_forward(x, lu), torch),
+                         "invconv_reverse": device_ms(lambda: icf._launch_mix(yk, w_inv), torch)}
+        for name, (ms, plain_ms, lib_ms) in times.items():
+            bound, by = invconv_bound_ms(name, n, c)
+            print(f"time {name} {n}x{c}: kernel {ms:.4f} ms (device {on_device[name]:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            if (n, c) == INVCONV_CASES[0]:
+                results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                     bound_ms=bound, bound_by=by)
+        print(f"time K6 wrappers {n}x{c}: invconv_lu_forward {wrappers[0]:.4f} ms, "
+              f"invconv_lu_reverse {wrappers[1]:.4f} ms, of which lu_inverse {wrappers[2]:.4f} ms")
+    print(f"card for these times: {card}")
+
+
 def clone_state(state: dict, model) -> dict:
     """A train state on `model` with copies of the optimizer state and EMA."""
     out = {**state, "model": model,
@@ -450,17 +615,20 @@ def expected_launches(fs, cfg, b: int, directions, times: int = 1) -> dict:
     return out
 
 
-def check_training(torch, fs, card: str, profiling: bool = False, preset: str = "celeba64",
-                   batch: int = TRAIN_BATCH, num_steps: int | None = None,
-                   time_steps: int = 3, want: dict | None = None) -> dict:
-    """The training path of a preset at full width and its own batch: one
-    `train` call of `num_steps` steps (default: steps_per_call), whose
-    launches must be `want` (default: each level's chain, K per step)."""
+def check_training(torch, fs, card: str, out_dir: str, profiling: bool = False,
+                   preset: str = "celeba64", batch: int = TRAIN_BATCH,
+                   num_steps: int | None = None, time_steps: int = 3,
+                   want: dict | None = None) -> dict:
+    """The training path of a preset at full width and its own batch, with
+    snapshots under `out_dir`: one `train` call of `num_steps` steps
+    (default: steps_per_call), whose launches must be `want` (default: each
+    level's chain, K per step)."""
     from pytorch_glow_tpu_torch import PRESETS, build, init_glow, train
     from pytorch_glow_tpu_torch.train import step as steplib
 
     profile = PRESETS[preset]
-    profile = profile.replace(data=dataclasses.replace(profile.data, name="synthetic_textured"))
+    profile = profile.replace(data=dataclasses.replace(profile.data, name="synthetic_textured"),
+                              out_dir=out_dir)
     cfg, t = profile.glow, profile.train
     require(t.batch_size == batch, f"{preset} batch {t.batch_size}")
     num_steps = num_steps or t.steps_per_call
@@ -777,6 +945,443 @@ def check_serving(torch, fs, card: str, preset: str, want_nll=None, want_sample=
     return launches
 
 
+def decode_png(data: bytes):
+    """The 8-bit, filter-0 PNGs `utils/image.encode_png` writes -> (H, W, C)
+    uint8 (the card's machine may have no Pillow)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", "PNG signature")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        require(zlib.crc32(kind + body) & 0xFFFFFFFF
+                == struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0], f"PNG {kind} CRC")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype = header
+    c = {0: 1, 2: 3, 6: 4}[ctype]
+    require(depth == 8, f"PNG bit depth {depth}")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * c)
+    require(bool((raw[:, 0] == 0).all()), "PNG row filters")
+    return raw[:, 1:].reshape(h, w, c)
+
+
+def cifar_cfg(invconv_impl: str = "pallas"):
+    """The cifar10 preset on the unfused flow step, with the 1x1 conv's
+    implementation as given."""
+    from pytorch_glow_tpu_torch import PRESETS
+
+    return dataclasses.replace(PRESETS["cifar10"].glow, flowstep_impl="xla",
+                               invconv_impl=invconv_impl)
+
+
+def check_invconv_serving(torch, icf, fs, card: str) -> dict:
+    """cifar10 served at full width (K=32, L=3, hidden 512, bf16 coupling)
+    on the unfused flow step with invconv_impl="pallas", random weights
+    from a seed, b=256: init + DDI (96 K6a calls), then an Inferer answers
+    nll (96 K6a), a T=0.7 sample (96 K6b) and a reconstruct (96 + 96,
+    exact to 2e-4) with no fused flow-step launch; nll against the same
+    model with invconv_impl="xla" within rtol 1e-4 (the JAX bound,
+    tests/test_invconv_pallas.py:91-93), again with the zero-convs
+    perturbed; nll and sample images/s beside the "xla" model's, and peak
+    memory.  Returns the K6 launches of nll + sample + reconstruct."""
+    import numpy as np
+
+    from pytorch_glow_tpu_torch import Inferer, init_glow
+
+    cfg = cifar_cfg()
+    b, k = CIFAR_BATCH, cfg.K * cfg.L
+    t0 = time.perf_counter()
+    model = init_glow(cfg, torch.Generator().manual_seed(SEED), "cuda")
+    images = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (b, *cfg.image_shape), dtype="uint8")).cuda()
+    cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    icf.reset_launches()
+    model.ddi_init(model.dequantize(model.preprocess(images), cuda_gen))
+    torch.cuda.synchronize()
+    ddi = dict(icf.launches)
+    print(f"init + DDI (cifar10 unfused, invconv_impl=pallas, K={cfg.K}, L={cfg.L}, hidden "
+          f"{cfg.hidden_channels}, b={b}): {time.perf_counter() - t0:.2f} s, K6 launches {ddi}")
+    require(ddi == {"invconv_forward": k, "invconv_reverse": 0}, f"cifar10 DDI launches {ddi}")
+
+    # -- the main path: an Inferer answers nll, sample and reconstruct -------
+    inf = Inferer(model)
+    x = model.preprocess(images)
+    fs.reset_launches()
+    icf.reset_launches()
+    nll = inf.nll(images)
+    torch.cuda.synchronize()
+    after_nll = dict(icf.launches)
+    with torch.no_grad():
+        xs = model.sample(b, 0.7, cuda_gen)
+    torch.cuda.synchronize()
+    after_sample = dict(icf.launches)
+    with torch.no_grad():
+        rec = model.reconstruct(x)
+    torch.cuda.synchronize()
+    launches = dict(icf.launches)
+    print(f"cifar10 K6 launches: after nll {after_nll}, after sample {after_sample}, after "
+          f"reconstruct {launches}; fused flow-step launches {dict(fs.launches)}")
+    require(after_nll == {"invconv_forward": k, "invconv_reverse": 0}, f"nll {after_nll}")
+    require(after_sample == {"invconv_forward": k, "invconv_reverse": k}, f"sample {after_sample}")
+    require(launches == {"invconv_forward": 2 * k, "invconv_reverse": 2 * k},
+            f"reconstruct {launches}")
+    require(not any(fs.launches.values()), f"fused launches on the unfused path {fs.launches}")
+    require(nll.shape == (b,) and bool(torch.isfinite(nll).all()), "cifar10 nll finite, shape")
+    require(bool(torch.isfinite(xs).all()) and xs.shape == (b, *cfg.image_shape),
+            "cifar10 sample finite, shape")
+    rec_err = float((rec - x).abs().max())
+    print(f"cifar10 nll bits/dim: mean {float(nll.mean()):.6f}; sample T=0.7 range "
+          f"[{float(xs.min()):.4f}, {float(xs.max()):.4f}]; reconstruct max |x - rec| "
+          f"{rec_err:.3e}")
+    require(rec_err <= 2e-4, f"cifar10 reconstruct error {rec_err}")
+
+    plain = init_glow(cifar_cfg("xla"), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    plain_inf = Inferer(plain)
+
+    def compare(what: str) -> None:
+        got, want = inf.nll(images), plain_inf.nll(images)
+        rel = float(((got - want).abs() / want.abs()).max())
+        print(f"cifar10 nll, invconv_impl pallas vs xla ({what}): max rel diff {rel:.3e}")
+        require(rel <= 1e-4, f"cifar10 nll pallas vs xla rel diff {rel} ({what})")
+
+    compare("init + DDI")
+    nll_ms = median_ms(lambda: inf.nll(images), torch, reps=3, inner=1)
+    nll_plain_ms = median_ms(lambda: plain_inf.nll(images), torch, reps=3, inner=1)
+    smp_ms = median_ms(lambda: inf.sample(b, 0.7, cuda_gen), torch, reps=3, inner=1)
+    smp_plain_ms = median_ms(lambda: plain_inf.sample(b, 0.7, cuda_gen), torch, reps=3, inner=1)
+    torch.cuda.reset_peak_memory_stats()
+    inf.nll(images)
+    nll_mem = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    inf.sample(b, 0.7, cuda_gen)
+    smp_mem = torch.cuda.max_memory_allocated()
+    print(f"time cifar10 nll b={b}: invconv kernels {nll_ms:.3f} ms ({b * 1e3 / nll_ms:.1f} "
+          f"img/s, peak {nll_mem / 2**30:.2f} GiB), invconv xla {nll_plain_ms:.3f} ms "
+          f"({b * 1e3 / nll_plain_ms:.1f} img/s)")
+    print(f"time cifar10 sample b={b} T=0.7: invconv kernels {smp_ms:.3f} ms "
+          f"({b * 1e3 / smp_ms:.1f} img/s, peak {smp_mem / 2**30:.2f} GiB), invconv xla "
+          f"{smp_plain_ms:.3f} ms ({b * 1e3 / smp_plain_ms:.1f} img/s)")
+    print(f"card for these times: {card}")
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".f.4." in name:
+                p.add_(0.003 * torch.randn(p.shape, generator=gen).cuda())
+    plain.load_state_dict(model.state_dict())
+    compare("perturbed zero-convs")
+    del model, plain, inf, plain_inf
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_invconv_ddi(torch, icf, card: str) -> None:
+    """celeba64 (the fused preset) DDI'd with invconv_impl="pallas": K*L = 128
+    K6a calls, and its post-DDI tensors against the "xla" DDI from the same
+    init and batch, each element within rtol 1e-3 with an absolute 1e-5
+    beside it (DDI leaves every actnorm output at zero mean, so all but each
+    level's first step's actnorm biases are f32 rounding noise near 0, where
+    a relative bound means nothing; the activations they shift have unit
+    scale).  At init the coupling nets add nothing to the flow, so the flow
+    itself stays f32 under either coupling dtype; but at the preset's bf16
+    coupling the nets apply their own DDI'd actnorms (f.0, f.2) rounded to
+    bf16, so an f32 last-bit difference in a bias flips its rounding and
+    shifts every later mean in that net.  There those actnorms are held to
+    bf16 resolution on their unit-scale output: |d bias| * exp(logs) and
+    |d logs| within 2^-8.  At f32 coupling every tensor takes the rtol."""
+    import numpy as np
+
+    from pytorch_glow_tpu_torch import PRESETS, init_glow
+
+    base = PRESETS["celeba64"].glow
+    images = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (BATCH, *base.image_shape), dtype="uint8")).cuda()
+    for dtype in (base.compute_dtype, "float32"):
+        states = {}
+        for impl in ("pallas", "xla"):
+            cfg = dataclasses.replace(base, invconv_impl=impl, compute_dtype=dtype)
+            model = init_glow(cfg, torch.Generator().manual_seed(SEED), "cuda")
+            noise = torch.Generator(device="cuda").manual_seed(SEED + 2)
+            icf.reset_launches()
+            model.ddi_init(model.dequantize(model.preprocess(images), noise))
+            torch.cuda.synchronize()
+            want = cfg.K * cfg.L if impl == "pallas" else 0
+            require(icf.launches == {"invconv_forward": want, "invconv_reverse": 0},
+                    f"celeba64 DDI ({dtype}, {impl}) launches {icf.launches}")
+            states[impl] = model.state_dict()
+            del model
+        xla, got = states["xla"], states["pallas"]
+        rows = {"rtol": [], "bf16": []}
+        for name, want in xla.items():
+            if not want.is_floating_point():
+                continue
+            err = (got[name] - want).abs()
+            if dtype == "bfloat16" and ".f." in name and ".actnorm." in name:
+                if name.endswith(".bias"):
+                    err = err * xla[name.removesuffix("bias") + "logs"].exp()
+                rows["bf16"].append((float(err.max()) / 2.0 ** -8, float(err.max()), name))
+            else:
+                rows["rtol"].append((float((err / (1e-3 * want.abs() + 1e-5)).max()),
+                                     float(err.max()), name))
+        print(f"celeba64 DDI ({dtype} coupling; {cfg.K * cfg.L} K6a launches), post-DDI "
+              f"tensors, pallas vs xla:")
+        for rule, what in (("rtol", "each element within 1e-3 |xla| + 1e-5"),
+                           ("bf16", "the nets' actnorms within 2^-8 on their output")):
+            if rows[rule]:
+                worst, largest = max(rows[rule]), max(rows[rule], key=lambda r: r[1])
+                print(f"  {len(rows[rule])} tensors, {what}: worst {worst[0]:.3e} of the bound "
+                      f"({worst[2]}); largest |diff| {largest[1]:.3e} ({largest[2]})")
+                require(worst[0] <= 1.0, f"celeba64 DDI ({dtype}) pallas vs xla: {worst}")
+    torch.cuda.empty_cache()
+
+
+def check_fused_permutations(torch, fs) -> None:
+    """The plain 1x1 conv and the fixed shuffle / reverse on the fused flow
+    step: for each, a K=4 celeba64 model (init + DDI, zero-convs perturbed)
+    whose fused nll is within rtol 2e-2 of its unfused nll (the repo's
+    fused-vs-unfused bound), with K*L forward launches."""
+    import numpy as np
+
+    from pytorch_glow_tpu_torch import PRESETS, Inferer, init_glow
+
+    base = dataclasses.replace(PRESETS["celeba64"].glow, K=4)
+    images = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, 256, (BATCH, *base.image_shape), dtype="uint8")).cuda()
+    for mode, lu in (("invconv", False), ("shuffle", True), ("reverse", True)):
+        cfg = dataclasses.replace(base, flow_permutation=mode, lu_decomposed=lu)
+        model = init_glow(cfg, torch.Generator().manual_seed(SEED), "cuda")
+        noise = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        model.ddi_init(model.dequantize(model.preprocess(images), noise))
+        gen = torch.Generator().manual_seed(SEED + 1)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if ".f.4." in name:
+                    p.add_(0.003 * torch.randn(p.shape, generator=gen).cuda())
+        plain = init_glow(dataclasses.replace(cfg, flowstep_impl="xla"), device="cuda")
+        plain.load_state_dict(model.state_dict())
+        fs.reset_launches()
+        nll = Inferer(model).nll(images)
+        torch.cuda.synchronize()
+        fused_launches = fs.launches["forward"]
+        nll_plain = Inferer(plain).nll(images)
+        rel = float(((nll - nll_plain).abs() / nll_plain.abs()).max())
+        kind = "plain 1x1 conv" if mode == "invconv" else mode
+        print(f"fused path, {kind} permutation (celeba64, K=4): nll fused vs unfused max rel "
+              f"diff {rel:.3e}, mean {float(nll.mean()):.6f}; {fused_launches} forward launches")
+        require(fused_launches == cfg.K * cfg.L, f"{kind}: fused launches {fused_launches}")
+        require(bool(torch.isfinite(nll).all()) and rel <= 2e-2, f"{kind}: nll rel diff {rel}")
+        del model, plain
+    torch.cuda.empty_cache()
+
+
+def run_cli(main, argv: list[str]):
+    """One in-process CLI call -> (its return value, its standard output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    print("\n".join(f"  | {line}" for line in out.getvalue().strip().splitlines()))
+    return result, out.getvalue()
+
+
+def check_invconv_training(torch, icf, card: str, out_root: str,
+                           profiling: bool = False) -> dict:
+    """cifar10 trained at full width (b=256) through the train CLI,
+    in-process (so the TF32 and determinism pins hold), on the unfused
+    flow step with invconv_impl="pallas" and synthetic textured data: 10
+    steps with a snapshot every 5 (DDI's 96 K6a calls, then 96 per step),
+    a second call to 15 that resumes from step 10 (96 per step, no DDI),
+    and its step-15 loss against an uninterrupted 15-step run within rtol
+    1e-5.  Then one `loss_fn` at f32 coupling with invconv_impl "pallas"
+    against "xla": every parameter's grad within relative l2 1e-4, or twice
+    the plain path's own worst distance with its mix in f64 where that is
+    larger (a last-bit move of the mix flips ReLUs downstream); three
+    steps from one state at the preset's bf16 on both, grad_norm and loss
+    within rtol 2e-2; step time, images/s and peak memory.  Then the infer
+    CLI on the snapshot: nll, `sample -n 16` (a PNG that decodes to the
+    grid of the same samples drawn again) and recon, with their K6
+    launches, and `--exact` with none.  Returns the K6 launches of the
+    first train call."""
+    import numpy as np
+
+    from pytorch_glow_tpu_torch import Inferer, build, init_glow
+    from pytorch_glow_tpu_torch.cli import infer as infer_cli
+    from pytorch_glow_tpu_torch.cli import train as train_cli
+    from pytorch_glow_tpu_torch.ops import invconv as ic
+    from pytorch_glow_tpu_torch.train import step as steplib
+    from pytorch_glow_tpu_torch.utils.image import make_grid
+
+    sets = ["--set", "glow.flowstep_impl=xla", "--set", "glow.invconv_impl=pallas"]
+    common = ["cifar10", "--synthetic", "textured", "--quiet", *sets]
+    run_dir, straight_dir = os.path.join(out_root, "run"), os.path.join(out_root, "straight")
+    cfg = cifar_cfg()
+    k = cfg.K * cfg.L
+
+    # -- the main path: the train CLI, 10 steps, snapshots every 5 ---------
+    icf.reset_launches()
+    t0 = time.perf_counter()
+    first, _ = run_cli(train_cli.main, [*common, "--out-dir", run_dir, "--steps", "10",
+                                        "--set", "train.checkpoint_gap=5"])
+    torch.cuda.synchronize()
+    launches = dict(icf.launches)
+    print(f"train CLI cifar10 (unfused, invconv_impl=pallas, b={CIFAR_BATCH}), 10 steps: "
+          f"{time.perf_counter() - t0:.2f} s, K6 launches {launches}")
+    snaps = sorted(os.listdir(os.path.join(run_dir, "cifar10", "checkpoints")))
+    require(first["final_step"] == 10 and math.isfinite(first["loss"]), f"train {first}")
+    require(launches == {"invconv_forward": k + 10 * k, "invconv_reverse": 0},
+            f"train launches {launches}")
+    require(snaps == ["10.pt", "5.pt"], f"snapshots {snaps}")
+
+    icf.reset_launches()
+    resumed, text = run_cli(train_cli.main, [*common, "--out-dir", run_dir, "--steps", "15",
+                                             "--set", "train.checkpoint_gap=5"])
+    torch.cuda.synchronize()
+    require("resumed from step 10" in text, "the second call did not resume")
+    require(icf.launches["invconv_forward"] == 5 * k, f"resumed launches {icf.launches}")
+    straight, _ = run_cli(train_cli.main, [*common, "--out-dir", straight_dir, "--steps", "15",
+                                           "--set", "train.checkpoint_gap=5"])
+    rel = abs(resumed["loss"] - straight["loss"]) / abs(straight["loss"])
+    print(f"step-15 loss: resumed {resumed['loss']:.7f}, uninterrupted {straight['loss']:.7f} "
+          f"(rel {rel:.2e})")
+    require(resumed["final_step"] == 15 and rel <= 1e-5, f"resume: {resumed} vs {straight}")
+
+    # -- grads: pallas vs xla at f32 coupling --------------------------------
+    built = build(train_cli.resolve_profile(train_cli.parse_args(
+        [*common, "--out-dir", run_dir, "--set", "train.checkpoint_gap=5"])))
+    require(built.resumed and built.start_step == 15, "build did not restore step 15")
+    model, t = built.state["model"], built.profile.train
+    x = model.preprocess(torch.from_numpy(next(built.data)["image"]).cuda())
+
+    def param_grads(impl: str):
+        m = init_glow(dataclasses.replace(cifar_cfg(impl), compute_dtype="float32"))
+        m.load_state_dict(model.state_dict())
+        params = list(m.parameters())
+        loss, _ = m.loss_fn(x, torch.Generator(device="cuda").manual_seed(SEED))
+        got = torch.autograd.grad(loss, params, allow_unused=True)
+        return [g if g is not None else torch.zeros_like(p) for g, p in zip(got, params)]
+
+    def distance(got, want):
+        """-> (the three worst (relative l2, name) over the tensors, the
+        relative l2 of all grads as one vector)."""
+        rows = sorted(((rel_l2(g, w), n) for (n, _), g, w in
+                       zip(model.named_parameters(), got, want)), reverse=True)
+        whole = rel_l2(torch.cat([g.flatten() for g in got]),
+                       torch.cat([w.flatten() for w in want]))
+        return rows[:3], whole
+
+    icf.reset_launches()
+    got = param_grads("pallas")
+    require(icf.launches["invconv_forward"] == k, f"loss_fn launches {icf.launches}")
+    want = param_grads("xla")
+    # The floor: the plain path against itself with its 1x1 mix (forward and
+    # backward) in f64, i.e. the same function summed in another order; a
+    # last-bit move of the mix flips ReLUs in the coupling nets downstream.
+    mix = ic.mix_channels
+    ic.mix_channels = lambda a, w: (a.double() @ w.double().T).float()
+    try:
+        f64 = param_grads("xla")
+    finally:
+        ic.mix_channels = mix
+    (worst, *_), whole = got_d = distance(got, want)
+    (floor, *_), floor_whole = floor_d = distance(f64, want)
+    bound = max(1e-4, 2.0 * floor[0])
+    for what, (rows, all_l2) in (("invconv pallas vs xla", got_d),
+                                 ("the plain path with an f64 mix vs xla", floor_d)):
+        print(f"parameter grads at f32 coupling, one loss_fn, {what}: {len(want)} tensors, "
+              f"all as one vector relative l2 {all_l2:.3e}; worst tensors "
+              + ", ".join(f"{d:.3e} ({n})" for d, n in rows))
+    print(f"bound on the worst tensor: {bound:.3e}")
+    require(worst[0] <= bound and all(bool(torch.isfinite(g).all()) for g in got),
+            f"grads pallas vs xla: {worst}, floor {floor}")
+    del got, want, f64
+
+    # -- three steps from one state at bf16: pallas vs xla -------------------
+    plain = init_glow(cifar_cfg("xla"))
+    plain.load_state_dict(model.state_dict())
+    step_p = steplib.make_train_step(cifar_cfg(), built.tx, t.ema_decay, built.schedule)
+    step_x = steplib.make_train_step(cifar_cfg("xla"), built.tx, t.ema_decay, built.schedule)
+    state_p, state_x = built.state, clone_state(built.state, plain)
+    for _ in range(3):
+        batch = torch.from_numpy(next(built.data)["image"]).cuda()
+        state_p, mp = step_p(state_p, batch)
+        state_x, mx = step_x(state_x, batch)
+        lp, lx = float(mp["loss"]), float(mx["loss"])
+        gp, gx = float(mp["grad_norm"]), float(mx["grad_norm"])
+        print(f"train step {state_p['step']}: loss pallas {lp:.6f} xla {lx:.6f}, grad_norm "
+              f"{gp:.6f} vs {gx:.6f} (rel {abs(gp - gx) / abs(gx):.2e})")
+        require(math.isfinite(gp) and abs(gp - gx) <= 2e-2 * abs(gx), f"grad_norm {gp} vs {gx}")
+    require(abs(lp - lx) <= 2e-2 * abs(lx), f"loss after 3 steps {lp} vs {lx}")
+    batches = [torch.from_numpy(next(built.data)["image"]).cuda() for _ in range(4)]
+    del state_x
+    ms_p, mem_p = train_step_ms(step_p, state_p, batches, torch)
+    ms_x, mem_x = train_step_ms(step_x, clone_state(state_p, plain), batches, torch)
+    b = CIFAR_BATCH
+    print(f"time train step cifar10 unfused b={b}: invconv kernels {ms_p:.3f} ms "
+          f"({b * 1e3 / ms_p:.1f} img/s, peak {mem_p / 2**30:.2f} GiB), invconv xla "
+          f"{ms_x:.3f} ms ({b * 1e3 / ms_x:.1f} img/s, peak {mem_x / 2**30:.2f} GiB)")
+    print(f"card for these times: {card}")
+    if profiling:
+        profile_step(step_p, state_p, batches[0], torch, "cifar10 unfused, invconv kernels")
+        profile_step(step_x, clone_state(state_p, plain), batches[0], torch,
+                     "cifar10 unfused, invconv xla")
+    del built, model, plain, state_p
+    torch.cuda.empty_cache()
+
+    # -- the infer CLI on the step-15 snapshot ---------------------------------
+    infer = ["cifar10", "--synthetic", "textured", "--out-dir", run_dir, *sets]
+    icf.reset_launches()
+    _, text = run_cli(infer_cli.main, ["nll", *infer, "--batches", "2"])
+    torch.cuda.synchronize()
+    nll = float(text.split("nll: ")[1].split()[0])
+    require(math.isfinite(nll) and icf.launches == {"invconv_forward": 2 * k,
+                                                     "invconv_reverse": 0},
+            f"infer nll {nll}, launches {icf.launches}")
+    png = os.path.join(out_root, "samples.png")
+    icf.reset_launches()
+    run_cli(infer_cli.main, ["sample", *infer, "-n", "16", "-o", png])
+    require(icf.launches == {"invconv_forward": 0, "invconv_reverse": k},
+            f"infer sample launches {icf.launches}")
+    with open(png, "rb") as f:
+        grid = decode_png(f.read())
+    snapshot = torch.load(os.path.join(run_dir, "cifar10", "checkpoints", "15.pt"),
+                          map_location="cuda", weights_only=True)
+    again = init_glow(cifar_cfg())
+    again.load_state_dict(snapshot["model"])
+    redraw = make_grid(Inferer(again).sample(
+        16, 0.7, torch.Generator(device="cuda").manual_seed(0)).cpu().numpy())
+    diff = int(np.abs(grid.astype(np.int16) - redraw.astype(np.int16)).max())
+    print(f"infer sample -n 16: PNG {grid.shape}, against the same samples drawn again: max "
+          f"uint8 diff {diff}")
+    h, w, c = cfg.image_shape
+    require(grid.shape == redraw.shape == (4 * (h + 2) + 2, 4 * (w + 2) + 2, c) and diff == 0,
+            f"sample PNG {grid.shape} diff {diff}")
+    icf.reset_launches()
+    _, text = run_cli(infer_cli.main, ["recon", *infer, "-n", "16",
+                                       "-o", os.path.join(out_root, "recon.png")])
+    require(icf.launches == {"invconv_forward": k, "invconv_reverse": k},
+            f"infer recon launches {icf.launches}")
+    require(float(text.split("max |x - rec| = ")[1].split()[0]) <= 1, "recon error")
+    icf.reset_launches()
+    _, text = run_cli(infer_cli.main, ["nll", *infer, "--batches", "2", "--exact"])
+    exact = float(text.split("nll: ")[1].split()[0])
+    print(f"infer nll on the step-15 snapshot: {nll:.4f} bits/dim (bf16 coupling, K6), "
+          f"--exact {exact:.4f} (f32, no K6: launches {dict(icf.launches)})")
+    require(not any(icf.launches.values()), f"--exact launched K6: {icf.launches}")
+    require(abs(exact - nll) <= 2e-2 * abs(exact), f"--exact nll {exact} vs {nll}")
+    return launches
+
+
 def compare_nll(inf, plain_inf, images, what: str) -> None:
     """Fused-kernel nll against the unfused PyTorch layers, the repo's rtol 2e-2."""
     nll, nll_plain = inf.nll(images), plain_inf.nll(images)
@@ -796,6 +1401,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from pytorch_glow_tpu_torch.ops import _build
     from pytorch_glow_tpu_torch.ops import flowstep as fs
+    from pytorch_glow_tpu_torch.ops import invconv_fused as icf
 
     card = card_line()
     print(f"card: {card}")
@@ -811,13 +1417,24 @@ def main() -> int:
 
     results = {d: {"max_abs_err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
                    "bound_by": None, "library_ms": None}
-               for d in fs.launches}
+               for d in [*fs.launches, *icf.launches]}
+    out_root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases(torch, fs, icf, card, results, out_root)
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+
+
+def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
+    from pytorch_glow_tpu_torch.ops import _build
+
     check_kernels(torch, fs, results)
     launches = check_serving(torch, fs, card, "celeba64")
 
     # -- the training path ----------------------------------------------------
     check_backward(torch, fs, results)
-    train_launches = check_training(torch, fs, card, "--profile" in sys.argv[1:])
+    train_launches = check_training(torch, fs, card, os.path.join(out_root, "celeba64"),
+                                    "--profile" in sys.argv[1:])
 
     # -- the 256x256 path: celebahq256 ---------------------------------------
     # K1-K3 at the level shapes they run at, in the preset's (additive) coupling.
@@ -830,27 +1447,40 @@ def main() -> int:
         torch, fs, card, "celebahq256", want_nll=counts(fs, band_forward=32, forward=160),
         want_sample=counts(fs, band_reverse=32, reverse=160), big_batch=4 * BATCH)
     hq_train_launches = check_training(
-        torch, fs, card, "--profile" in sys.argv[1:], preset="celebahq256", batch=BATCH,
-        num_steps=2, time_steps=2,
+        torch, fs, card, os.path.join(out_root, "celebahq256"), "--profile" in sys.argv[1:],
+        preset="celebahq256", batch=BATCH, num_steps=2, time_steps=2,
         want=counts(fs, band_forward=32, forward=160, band_backward=64, backward=128))
+
+    # -- the unfused cifar10 path: the LU 1x1 conv kernels K6a / K6b ---------
+    check_invconv(torch, icf, results, card)
+    invconv_launches = check_invconv_serving(torch, icf, fs, card)
+    check_invconv_ddi(torch, icf, card)
+    check_fused_permutations(torch, fs)
+    cli_launches = check_invconv_training(torch, icf, card, os.path.join(out_root, "cifar10"),
+                                          "--profile" in sys.argv[1:])
 
     # Launches: each kernel's count from the main-path run that drives it:
     # K1/K2 from the celeba64 serving run, K3 from the celeba64 training
     # run, K4 from the celebahq256 serving run, K5 from the celebahq256
-    # training run (their other launches are checked and printed above).
+    # training run, K6a/K6b from the cifar10 serving run (their other
+    # launches are checked and printed above).
     launches["backward"] = train_launches["backward"]
     for d in ("band_forward", "band_reverse"):
         launches[d] = hq_launches[d]
     launches["band_backward"] = hq_train_launches["band_backward"]
-    print(f"training-run launches: celeba64 {train_launches}, celebahq256 {hq_train_launches}")
+    launches.update(invconv_launches)
+    print(f"training-run launches: celeba64 {train_launches}, celebahq256 {hq_train_launches}, "
+          f"cifar10 train CLI (K6) {cli_launches}")
     sources = {"forward": (KERNEL_SOURCE, TPU_KERNEL), "reverse": (KERNEL_SOURCE, TPU_KERNEL),
                "backward": (BWD_SOURCE, BWD_TPU_KERNEL),
                "band_forward": (BAND_SOURCE, BAND_TPU_KERNEL),
                "band_reverse": (BAND_SOURCE, BAND_TPU_KERNEL),
-               "band_backward": (BAND_BWD_SOURCE, BAND_BWD_TPU_KERNEL)}
+               "band_backward": (BAND_BWD_SOURCE, BAND_BWD_TPU_KERNEL),
+               **{d: (INVCONV_SOURCE, tpu) for d, tpu in INVCONV_TPU_KERNELS.items()}}
     kernels = [
-        {"name": f"flowstep_{d}", "route": "cuda", "source": sources[d][0],
-         "replaces": sources[d][1], "launches": launches[d], **results[d]}
+        {"name": d if d.startswith("invconv") else f"flowstep_{d}", "route": "cuda",
+         "source": sources[d][0], "replaces": sources[d][1], "launches": launches[d],
+         **results[d]}
         for d in sources
     ]
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched: {kernels}")

@@ -3,10 +3,12 @@
 Multi-scale Glow in PyTorch for one NVIDIA H100: the serving path (forward
 NLL, temperature sampling, exact reconstruction, data-dependent actnorm
 init) and the training path (`build(profile)` -> `train(built)`: loss,
-optimizer chain, train step, synthetic data), with each flow step in
-hand-written CUDA kernels for sm_90a (`csrc/flowstep.cu` forward and
-reverse, `csrc/flowstep_bwd.cu` backward) and their plain PyTorch versions
-on CPU tensors.
+optimizer chain, train step, synthetic data, snapshots and resume), with
+each flow step in hand-written CUDA kernels for sm_90a (`csrc/flowstep*.cu`)
+and, with `invconv_impl="pallas"` on the unfused path, the LU 1x1 conv too
+(`csrc/invconv.cu`), beside their plain PyTorch versions on CPU tensors.
+JSON profiles load through `utils/profiles.py`; the CLIs are
+`python -m pytorch_glow_tpu_torch.cli.train` and `...cli.infer`.
 
 Imports `torch`, never `jax`; the JAX package beside it is the reference the
 port is tested against.

@@ -18,9 +18,17 @@ How the port reads the knobs that name JAX machinery:
   checkpoints its scan body.  The fused path has nothing to add: its
   autograd Function saves only each step's input and the backward kernel
   recomputes the step.
-* `invconv_impl`, `invconv_precision`, `scan_unroll`, `shard_spatial`: kept
-  for field parity; the port reads none of them (the 1x1 mix always runs
-  in full f32).
+* `invconv_impl="pallas"`: on the unfused path (and so under DDI, which
+  always runs it), the LU 1x1 conv runs through the hand-written kernels
+  of `csrc/invconv.cu` on a CUDA tensor (`ops/invconv_fused.py`), its
+  plain version on a CPU tensor; "xla": the plain f32 math.  The fused
+  flow step carries its own mix and ignores it, as the JAX package does.
+* `flow_permutation` / `lu_decomposed`: the LU 1x1 conv, the plain 1x1
+  conv, or a fixed shuffle / reverse (`models/layers.make_permutation`).
+* `invconv_precision`, `scan_unroll`, `shard_spatial`: kept for field
+  parity; the port reads none of them.  The 1x1 mix and its backward
+  always run in full f32, where the JAX package may drop the backward's
+  MXU passes to "high".
 """
 
 from __future__ import annotations

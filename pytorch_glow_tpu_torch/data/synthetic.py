@@ -49,6 +49,9 @@ class IndexedBatches:
         self._i += 1
         return b
 
+    def get_state(self) -> dict:
+        return {"next_index": self._i}
+
     def set_state(self, state: dict) -> None:
         self._i = int(state["next_index"])
 

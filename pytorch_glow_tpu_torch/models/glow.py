@@ -23,10 +23,16 @@ Flow steps run one of two ways per `cfg.flowstep_impl`:
   add: `FusedStep` already saves only each step's input, and its backward
   kernel recomputes the step.
 
-`ddi_init` always runs the unfused path, as the JAX package does.
+Each step's channel permutation is the profile's (`flow_permutation`,
+`lu_decomposed`): the LU 1x1 conv, the plain 1x1 conv, or a fixed shuffle /
+reverse.  The fused path takes each of them as its (C, C) mix matrix.  On
+the unfused path, `invconv_impl="pallas"` sends the LU 1x1 conv through the
+kernels K6a / K6b (`ops/invconv_fused.py`).
 
-Not ported yet: y-conditioning, `nll_bound`, variational dequantization,
-and the plain / fixed channel permutations.
+`ddi_init` always runs the unfused path, as the JAX package does, so DDI
+under `invconv_impl="pallas"` launches K6a whatever `flowstep_impl` says.
+
+Not ported yet: y-conditioning, `nll_bound`, variational dequantization.
 """
 
 from __future__ import annotations
@@ -61,8 +67,6 @@ class _FlowNet(nn.Module):
 class Glow(nn.Module):
     def __init__(self, cfg: GlowConfig, generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.flow_permutation != "invconv" or not cfg.lu_decomposed:
-            raise NotImplementedError("the port has only the LU 1x1 conv permutation so far")
         if cfg.y_condition:
             raise NotImplementedError("y_condition is not ported yet")
         if cfg.flowstep_impl not in ("xla", "pallas"):
@@ -76,7 +80,8 @@ class Glow(nn.Module):
             layers.append(Squeeze())
             steps = [
                 FlowStep(c, cfg.hidden_channels, cfg.flow_coupling, dtype,
-                         cfg.actnorm_scale, generator)
+                         cfg.actnorm_scale, generator, cfg.flow_permutation,
+                         cfg.lu_decomposed, cfg.invconv_impl)
                 for _ in range(cfg.K)
             ]
             layers.extend(steps)

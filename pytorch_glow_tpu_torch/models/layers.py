@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_glow_tpu_torch.ops import invconv as ic
+from pytorch_glow_tpu_torch.ops import invconv_fused as icf
 from pytorch_glow_tpu_torch.ops.math import gaussian_logp, gaussian_sample
 from pytorch_glow_tpu_torch.ops.reshape import cat_channel, split_channel, squeeze2d, unsqueeze2d
 
@@ -106,10 +107,7 @@ class Conv2dZeros(nn.Module):
 def _random_lu(c: int, generator: torch.Generator | None):
     """Fixed-P LU factors of a random rotation (Doolittle, partial pivoting,
     float64 on the host), as `invconv_xla.lu_init` computes them."""
-    w = torch.randn(c, c, generator=generator, dtype=torch.float32)
-    q, r = torch.linalg.qr(w)
-    q = q * torch.sign(torch.diagonal(r))[None, :]
-    a = q.double().numpy().copy()
+    a = ic.random_rotation(c, generator).double().numpy().copy()
     perm = np.arange(c)
     for k in range(c - 1):
         piv = k + int(np.argmax(np.abs(a[k:, k])))
@@ -124,11 +122,25 @@ def _random_lu(c: int, generator: torch.Generator | None):
     return p_idx, np.tril(a, -1), np.triu(a, 1), np.log(np.abs(s)), np.sign(s)
 
 
-class InvConv1x1LU(nn.Module):
-    """LU-parameterised invertible 1x1 conv; P is one-hot, P[i, p_idx[i]] = 1."""
+# -- channel permutations -----------------------------------------------------
+# Three kinds share one interface: forward(x, logdet) -> (y, logdet),
+# reverse(z), matrix(reverse) -> the (C, C) f32 mix W (or W^-1) with
+# y = x @ W^T, and logdet() -> log|det W| per pixel.  The fused flow step
+# (`ops/flowstep.pack_weights`) takes any of them through `matrix`.
 
-    def __init__(self, c: int, generator: torch.Generator | None = None):
+
+class InvConv1x1LU(nn.Module):
+    """LU-parameterised invertible 1x1 conv; P is one-hot, P[i, p_idx[i]] = 1.
+
+    With `impl="pallas"` the mix runs through `ops/invconv_fused.py` (the
+    kernels K6a / K6b on a CUDA tensor); with "xla" through the plain f32
+    math of `ops/invconv.py`."""
+
+    def __init__(self, c: int, generator: torch.Generator | None = None, impl: str = "xla"):
         super().__init__()
+        if impl not in ("xla", "pallas"):
+            raise ValueError(f"unknown invconv_impl: {impl}")
+        self.impl = impl
         p_idx, lower, upper, log_s, sign_s = _random_lu(c, generator)
         p = torch.zeros(c, c)
         p[torch.arange(c), torch.from_numpy(p_idx)] = 1.0
@@ -149,7 +161,7 @@ class InvConv1x1LU(nn.Module):
             sign_s=self.sign_s,
         )
 
-    def weight(self, reverse: bool = False) -> torch.Tensor:
+    def matrix(self, reverse: bool = False) -> torch.Tensor:
         lu = self.lu_params()
         return ic.lu_inverse(lu) if reverse else ic.lu_assemble(lu)
 
@@ -157,17 +169,95 @@ class InvConv1x1LU(nn.Module):
         return ic.lu_logdet(self.lu_params())
 
     def forward(self, x: torch.Tensor, logdet: torch.Tensor | None = None):
-        y = ic.mix_channels(x, self.weight()).to(x.dtype)
+        if self.impl == "pallas":
+            y, ld = icf.invconv_lu_forward(x, self.lu_params())
+        else:
+            y, ld = ic.mix_channels(x, self.matrix()).to(x.dtype), self.logdet()
+        if logdet is not None:
+            logdet = logdet + x.shape[1] * x.shape[2] * ld
+        return y, logdet
+
+    def reverse(self, z: torch.Tensor) -> torch.Tensor:
+        if self.impl == "pallas":
+            return icf.invconv_lu_reverse(z, self.lu_params())
+        return ic.mix_channels(z, self.matrix(reverse=True)).to(z.dtype)
+
+
+class InvConv1x1(nn.Module):
+    """Plain invertible 1x1 conv: a free (C, C) weight from a random rotation;
+    log|det| by slogdet, the inverse by `torch.linalg.inv`, per call."""
+
+    def __init__(self, c: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(ic.random_rotation(c, generator))
+
+    def matrix(self, reverse: bool = False) -> torch.Tensor:
+        return ic.plain_inverse(self.weight) if reverse else self.weight.float()
+
+    def logdet(self) -> torch.Tensor:
+        return ic.plain_logdet(self.weight)
+
+    def forward(self, x: torch.Tensor, logdet: torch.Tensor | None = None):
+        y = ic.mix_channels(x, self.matrix()).to(x.dtype)
         if logdet is not None:
             logdet = logdet + x.shape[1] * x.shape[2] * self.logdet()
         return y, logdet
 
     def reverse(self, z: torch.Tensor) -> torch.Tensor:
-        return ic.mix_channels(z, self.weight(reverse=True)).to(z.dtype)
+        return ic.mix_channels(z, self.matrix(reverse=True)).to(z.dtype)
+
+
+class Permute(nn.Module):
+    """Fixed channel permutation, y[..., j] = x[..., indices[j]]: a random
+    shuffle drawn from the generator, or the channel order reversed.  An
+    exact gather (the JAX package's one-hot HIGHEST matmul is exact too);
+    logdet 0."""
+
+    def __init__(self, c: int, mode: str, generator: torch.Generator | None = None):
+        super().__init__()
+        if mode == "shuffle":
+            idx = torch.randperm(c, generator=generator)
+        elif mode == "reverse":
+            idx = torch.arange(c - 1, -1, -1)
+        else:
+            raise ValueError(f"unknown fixed permutation: {mode}")
+        self.register_buffer("indices", idx)
+        self.register_buffer("indices_inverse", torch.argsort(idx))
+
+    def matrix(self, reverse: bool = False) -> torch.Tensor:
+        idx = self.indices_inverse if reverse else self.indices
+        return F.one_hot(idx, idx.shape[0]).float()
+
+    def logdet(self) -> torch.Tensor:
+        return torch.zeros((), device=self.indices.device)
+
+    def forward(self, x: torch.Tensor, logdet: torch.Tensor | None = None):
+        return x[..., self.indices], logdet
+
+    def reverse(self, z: torch.Tensor) -> torch.Tensor:
+        return z[..., self.indices_inverse]
+
+
+def make_permutation(c: int, mode: str, lu_decomposed: bool, impl: str,
+                     generator: torch.Generator | None) -> tuple[str, nn.Module]:
+    """-> (the lineage's submodule name, the module): "invconv" for both 1x1
+    convs, the mode ("shuffle" | "reverse") for a fixed permutation."""
+    if mode == "invconv":
+        if lu_decomposed:
+            return "invconv", InvConv1x1LU(c, generator, impl)
+        return "invconv", InvConv1x1(c, generator)
+    return mode, Permute(c, mode, generator)
 
 
 class FlowStep(nn.Module):
-    """actnorm -> LU 1x1 conv -> affine/additive coupling.
+    """actnorm -> channel permutation -> affine/additive coupling.
+
+    The permutation (`make_permutation`) sits under the lineage's name:
+    `invconv` for the LU or plain 1x1 conv, `shuffle` or `reverse` for a
+    fixed one; `permutation` reaches it.  A submodule named `reverse` would
+    clash with the method `reverse` (`add_module` refuses an existing
+    attribute), so it is registered in `_modules` directly and found there
+    by `state_dict`, `load_state_dict` and `to`.
 
     The coupling net `f` is Conv(3x3) -> ReLU -> Conv(1x1) -> ReLU ->
     Conv2dZeros(3x3), run in `compute_dtype` (keys f.0 / f.2 / f.4)."""
@@ -175,7 +265,9 @@ class FlowStep(nn.Module):
     def __init__(self, c: int, hidden: int, coupling: str = "affine",
                  compute_dtype: torch.dtype = torch.float32,
                  actnorm_scale: float = 1.0,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 permutation: str = "invconv", lu_decomposed: bool = True,
+                 invconv_impl: str = "xla"):
         super().__init__()
         if coupling not in ("affine", "additive"):
             raise ValueError(f"unknown coupling: {coupling}")
@@ -184,19 +276,25 @@ class FlowStep(nn.Module):
         self.coupling = coupling
         self.compute_dtype = compute_dtype
         self.actnorm = ActNorm(c, actnorm_scale)
-        self.invconv = InvConv1x1LU(c, generator)
+        self._perm_name, perm = make_permutation(c, permutation, lu_decomposed, invconv_impl,
+                                                 generator)
+        self._modules[self._perm_name] = perm
         self.f = nn.Sequential(
             Conv2d(ch, hidden, 3, generator), nn.ReLU(),
             Conv2d(hidden, hidden, 1, generator), nn.ReLU(),
             Conv2dZeros(hidden, cout),
         )
 
+    @property
+    def permutation(self) -> nn.Module:
+        return self._modules[self._perm_name]
+
     def _net(self, z1: torch.Tensor) -> torch.Tensor:
         return self.f(z1.to(self.compute_dtype))
 
     def forward(self, z: torch.Tensor, logdet: torch.Tensor):
         z, logdet = self.actnorm(z, logdet)
-        z, logdet = self.invconv(z, logdet)
+        z, logdet = self.permutation(z, logdet)
         z1, z2 = split_channel(z, "simple")
         h = self._net(z1)
         if self.coupling == "additive":
@@ -216,7 +314,7 @@ class FlowStep(nn.Module):
             shift, raw = split_channel(h, "cross")
             z2 = z2 / torch.sigmoid(raw + 2.0).to(z2.dtype) - shift.to(z2.dtype)
         z = cat_channel(z1, z2, "simple")
-        return self.actnorm.reverse(self.invconv.reverse(z))
+        return self.actnorm.reverse(self.permutation.reverse(z))
 
 
 class Split2d(nn.Module):

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels in `csrc/`.
 
-At first use, `library()` compiles every `csrc/*.cu` with nvcc for sm_90a,
+At first use, `library()` compiles every `csrc/*.cu` (the flow-step chains
+and the LU 1x1 conv, `invconv.cu`) with nvcc for sm_90a,
 one nvcc process per source, all started together, then links the objects
 into a shared library with a plain C interface under `_build/<hash>/` in
 this package (the hash covers the sources, headers and flags, so an edited
@@ -63,6 +64,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glow_flowstep_band_bwd_workspace.restype = ctypes.c_size_t
     lib.glow_flowstep_band_bwd.argtypes = [i32] * 8 + [ptr] * 33
     lib.glow_flowstep_band_bwd.restype = i32
+    lib.glow_invconv_forward.argtypes = [i32] * 2 + [ptr] * 8 + [ptr]
+    lib.glow_invconv_forward.restype = i32
+    lib.glow_invconv_mix.argtypes = [i32] * 2 + [ptr] * 3 + [ptr]
+    lib.glow_invconv_mix.restype = i32
     lib.glow_error_string.argtypes = [i32]
     lib.glow_error_string.restype = ctypes.c_char_p
     return lib

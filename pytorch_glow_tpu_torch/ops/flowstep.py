@@ -69,7 +69,9 @@ def _cross_perm(rows: torch.Tensor, affine: bool) -> torch.Tensor:
 def pack_weights(step, affine: bool, reverse: bool,
                  coupling_dtype: torch.dtype = COUPLING_DTYPE) -> list[torch.Tensor]:
     """One `FlowStep` module -> the 12 kernel operands, in the JAX kernel's
-    order, shapes and dtypes (column vectors are (r, 1) f32)."""
+    order, shapes and dtypes (column vectors are (r, 1) f32).  The mix is
+    the step's permutation as a (C, C) matrix, whatever its kind (LU or
+    plain 1x1 conv, or a fixed permutation's 0/1 matrix)."""
     conv1, conv2, conv3 = step.f[0], step.f[2], step.f[4]
     hidden = conv1.weight.shape[0]
     cout = conv3.weight.shape[0]
@@ -82,7 +84,7 @@ def pack_weights(step, affine: bool, reverse: bool,
         return v.reshape(-1, 1).float()
 
     return [
-        step.invconv.weight(reverse=reverse).float(),
+        step.permutation.matrix(reverse).float().contiguous(),
         col(step.actnorm.bias),
         col(step.actnorm.logs),
         w1t.to(coupling_dtype),
@@ -98,9 +100,9 @@ def pack_weights(step, affine: bool, reverse: bool,
 
 
 def param_logdet(step) -> torch.Tensor:
-    """Per-pixel logdet of actnorm + 1x1 conv for ONE step (the z-free
+    """Per-pixel logdet of actnorm + permutation for ONE step (the z-free
     terms the kernel does not emit); multiply by H*W outside."""
-    return step.actnorm.logs.sum() + step.invconv.logdet()
+    return step.actnorm.logs.sum() + step.permutation.logdet()
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,18 @@
-"""Invertible 1x1 convolution math in the LU parameterisation, all f32.
+"""Invertible 1x1 convolution math, all f32: the LU parameterisation and
+the plain (C, C) weight.
 
-Counterpart of `pytorch_glow_tpu/ops/invconv_xla.py`:
+Counterpart of `pytorch_glow_tpu/ops/invconv_xla.py` and of the plain kind
+in `pytorch_glow_tpu/models/layers.py` (`permutation_forward` /
+`permutation_reverse`):
 
 * W = P @ L @ (U + diag(sign_s * exp(log_s))), stored as (L@U')[p_idx]
   with P @ M == M[p_idx];
 * log|det W| = sum(log_s);
 * W^{-1} = U'^{-1} L^{-1} P^T by two triangular solves, P^T applied as a
   column gather by p_idx;
-* the mix over a pixel batch is y = x @ W^T.
+* the mix over a pixel batch is y = x @ W^T;
+* a plain W starts as a random rotation, its log|det| is slogdet's and
+  its inverse `torch.linalg.inv`'s.
 
 Callers keep f32 matmuls free of TF32 (`torch.backends.cuda.matmul.
 allow_tf32 = False`, PyTorch's default): the logdet and the exact
@@ -19,6 +24,24 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+
+def random_rotation(c: int, generator: torch.Generator | None = None) -> torch.Tensor:
+    """A random orthonormal (C, C) f32 matrix: QR of a standard normal,
+    columns sign-fixed by diag(R) (the reference init), row-major (QR
+    returns Q column-major)."""
+    w = torch.randn(c, c, generator=generator, dtype=torch.float32)
+    q, r = torch.linalg.qr(w)
+    return (q * torch.sign(torch.diagonal(r))[None, :]).contiguous()
+
+
+def plain_logdet(w: torch.Tensor) -> torch.Tensor:
+    """log|det W| of a plain weight."""
+    return torch.linalg.slogdet(w.float())[1]
+
+
+def plain_inverse(w: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.inv(w.float())
 
 
 class LUParams(NamedTuple):

@@ -1,20 +1,22 @@
-"""Trainer: the step loop with scalar logs and the non-finite-loss guard.
+"""Trainer: the step loop with scalar logs, snapshots and the
+non-finite-loss guard.
 
 Counterpart of `pytorch_glow_tpu/train/trainer.py` `train`: calls of
 `steps_per_call` steps from the state's step (a second call on the same
-`Built` continues where the first stopped), the images/sec window
-restarted after the first call, scalars every `scalar_log_gap` steps (CSV
-under out_dir/name and stdout), and the guard that stops on persistent
-non-finite losses.  The
-device syncs only at log boundaries.
+`Built`, or a build that resumed from a snapshot, continues where the last
+stopped), the images/sec window restarted after the first call, scalars
+every `scalar_log_gap` steps (CSV under out_dir/name and stdout), a
+rolling snapshot every `checkpoint_gap` steps and a final one when the
+call ends without a failure (`utils/checkpoint.py`; none after a failure,
+so a bad state never rotates out the last good snapshot), and the guard
+that stops on persistent non-finite losses.  The device syncs only at log
+boundaries and snapshots.
 
 Not ported yet, each raising NotImplementedError when first reached (not
 at build time, so a few steps of any preset run): sample/recon grids
-(`plot_gap`), held-out eval (`eval_gap`), SWD (`swd_gap`), checkpoints
-(`checkpoint_gap`), the profiler (`profile_step`), the step-liveness
-watchdog (a call that takes longer than `step_timeout_s`) and graceful
-preemption (SIGTERM).  No final snapshot is written: the result says so
-with "checkpoint_saved": False.
+(`plot_gap`), held-out eval (`eval_gap`), SWD (`swd_gap`), the profiler
+(`profile_step`), the step-liveness watchdog (a call that takes longer
+than `step_timeout_s`) and graceful preemption (SIGTERM).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from pytorch_glow_tpu_torch.train.builder import Built
 from pytorch_glow_tpu_torch.utils.metrics import MetricLogger
+from pytorch_glow_tpu_torch.utils.profiles import profile_to_dict
 
 
 def _not_ported(what: str, step: int) -> NotImplementedError:
@@ -42,6 +45,10 @@ def _on_sigterm(signum, frame):
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _save(built: Built, state: dict, step: int) -> None:
+    built.ckpt.save(step, state, built.data.get_state(), profile_to_dict(built.profile))
 
 
 def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> dict:
@@ -96,8 +103,11 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
                 if time.perf_counter() - t_call > t.step_timeout_s:
                     raise _not_ported(f"the step-liveness watchdog (a call took more than "
                                       f"step_timeout_s={t.step_timeout_s} s)", step)
-            for gap_name, what in (("checkpoint_gap", "checkpointing"),
-                                   ("plot_gap", "sample/recon grids"),
+            # The snapshot comes before the boundary's other work, so a
+            # failure there keeps it.
+            if t.checkpoint_gap and step % t.checkpoint_gap == 0:
+                _save(built, state, step)
+            for gap_name, what in (("plot_gap", "sample/recon grids"),
                                    ("eval_gap", "held-out eval"), ("swd_gap", "SWD")):
                 gap = getattr(t, gap_name)
                 if gap and step % gap == 0:
@@ -106,6 +116,7 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
         built.state = state  # the model was updated in place either way
         if in_main:
             signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
+    _save(built, state, step)  # only after a call that did not fail
 
     return {"final_step": step, "wall_s": time.perf_counter() - t_start,
-            "checkpoint_saved": False, **last_metrics}
+            "checkpoint_saved": True, **last_metrics}

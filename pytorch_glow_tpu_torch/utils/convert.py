@@ -4,7 +4,8 @@ Counterpart of the export half of `pytorch_glow_tpu/utils/torch_migrate.py`:
 the same key table (`flow.layers.{j}` counting Squeeze layers, `learn_top`)
 and layout conversions (conv weights HWIO -> (out, in, kh, kw), per-channel
 vectors to the lineage's broadcast shapes, the LU permutation index to a
-one-hot P with P[i, p_idx[i]] = 1).  `Glow.load_state_dict` of the result
+one-hot P with P[i, p_idx[i]] = 1; a plain 1x1 conv's weight and a fixed
+permutation's index pair as they are).  `Glow.load_state_dict` of the result
 makes the port compute what JAX computes on those parameters.
 
 Takes the pytree with numpy leaves (`jax.tree.map(np.asarray, params)`);
@@ -50,12 +51,26 @@ def _lu_field(lu: Any, name: str) -> np.ndarray:
     return np.asarray(lu[name] if isinstance(lu, dict) else getattr(lu, name))
 
 
-def _step(prefix: str, sp: dict, out: dict) -> None:
+def _step(prefix: str, sp: dict, out: dict, mode: str = "invconv") -> None:
+    """One flow step; `mode` is `flow_permutation`, which names a fixed
+    permutation's submodule."""
     out[f"{prefix}.actnorm.bias"] = _vec4(sp["actnorm"]["bias"])
     out[f"{prefix}.actnorm.logs"] = _vec4(sp["actnorm"]["logs"])
-    perm = sp["perm"]
-    if "lu" not in perm:
-        raise NotImplementedError("the port has only the LU 1x1 conv permutation so far")
+    _permutation(prefix, sp["perm"], out, mode)
+    cp = sp["coupling"]
+    _conv2d(f"{prefix}.f.0", cp["conv1"], out)
+    _conv2d(f"{prefix}.f.2", cp["conv2"], out)
+    _conv2d_zeros(f"{prefix}.f.4", cp["conv3"], out)
+
+
+def _permutation(prefix: str, perm: dict, out: dict, mode: str) -> None:
+    if "w" in perm:  # plain 1x1 conv
+        out[f"{prefix}.invconv.weight"] = _f32(perm["w"])
+        return
+    if "idx" in perm:  # fixed: shuffle | reverse
+        out[f"{prefix}.{mode}.indices"] = np.asarray(perm["idx"], np.int64)
+        out[f"{prefix}.{mode}.indices_inverse"] = np.asarray(perm["inv_idx"], np.int64)
+        return
     lu = perm["lu"]
     log_s = _f32(_lu_field(lu, "log_s"))
     c = log_s.shape[0]
@@ -68,10 +83,6 @@ def _step(prefix: str, sp: dict, out: dict) -> None:
     out[f"{prefix}.invconv.upper"] = np.triu(_f32(_lu_field(lu, "u_raw")), 1)
     out[f"{prefix}.invconv.l_mask"] = np.tril(np.ones((c, c), np.float32), -1)
     out[f"{prefix}.invconv.eye"] = np.eye(c, dtype=np.float32)
-    cp = sp["coupling"]
-    _conv2d(f"{prefix}.f.0", cp["conv1"], out)
-    _conv2d(f"{prefix}.f.2", cp["conv2"], out)
-    _conv2d_zeros(f"{prefix}.f.4", cp["conv3"], out)
 
 
 def _index(tree: Any, k: int) -> Any:
@@ -90,7 +101,7 @@ def state_dict_from_jax(params: dict, cfg: GlowConfig) -> dict[str, torch.Tensor
     for level in params["levels"]:
         j += 1  # Squeeze
         for k in range(cfg.K):
-            _step(f"flow.layers.{j}", _index(level["steps"], k), out)
+            _step(f"flow.layers.{j}", _index(level["steps"], k), out, cfg.flow_permutation)
             j += 1
         if level["split"] is not None:
             _conv2d_zeros(f"flow.layers.{j}.conv", level["split"]["prior_conv"], out)

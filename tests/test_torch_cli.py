@@ -1,0 +1,112 @@
+"""The port's train and infer CLIs (`cli/train.py`, `cli/infer.py`) on the
+CPU, in-process on a tiny profile made with `--set`, and its PNG writer
+against Pillow."""
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from pytorch_glow_tpu_torch.cli import infer as infer_cli
+from pytorch_glow_tpu_torch.cli import train as train_cli
+from pytorch_glow_tpu_torch.ops import invconv_fused as icf
+from pytorch_glow_tpu_torch.utils.checkpoint import CheckpointManager
+from pytorch_glow_tpu_torch.utils.image import make_grid, save_image_grid
+
+TINY = ["--set", "glow.image_shape=[8,8,3]", "--set", "glow.hidden_channels=16",
+        "--set", "glow.K=2", "--set", "glow.L=2", "--set", "train.batch_size=4",
+        "--set", "train.steps_per_call=1", "--set", "train.eval_gap=0",
+        "--set", "train.swd_gap=0", "--set", "train.step_timeout_s=0",
+        "--set", "train.checkpoint_gap=1", "--set", "glow.flowstep_impl=xla",
+        "--set", "glow.invconv_impl=pallas"]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A tiny cifar10-shaped run: 2 steps, then a second call to 3 that
+    resumes from the step-2 snapshot."""
+    out = str(tmp_path_factory.mktemp("cli"))
+    args = ["cifar10", "--cpu", "--synthetic", "textured", "--out-dir", out, "--quiet", *TINY]
+    first = train_cli.main([*args, "--steps", "2"])
+    second = train_cli.main([*args, "--steps", "3"])
+    return out, first, second
+
+
+def _infer(out, *argv):
+    return infer_cli.main([*argv, "cifar10", "--cpu", "--out-dir", out, *TINY])
+
+
+def test_train_writes_snapshots_and_resumes(trained, capsys):
+    out, first, second = trained
+    assert first["final_step"] == 2 and second["final_step"] == 3
+    assert first["checkpoint_saved"] and np.isfinite(second["loss"])
+    assert CheckpointManager(f"{out}/cifar10/checkpoints").steps() == [1, 2, 3]
+    train_cli.main(["cifar10", "--cpu", "--synthetic", "textured", "--out-dir", out, "--quiet",
+                    *TINY, "--steps", "3"])
+    assert "[train] resumed from step 3" in capsys.readouterr().out
+
+
+def test_infer_sample_recon_nll(trained, tmp_path, capsys):
+    out = trained[0]
+    _infer(out, "sample", "-n", "4", "-o", str(tmp_path / "s.png"))
+    assert Image.open(tmp_path / "s.png").size == (2 * 10 + 2, 2 * 10 + 2)
+    _infer(out, "recon", "--synthetic", "textured", "-n", "3", "-o", str(tmp_path / "r.png"))
+    assert np.asarray(Image.open(tmp_path / "r.png")).shape == (3 * 10 + 2, 2 * 10 + 2, 3)
+    _infer(out, "nll", "--synthetic", "textured", "--batches", "2", "--ema")
+    text = capsys.readouterr()
+    assert "max |x - rec|" in text.out and "over 8 images" in text.out
+    nll = float(text.out.split("nll: ")[1].split()[0])
+    assert 0 < nll < 16
+    assert "warning" not in text.err
+
+
+def test_exact_warns_and_takes_no_kernel_path(tmp_path, monkeypatch, capsys):
+    """--exact forces the f32 unfused path and invconv_impl=xla: the LU
+    1x1 conv never reaches the kernel wrappers (their plain version on the
+    CPU), where the profile's invconv_impl=pallas does.  No snapshot is
+    needed for the routing: fresh parameters, with a warning."""
+    calls = []
+    real = icf.invconv_lu_forward
+    monkeypatch.setattr(icf, "invconv_lu_forward", lambda *a: calls.append(1) or real(*a))
+    out = str(tmp_path)
+    _infer(out, "nll", "--synthetic", "textured", "--batches", "1")
+    assert len(calls) == 4  # K * L steps, one batch
+    calls.clear()
+    _infer(out, "nll", "--synthetic", "textured", "--batches", "1", "--exact",
+           "--set", "glow.compute_dtype=bfloat16")
+    err = capsys.readouterr().err
+    assert calls == [] and "no checkpoint found" in err
+    assert "--exact overrides your --set 'glow.invconv_impl=pallas'" in err
+    assert "glow.compute_dtype=float32" in err
+
+
+def test_errors_exit_non_zero(tmp_path):
+    with pytest.raises(SystemExit) as e:
+        _infer(str(tmp_path), "sample", "--best")
+    assert "no checkpoint found" in str(e.value.code)
+    # With a snapshot there (only its name is read), still no best one.
+    snap = tmp_path / "run" / "cifar10" / "checkpoints" / "1.pt"
+    snap.parent.mkdir(parents=True)
+    snap.touch()
+    with pytest.raises(SystemExit) as e:
+        _infer(str(tmp_path / "run"), "sample", "--best")
+    assert "held-out eval" in str(e.value.code)
+    with pytest.raises(SystemExit) as e:
+        train_cli.main(["no-such-profile", "--cpu"])
+    assert "neither a file nor a preset" in str(e.value.code)
+    for op in ("delta", "manipulate", "interpolate", "report", "export", "serve"):
+        with pytest.raises(SystemExit) as e:
+            _infer(str(tmp_path), op)
+        assert "not ported yet" in str(e.value.code)
+    with pytest.raises(SystemExit) as e:
+        _infer(str(tmp_path), "nll", "--dequant-samples", "2")
+    assert "not ported yet" in str(e.value.code)
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 9, 3), (4, 6, 6, 1), (2, 3, 4, 4)])
+def test_png_decodes_to_the_grid(tmp_path, shape):
+    images = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+    path = tmp_path / "g.png"
+    save_image_grid(str(path), images, ncol=3 if shape[0] > 3 else None)
+    grid = make_grid(images, 3 if shape[0] > 3 else None)
+    got = np.asarray(Image.open(path))
+    np.testing.assert_array_equal(got.reshape(grid.shape), grid)

@@ -54,20 +54,23 @@ def _assert_scaled_close(got, want, atol, what=""):
     np.testing.assert_allclose(got / scale, want / scale, atol=atol, rtol=0, err_msg=what)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla", "pallas", "invconv"])
 def test_loss_and_grads_match_jax(monkeypatch, impl):
     """`loss_fn` and its parameter grads against `jax.value_and_grad`, with
-    explicit dequantisation noise; unfused at f32, and fused at f32
-    coupling on both sides (the port's FusedStep and plain backward
-    against the JAX custom VJP and interpreted kernels).  Bounds: loss
-    rtol 2e-5 and each grad within 1e-4 of its largest magnitude, f32
-    sums in another order through 8 flow steps and two priors."""
+    explicit dequantisation noise; unfused at f32, fused at f32 coupling on
+    both sides (the port's FusedStep and plain backward against the JAX
+    custom VJP and interpreted kernels), and unfused with
+    invconv_impl="pallas" (the 1x1 conv wrappers' plain version against
+    the JAX K6 kernels' custom VJP).  Bounds: loss rtol 2e-5 and each grad
+    within 1e-4 of its largest magnitude, f32 sums in another order
+    through 8 flow steps and two priors."""
     if impl == "pallas":
         monkeypatch.setattr(fsp, "COUPLING_DTYPE", jnp.float32)
         monkeypatch.setattr(tfs, "COUPLING_DTYPE", torch.float32)
         fsp._partitioned.cache_clear()
         fsp._partitioned_bwd.cache_clear()
-    jcfg, tcfg = _cfgs(dict(SMALL) if impl == "xla" else dict(PALLAS, hidden_channels=16))
+    jcfg, tcfg = _cfgs({"xla": dict(SMALL), "pallas": dict(PALLAS, hidden_channels=16),
+                        "invconv": dict(SMALL, invconv_impl="pallas")}[impl])
     params = _nontrivial_params(jcfg)
     rng = np.random.default_rng(4)
     x = (_images(4).astype(np.float32) + rng.uniform(size=(4, 8, 8, 3))) / 256.0
@@ -207,7 +210,7 @@ def test_build_and_train_on_cpu(tmp_path, capsys):
     built = build(_profile(tmp_path), device="cpu")
     assert "dataset 'celeba' not found" in capsys.readouterr().out
     result = train(built, num_steps=4, quiet=True)
-    assert result["final_step"] == 4 and result["checkpoint_saved"] is False
+    assert result["final_step"] == 4 and result["checkpoint_saved"] is True
     assert {"loss", "nll", "grad_norm", "lr", "images_per_sec"} <= set(result)
     assert all(np.isfinite(result[k]) for k in ("loss", "nll", "grad_norm", "lr"))
     rows = (tmp_path / "t" / "metrics.csv").read_text().strip().splitlines()
@@ -239,8 +242,8 @@ def test_flips_are_deterministic_per_step(tmp_path):
 
 
 def test_unported_gap_raises_when_reached(tmp_path):
-    built = build(_profile(tmp_path, data="synthetic", checkpoint_gap=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    built = build(_profile(tmp_path, data="synthetic", eval_gap=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="held-out eval"):
         train(built, num_steps=6, quiet=True)
     assert built.state["step"] == 4
     built = build(dataclasses.replace(_profile(tmp_path, data="synthetic"), name="p"),
