@@ -103,6 +103,22 @@
    steps on both within rtol 2e-2; step time.  Then the infer CLI on the
    snapshot: nll, sample -n 16 (its PNG decoded and held to the same
    samples drawn again), recon, and --exact with no K6 launch.
+16. The anatomy studies S1-S3 (`csrc/anatomy.cu`, `ops/anatomy.py`), at
+   the anatomy path's shape, b=128, 32x32x12, hidden 512: (a) with a flow
+   step far from the identity, each variant of K1, K2 and K3 against its
+   plain version at the bounds of 3 and 6 (no_logdet's logdet and the
+   grads no_wgrad / no_rowsum drop exactly 0), a second launch bitwise
+   equal, and `full` bitwise equal to the production kernel; (b) the
+   correct-math reverse variants recip_exp and split_mix against K2
+   within the per-step round-trip bound 2e-5; (c) the three anatomy
+   scripts' mains with reduced N, their tables printed (two-N times,
+   share of the bound, change against `full`, `full`'s device time by
+   kernel), then each timed variant's output held as in (a) and (b)
+   against its plain version on the scripts' own operands (celeba64's
+   initial level-0 step, the scripts' inputs and staged patches), and
+   bitwise against a launch outside the timing loop's buffers; `full`'s
+   plain version and library yardstick (one unfused bf16 `FlowStep`
+   call) timed at b=128.
 
 With --profile, also prints torch.profiler's device time by kernel, and
 the device's idle share, for one fused and one unfused train step of
@@ -111,7 +127,7 @@ the K6 kernels.
 
 Prints a JSON line of per-kernel results (each kernel's launches from the
 main-path run that drives it: K1/K2 from 4, K3 from 7, K4 from 10, K5 from
-11, K6a/K6b from 13), the card line, and last
+11, K6a/K6b from 13, S1-S3 from 16c), the card line, and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, with no result line,
 without a CUDA device or when any check fails.
 """
@@ -149,6 +165,13 @@ BAND_BWD_TPU_KERNEL = "pytorch_glow_tpu/ops/flowstep_pallas.py:886"
 # the levels K1/K2 (all but level 0) and K3 (levels 2-5) run.
 HQ_BAND_SHAPES = [(128, 128, 12), (64, 64, 24)]
 HQ_WHOLE_SHAPES = [(64, 64, 24), (32, 32, 48), (16, 16, 96), (8, 8, 192), (4, 4, 384)]
+ANATOMY_SOURCE = "pytorch_glow_tpu_torch/csrc/anatomy.cu"
+ANATOMY_TPU_KERNELS = {"anatomy_forward": "scripts/perf_kernel_anatomy.py:125",
+                       "anatomy_reverse": "scripts/perf_reverse_anatomy.py:121",
+                       "anatomy_backward": "scripts/perf_bwd_anatomy.py:283"}
+# The anatomy scripts' launch counts in phase 16c, (N1, N2), cut from their
+# defaults (30/130, 20/70 for the backward).
+ANATOMY_N = {"forward": (10, 40), "reverse": (10, 40), "backward": (5, 20)}
 INVCONV_SOURCE = "pytorch_glow_tpu_torch/csrc/invconv.cu"
 INVCONV_TPU_KERNELS = {"invconv_forward": "pytorch_glow_tpu/ops/invconv_pallas.py:52",
                        "invconv_reverse": "pytorch_glow_tpu/ops/invconv_pallas.py:158"}
@@ -157,37 +180,6 @@ INVCONV_TPU_KERNELS = {"invconv_forward": "pytorch_glow_tpu/ops/invconv_pallas.p
 INVCONV_CASES = [(65536, 12), (16384, 24), (4096, 48), (16384, 96), (4096, 192), (1024, 384),
                  (1000, 6), (1025, 130)]
 CIFAR_BATCH = 256
-# Published H100 SXM peaks at 700 W: dense bf16 tensor cores, f32 outside
-# them, HBM3.
-PEAK_BF16 = 989e12
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
-
-
-def bound_ms(kind: str, b: int, h: int, w: int, c: int, hidden: int, affine: bool):
-    """The least time one flow-step kernel call could take on the card: the
-    larger of its operations over the peak rate of their type (the coupling
-    net's bf16 products, the f32 mix) and its compulsory bytes (each input
-    read once, each output written once) over the memory rate.  The
-    backward recomputes the net and forms two more products per layer, as
-    the JAX kernel's cost estimate counts it (flowstep_pallas.py:1178)."""
-    m, ch = b * h * w, c // 2
-    cout = c if affine else ch
-    net_w = hidden * (9 * ch + hidden + 9 * cout)
-    vec = c * c + 2 * c + 4 * hidden + 2 * cout
-    net = 2 * m * net_w
-    weight_bytes = 4 * vec + 2 * net_w
-    if kind == "backward":  # z, g_zn in, g_z out; g_ld in; 12 f32 grads out
-        bf16, f32 = 3 * net, 12 * m * c * c
-        nbytes = 3 * 4 * m * c + 4 * b + weight_bytes + 4 * (vec + net_w)
-    else:  # z in, z_next out, logdet out
-        bf16, f32 = net, 2 * m * c * c
-        nbytes = 2 * 4 * m * c + 4 * b + weight_bytes
-    t_ops = bf16 / PEAK_BF16 + f32 / PEAK_F32
-    t_bytes = nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
@@ -273,11 +265,12 @@ def describe(torch, zk, zr, ldk, ldr, xk, xr, rt_err: float) -> str:
             f"{float(rev.mean()):.3e} | round-trip {rt_err:.3e}")
 
 
-def print_times(tag: str, times: dict, b, h, w, c, affine, results: dict, record: bool) -> None:
+def print_times(fs, tag: str, times: dict, b, h, w, c, affine, results: dict,
+                record: bool) -> None:
     """Print each kernel's (kernel, plain, library) ms beside its bound;
     with `record`, keep them as that kernel's numbers in `results`."""
     for name, (ms, plain_ms, lib_ms) in times.items():
-        bound, by = bound_ms(name.removeprefix("band_"), b, h, w, c, 512, affine)
+        bound, by = fs.bound_ms(name.removeprefix("band_"), b, h, w, c, 512, affine)
         print(f"time step {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
         if record:
@@ -330,7 +323,8 @@ def check_kernels(torch, fs, results: dict, cases=None, time_all: bool = False,
                                 median_ms(lambda: fs.step_reverse_ref(wr, zk, affine), torch),
                                 median_ms(lambda: step.reverse(zk), torch)),
                 }
-            print_times(tag, times, b, h, w, c, affine, results, (h, w, c) == LEVEL_SHAPES[0])
+            print_times(fs, tag, times, b, h, w, c, affine, results,
+                        (h, w, c) == LEVEL_SHAPES[0])
 
 
 def rel_l2(g, r) -> float:
@@ -360,13 +354,7 @@ def hold_backward(torch, fs, tag: str, step, affine: bool, z, gzn, gld, launch, 
     require(torch.equal(gz, gz2) and all(torch.equal(a, a2) for a, a2 in zip(grads, grads2)),
             f"{tag} {name}: a second launch differs")
     del gz2, grads2
-    scale = float(rz.abs().max())
-    err = (gz - rz).abs()
-    require(bool(torch.isfinite(gz).all()), f"{tag} {name}: non-finite g_z")
-    require(bool((err <= 5e-2 * scale + 5e-2 * rz.abs()).all()),
-            f"{tag} {name}: g_z max |diff| {float(err.max())} at scale {scale}")
-    require(float(err.mean()) < 2e-3 * scale,
-            f"{tag} {name}: g_z mean |diff| {float(err.mean())} at scale {scale}")
+    err, scale = hold_gz(torch, tag, name, gz, rz, results)
     rel = [float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
            for g, r in zip(grads, rgrads)]
     if f32_rule:
@@ -386,7 +374,6 @@ def hold_backward(torch, fs, tag: str, step, affine: bool, z, gzn, gld, launch, 
             gmax = float((g - r).abs().max())
             require(gmax <= 5e-2 * float(r.abs().max()),
                     f"{tag} {name}: weight grad {i} max |diff| {gmax}")
-    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], float(err.max()))
     # The plain version's own sum-order noise, CPU vs card, on the first
     # images (g_z of an image depends on that image alone).
     nb = max(1, min(b, 4096 // (h * w)))
@@ -398,6 +385,21 @@ def hold_backward(torch, fs, tag: str, step, affine: bool, z, gzn, gld, launch, 
           f"scale {scale:.3f} | weight grads max rel {max(rel):.2e} | noise floor "
           f"(plain CPU vs card, {nb} images) g_z max {floor:.3e}, kernel on them "
           f"{float(err[:nb].max()):.3e}")
+
+
+def hold_gz(torch, tag: str, name: str, gz, rz, results: dict):
+    """A backward kernel's g_z against the plain version's: within 5e-2 of
+    the plain version's largest magnitude (elementwise rtol 5e-2, mean
+    |diff| < 2e-3 of that scale); returns (|diff|, scale)."""
+    scale = float(rz.abs().max())
+    err = (gz - rz).abs()
+    require(bool(torch.isfinite(gz).all()), f"{tag} {name}: non-finite g_z")
+    require(bool((err <= 5e-2 * scale + 5e-2 * rz.abs()).all()),
+            f"{tag} {name}: g_z max |diff| {float(err.max())} at scale {scale}")
+    require(float(err.mean()) < 2e-3 * scale,
+            f"{tag} {name}: g_z mean |diff| {float(err.mean())} at scale {scale}")
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], float(err.max()))
+    return err, scale
 
 
 def library_backward(torch, step, z, gzn, gld):
@@ -438,7 +440,8 @@ def check_backward(torch, fs, results: dict, cases=None, time_all: bool = False,
                         median_ms(lambda: fs.step_backward(wf, z, gzn, gld, affine), torch),
                         median_ms(lambda: fs.step_backward_ref(wf, z, gzn, gld, affine), torch))}
                 times["backward"] += (median_ms(library_backward(torch, step, z, gzn, gld), torch),)
-                print_times(tag, times, b, h, w, c, affine, results, (h, w, c) == LEVEL_SHAPES[0])
+                print_times(fs, tag, times, b, h, w, c, affine, results,
+                        (h, w, c) == LEVEL_SHAPES[0])
 
 
 def random_lu(c: int, generator, torch):
@@ -461,6 +464,8 @@ def invconv_bound_ms(kind: str, n: int, c: int):
     peak.  K6a reads x and the LU factors (L, U, log_s, sign_s, the int64
     permutation), builds W (sum over k <= min(p[i], j): about C^3 / 3
     FMAs) and mixes; K6b reads x and W^-1 and mixes."""
+    from pytorch_glow_tpu_torch.ops.flowstep import PEAK_BYTES, PEAK_F32
+
     if kind == "invconv_forward":
         nbytes = 4 * (2 * n * c + 2 * c * c + 2 * c) + 8 * c
         flops = 2 * n * c * c + 2 * c ** 3 / 3
@@ -811,7 +816,7 @@ def check_band(torch, fs, lib, results: dict) -> None:
                         timed(lambda: fs.step_backward_band_ref(wf, z, gzn, gld, affine))),
                 }
             times["band_backward"] += (timed(library_backward(torch, step, z, gzn, gld)),)
-            print_times(tag, times, b, h, w, c, affine, results,
+            print_times(fs, tag, times, b, h, w, c, affine, results,
                         (h, w, c) == HQ_BAND_SHAPES[0] and not affine)
             del step, z, zk, xk, gzn
             torch.cuda.empty_cache()
@@ -1382,6 +1387,150 @@ def check_invconv_training(torch, icf, card: str, out_root: str,
     return launches
 
 
+def same(torch, a, b) -> bool:
+    """Bitwise equality of two tensors or of nested tuples / lists of them."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(same(torch, x, y) for x, y in zip(a, b))
+
+
+def check_anatomy(torch, fs, results: dict) -> dict:
+    """Phase 16: the anatomy variants against their plain versions and K2,
+    then the three anatomy mains (the anatomy path), each timed variant's
+    output held against its plain version on the scripts' operands;
+    returns the launches of that path."""
+    from pytorch_glow_tpu_torch.ops import anatomy as an
+    from pytorch_glow_tpu_torch.scripts import perf_bwd_anatomy, perf_kernel_anatomy
+    from pytorch_glow_tpu_torch.scripts import perf_reverse_anatomy
+
+    variants = {"forward": an.FORWARD, "reverse": an.REVERSE, "backward": an.BACKWARD}
+    launch = {"forward": an.forward_variant, "reverse": an.reverse_variant,
+              "backward": an.backward_variant}
+    plain = {"forward": an.forward_variant_ref, "reverse": an.reverse_variant_ref,
+             "backward": an.backward_variant_ref}
+
+    def hold(tag: str, d: str, v: str, got, want, full) -> None:
+        """A variant's outputs against its plain version's at K1/K2/K3's
+        bounds (`hold_outputs`, the logdet bound, `hold_gz`, each weight
+        grad within 5e-2 of its plain version's largest magnitude), what it
+        drops exactly 0; (b) a correct-math reverse variant within 2e-5 of
+        `full`, the production K2."""
+        name = f"anatomy_{d}"
+        if d == "backward":
+            (gz, grads), (rz, rgrads) = got, want
+            hold_gz(torch, tag, name, gz, rz, results)
+            *_, rowsum, wgrad = an.BACKWARD[v]
+            zero = (set(range(fs.N_WEIGHTS)) if not wgrad
+                    else set(an.ROWSUM_GRADS) if not rowsum else set())
+            rel = 0.0
+            for i, (g, r) in enumerate(zip(grads, rgrads)):
+                if i in zero:
+                    require(not g.any() and not r.any(), f"{tag} backward {v}: grad {i} is not 0")
+                    continue
+                gmax = float((g - r).abs().max())
+                require(bool(torch.isfinite(g).all()) and gmax <= 5e-2 * float(r.abs().max()),
+                        f"{tag} backward {v}: weight grad {i} max |diff| {gmax}")
+                rel = max(rel, gmax / max(float(r.abs().max()), 1e-30))
+            print(f"anatomy backward {v} {tag}: g_z max {float((gz - rz).abs().max()):.3e}, "
+                  f"weight grads max rel {rel:.2e}")
+            return
+        if d == "forward":
+            (out, ld), (ref, ldr) = got, want
+            if v == "no_logdet":
+                require(not bool(ld.any()), f"{tag} forward no_logdet: logdet {ld}")
+            else:
+                require(bool(((ld - ldr).abs() <= 2e-1 + 2e-2 * ldr.abs()).all()),
+                        f"{tag} forward {v}: logdet |diff| {float((ld - ldr).abs().max())}")
+            text = f", logdet max {float((ld - ldr).abs().max()):.3e}"
+        else:
+            out, ref = got, want
+            full_err = float((out - full).abs().max())
+            text = f", against K2 {full_err:.3e}"
+            if v in ("recip_exp", "split_mix"):
+                require(full_err <= 2e-5, f"{tag} reverse {v} against K2: {full_err} (bound 2e-5)")
+        hold_outputs(torch, f"{tag} {v}", name, out, ref, results)
+        print(f"anatomy {d} {v} {tag}: max {float((out - ref).abs().max()):.3e}{text}")
+
+    # -- (a) every variant against its plain version, at the anatomy path's
+    # shape with a flow step far from the identity; each launch allocates
+    # its own outputs --------------------------------------------------------
+    gen = torch.Generator().manual_seed(SEED + 50)
+    b, (h, w, c) = TRAIN_BATCH, LEVEL_SHAPES[0]
+    step = noisy_step(c, "affine", gen, torch)
+    z, gzn = (torch.randn(b, h, w, c, generator=gen).cuda() for _ in range(2))
+    gld = torch.randn(b, generator=gen).cuda()
+    patches = an.staged_patches(b, h, w, c, gen)
+    tag = f"{b}x{h}x{w}x{c} affine"
+    with torch.no_grad():
+        wf = fs.pack_weights(step, True, reverse=False)
+        wr = fs.pack_weights(step, True, reverse=True)
+        operands = {"forward": {"weights": wf, "z": z, "patches": patches},
+                    "reverse": {"weights": wr, "z": z, "patches": patches},
+                    "backward": {"weights": wf, "z": z, "g_zn": gzn, "g_ld": gld,
+                                 "patches": patches}}
+        production = {"forward": fs.step_forward(wf, z, True),
+                      "reverse": fs.step_reverse(wr, z, True),
+                      "backward": fs.step_backward(wf, z, gzn, gld, True)}
+        for d, table in variants.items():
+            for v in table:
+                got, again = (launch[d](v, **operands[d]) for _ in range(2))
+                want = plain[d](v, **operands[d])
+                torch.cuda.synchronize()
+                require(same(torch, got, again), f"{tag} {d} {v}: a second launch differs")
+                hold(tag, d, v, got, want, production[d])
+                if v == "full":
+                    require(same(torch, got, production[d]),
+                            f"anatomy {d} full is not the production kernel")
+        del got, again, want, production
+
+    # -- (c) the anatomy path: the three scripts' mains, b=128 --------------
+    tb = TRAIN_BATCH
+    an.reset_launches()
+    tables = {"forward": perf_kernel_anatomy.main(tb, *ANATOMY_N["forward"]),
+              "reverse": perf_reverse_anatomy.main(tb, *ANATOMY_N["reverse"]),
+              "backward": perf_bwd_anatomy.main(tb, *ANATOMY_N["backward"])}
+    launches = dict(an.launches)
+    print(f"anatomy-path launches: {launches}")
+    # Each timed variant's output (one more launch into the timing loop's
+    # buffers) against its plain version on the scripts' operands, and
+    # bitwise against a launch with buffers of its own.
+    tag = f"{tb}x{h}x{w}x{c} scripts' operands"
+    with torch.no_grad():
+        for d, table in tables.items():
+            ops = table["operands"]
+            for v, got in table["outputs"].items():
+                want = plain[d](v, **ops)
+                require(same(torch, got, launch[d](v, **ops)),
+                        f"{tag} {d} {v}: the timing loop's output differs from a launch of its own")
+                hold(tag, d, v, got, want, table["outputs"]["full"])
+            del table["outputs"], table["operands"]
+
+    # -- full's plain version and library yardstick at b=128 ---------------
+    step = noisy_step(c, "affine", gen, torch)
+    z, gzn = (torch.randn(tb, h, w, c, generator=gen).cuda() for _ in range(2))
+    gld = torch.ones(tb, device="cuda")
+    zeros = torch.zeros(tb, device="cuda")
+    with torch.no_grad():
+        wf = fs.pack_weights(step, True, reverse=False)
+        wr = fs.pack_weights(step, True, reverse=True)
+        times = {"forward": (median_ms(lambda: an.forward_variant_ref("full", wf, z), torch),
+                             median_ms(lambda: step(z, zeros), torch)),
+                 "reverse": (median_ms(lambda: an.reverse_variant_ref("full", wr, z), torch),
+                             median_ms(lambda: step.reverse(z), torch)),
+                 "backward": (median_ms(lambda: an.backward_variant_ref("full", wf, z, gzn, gld),
+                                        torch),)}
+    times["backward"] += (median_ms(library_backward(torch, step, z, gzn, gld), torch),)
+    for d, table in tables.items():
+        bound, by = fs.bound_ms(d, tb, h, w, c, 512, True)
+        full = table["rows"][0]
+        results["anatomy_" + d].update(ms=full["ms"], plain_ms=times[d][0],
+                                       library_ms=times[d][1], bound_ms=bound, bound_by=by)
+        print(f"time anatomy {d} full {tb}x{h}x{w}x{c}: kernel {full['ms']:.4f} ms (two-N), "
+              f"plain {times[d][0]:.4f} ms, library {times[d][1]:.4f} ms, bound {bound:.4f} ms "
+              f"({by})")
+    return launches
+
+
 def compare_nll(inf, plain_inf, images, what: str) -> None:
     """Fused-kernel nll against the unfused PyTorch layers, the repo's rtol 2e-2."""
     nll, nll_plain = inf.nll(images), plain_inf.nll(images)
@@ -1400,6 +1549,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from pytorch_glow_tpu_torch.ops import _build
+    from pytorch_glow_tpu_torch.ops import anatomy as an
     from pytorch_glow_tpu_torch.ops import flowstep as fs
     from pytorch_glow_tpu_torch.ops import invconv_fused as icf
 
@@ -1417,7 +1567,7 @@ def main() -> int:
 
     results = {d: {"max_abs_err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
                    "bound_by": None, "library_ms": None}
-               for d in [*fs.launches, *icf.launches]}
+               for d in [*fs.launches, *icf.launches, *an.launches]}
     out_root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         return run_phases(torch, fs, icf, card, results, out_root)
@@ -1459,16 +1609,21 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     cli_launches = check_invconv_training(torch, icf, card, os.path.join(out_root, "cifar10"),
                                           "--profile" in sys.argv[1:])
 
+    # -- the anatomy studies S1-S3 --------------------------------------------
+    anatomy_launches = check_anatomy(torch, fs, results)
+
     # Launches: each kernel's count from the main-path run that drives it:
     # K1/K2 from the celeba64 serving run, K3 from the celeba64 training
     # run, K4 from the celebahq256 serving run, K5 from the celebahq256
-    # training run, K6a/K6b from the cifar10 serving run (their other
-    # launches are checked and printed above).
+    # training run, K6a/K6b from the cifar10 serving run, S1-S3 from the
+    # anatomy scripts' run (their other launches are checked and printed
+    # above).
     launches["backward"] = train_launches["backward"]
     for d in ("band_forward", "band_reverse"):
         launches[d] = hq_launches[d]
     launches["band_backward"] = hq_train_launches["band_backward"]
     launches.update(invconv_launches)
+    launches.update(anatomy_launches)
     print(f"training-run launches: celeba64 {train_launches}, celebahq256 {hq_train_launches}, "
           f"cifar10 train CLI (K6) {cli_launches}")
     sources = {"forward": (KERNEL_SOURCE, TPU_KERNEL), "reverse": (KERNEL_SOURCE, TPU_KERNEL),
@@ -1476,9 +1631,10 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
                "band_forward": (BAND_SOURCE, BAND_TPU_KERNEL),
                "band_reverse": (BAND_SOURCE, BAND_TPU_KERNEL),
                "band_backward": (BAND_BWD_SOURCE, BAND_BWD_TPU_KERNEL),
-               **{d: (INVCONV_SOURCE, tpu) for d, tpu in INVCONV_TPU_KERNELS.items()}}
+               **{d: (INVCONV_SOURCE, tpu) for d, tpu in INVCONV_TPU_KERNELS.items()},
+               **{d: (ANATOMY_SOURCE, tpu) for d, tpu in ANATOMY_TPU_KERNELS.items()}}
     kernels = [
-        {"name": d if d.startswith("invconv") else f"flowstep_{d}", "route": "cuda",
+        {"name": d if d.startswith(("invconv", "anatomy")) else f"flowstep_{d}", "route": "cuda",
          "source": sources[d][0], "replaces": sources[d][1], "launches": launches[d],
          **results[d]}
         for d in sources

@@ -8,7 +8,9 @@ each flow step in hand-written CUDA kernels for sm_90a (`csrc/flowstep*.cu`)
 and, with `invconv_impl="pallas"` on the unfused path, the LU 1x1 conv too
 (`csrc/invconv.cu`), beside their plain PyTorch versions on CPU tensors.
 JSON profiles load through `utils/profiles.py`; the CLIs are
-`python -m pytorch_glow_tpu_torch.cli.train` and `...cli.infer`.
+`python -m pytorch_glow_tpu_torch.cli.train` and `...cli.infer`.  The
+flow-step anatomy studies (variant chains of the kernels, `csrc/anatomy.cu`)
+run on the card as `python -m pytorch_glow_tpu_torch.scripts.perf_*_anatomy`.
 
 Imports `torch`, never `jax`; the JAX package beside it is the reference the
 port is tested against.

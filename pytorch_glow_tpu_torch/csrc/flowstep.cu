@@ -23,8 +23,9 @@
 //                       image in a fixed order (no atomics).
 // Reverse chain: the same f(z1) on the input's z1, z2 = z2 / s - shift into
 // a scratch, then mix_kernel<rev>: out = (W^-1 @ t) * e^-l - b.
-// The GEMM, the mix and the zero-conv tap sum live in flowstep_common.cuh,
-// shared with the backward (flowstep_bwd.cu).
+// The GEMM, the mix, the zero-conv tap sum and the coupling live in
+// flowstep_common.cuh, shared with the backward (flowstep_bwd.cu) and the
+// anatomy variants (anatomy.cu).
 //
 // Every sum inside f() runs in a fixed order (the GEMM's K loop in one
 // block, then taps k = 0..8), so encode and decode compute f(z1) bit for
@@ -43,65 +44,6 @@
 
 #include "flowstep_common.cuh"
 
-namespace {
-
-// Coupling update and per-image logdet; one block per image.  zsrc and
-// zdst may alias (forward updates the mixed z in place): each element is
-// read and written by the same thread only.
-template <bool REVERSE, bool AFFINE>
-__global__ void __launch_bounds__(ROW_THREADS)
-    coupling_kernel(int hh, int ww, int C, const float* zsrc, const float* y, const float* b3,
-                    const float* l3, float* zdst, float* ld) {
-  __shared__ float red[ROW_THREADS];
-  const int img = blockIdx.x;
-  const int hw = hh * ww, ch = C / 2;
-  const int cout = AFFINE ? C : ch;
-  float part = 0.0f;
-  for (int q = threadIdx.x; q < hw; q += ROW_THREADS) {
-    const int py = q / ww, px = q - py * ww;
-    const float* src = zsrc + (img * hw + q) * C;
-    float* dst = zdst + (img * hw + q) * C;
-    for (int j = 0; j < ch; ++j) {
-      const float z1 = src[j];
-      float z2 = src[ch + j];
-      const float h = zero_conv_at<false>(y, img, hh, ww, py, px, cout, j, b3, l3, Band{});
-      if (AFFINE) {
-        const float raw =
-            zero_conv_at<false>(y, img, hh, ww, py, px, cout, ch + j, b3, l3, Band{}) + 2.0f;
-        const float s = 1.0f / (1.0f + expf(-raw));
-        z2 = REVERSE ? z2 / s - h : (z2 + h) * s;
-        if (!REVERSE) part += log_sigmoid(raw);
-      } else {
-        z2 = REVERSE ? z2 - h : z2 + h;
-      }
-      dst[j] = z1;
-      dst[ch + j] = z2;
-    }
-  }
-  if (REVERSE) return;
-  red[threadIdx.x] = part;
-  __syncthreads();
-  for (int s = ROW_THREADS / 2; s > 0; s /= 2) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) ld[img] = red[0];
-}
-
-template <bool REVERSE>
-cudaError_t launch_coupling(int affine, int b, int hh, int ww, int C, const float* zsrc,
-                            const float* y, const float* b3, const float* l3, float* zdst,
-                            float* ld, cudaStream_t stream) {
-  if (affine)
-    coupling_kernel<REVERSE, true><<<b, ROW_THREADS, 0, stream>>>(hh, ww, C, zsrc, y, b3, l3,
-                                                                  zdst, ld);
-  else
-    coupling_kernel<REVERSE, false><<<b, ROW_THREADS, 0, stream>>>(hh, ww, C, zsrc, y, b3, l3,
-                                                                   zdst, ld);
-  return cudaGetLastError();
-}
-
-}  // namespace
 
 extern "C" {
 

@@ -29,6 +29,10 @@
 //
 // No float atomics: every sum runs in a fixed order, so two launches on the
 // same inputs give the same bits.
+//
+// The chain's second template parameter (`BwdProd` and the anatomy
+// variants in csrc/anatomy.cu) selects what a variant drops or swaps; the
+// production chains K3 and K5 take the default.
 
 #pragma once
 
@@ -53,6 +57,15 @@ int wgrad_chunk(int M, int n1, int n2) {
   return rows;
 }
 
+// What a backward-chain variant does; production is every default.
+struct BwdProd {
+  static constexpr int tap = TAP_MASKED;  // every 3x3 read: conv1, zero-conv, gy, g_v1, gW1
+  static constexpr bool staged = false;   // conv1 and gW1 read a dense staged patch tensor
+  static constexpr bool accum = true;     // chunk partials summed (else chunk 0's alone)
+  static constexpr bool rowsum = true;    // the 8 bias/logs column sums (else 0)
+  static constexpr bool wgrad = true;     // any weight gradient (else all 12 are 0)
+};
+
 // The 12 packed weights in `pack_weights` order, as the C entries take them.
 struct StepWeights {
   const float *wmat, *anb, *anl;
@@ -64,7 +77,7 @@ struct StepWeights {
   const float *b3, *l3;
 };
 
-template <bool AFFINE, bool BAND>
+template <bool AFFINE, bool BAND, int TAP = TAP_MASKED>
 __global__ void coupling_bwd_kernel(int M, int hh, int ww, int C, const float* v, const float* y,
                                     const float* b3, const float* l3, const float* gzn,
                                     const float* gld, float* gv, float* gacc, float* t3,
@@ -77,10 +90,11 @@ __global__ void coupling_bwd_kernel(int M, int hh, int ww, int C, const float* v
   const int py = q / ww, px = q - py * ww;
   const float go1 = gzn[m * C + j], go2 = gzn[m * C + ch + j];
   gv[m * C + j] = go1;  // gv1_kernel adds the conv1 cotangent
-  const float shift = zero_conv_at<BAND>(y, img, hh, ww, py, px, cout, j, b3, l3, bd);
+  const float shift = zero_conv_at<BAND, TAP>(y, img, hh, ww, py, px, cout, j, b3, l3, bd, M);
   float g_v2;
   if (AFFINE) {
-    const float raw = zero_conv_at<BAND>(y, img, hh, ww, py, px, cout, ch + j, b3, l3, bd);
+    const float raw =
+        zero_conv_at<BAND, TAP>(y, img, hh, ww, py, px, cout, ch + j, b3, l3, bd, M);
     const float s = 1.0f / (1.0f + expf(-(raw + 2.0f)));
     const float v2 = v[m * C + ch + j];
     float gl;
@@ -102,15 +116,22 @@ __global__ void coupling_bwd_kernel(int M, int hh, int ww, int C, const float* v
 
 // gy[q, k*cout + c] = g_acc[q - off_k, c] where that pixel is in the image
 // (and, for a band, where q's absolute row is): the forward summed
-// y[p + off_k, k*cout + c] into pixel p.
-template <bool BAND>
+// y[p + off_k, k*cout + c] into pixel p.  TAP_WRAP reads pixel
+// (q - off_k) mod M, TAP_CENTRE pixel q, neither tested.
+template <bool BAND, int TAP = TAP_MASKED>
 __global__ void gy_kernel(int M, int hh, int ww, int cout, const float* gacc,
                           __nv_bfloat16* gy, Band bd) {
+  static_assert(TAP != TAP_CENTRE_MASKED && (TAP == TAP_MASKED || !BAND), "no such variant");
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= M * 9 * cout) return;
   const int hw = hh * ww;
   const int m = idx / (9 * cout), r = idx - m * 9 * cout;
   const int k = r / cout, c = r - k * cout;
+  if constexpr (TAP != TAP_MASKED) {
+    const int src = TAP == TAP_WRAP ? wrap_index(m - (k / 3 - 1) * ww - (k % 3 - 1), M) : m;
+    gy[idx] = __float2bfloat16(gacc[src * cout + c]);
+    return;
+  }
   const int img = m / hw, q = m - img * hw;
   const int py = q / ww - (k / 3 - 1), px = q % ww - (k % 3 - 1);
   float v = 0.0f;
@@ -121,14 +142,26 @@ __global__ void gy_kernel(int M, int hh, int ww, int cout, const float* gacc,
 
 // g_v1[p, i] += sum_k g_p1[p - off_k, k*ch + i] over in-image pixels, taps
 // in order k = 0..8: the conv1 gather read v1[q + off_k] into patch row q.
-template <bool BAND>
+// TAP_WRAP reads pixel (p - off_k) mod M, TAP_CENTRE pixel p, neither
+// tested.
+template <bool BAND, int TAP = TAP_MASKED>
 __global__ void gv1_kernel(int M, int hh, int ww, int C, const float* gp1, float* gv, Band bd) {
+  static_assert(TAP != TAP_CENTRE_MASKED && (TAP == TAP_MASKED || !BAND), "no such variant");
   const int ch = C / 2, hw = hh * ww;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= M * ch) return;
   const int m = idx / ch, i = idx - m * ch;
   const int img = m / hw, q = m - img * hw;
   float acc = gv[m * C + i];
+  if constexpr (TAP != TAP_MASKED) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const int src = TAP == TAP_WRAP ? wrap_index(m - (k / 3 - 1) * ww - (k % 3 - 1), M) : m;
+      acc += gp1[src * 9 * ch + k * ch + i];
+    }
+    gv[m * C + i] = acc;
+    return;
+  }
   if (row_in_image<BAND>(bd, img, q / ww)) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
@@ -170,7 +203,8 @@ struct WgradArgs {
 
 // part[chunk, n1, n2] = sum over the chunk's pixels p of A[p, n1] * B[p, n2],
 // bf16 operands, f32 accumulation, pixels in order within the chunk.
-template <int BL>
+// B_CONV3X3 reads its taps as TAP says.
+template <int BL, int TAP = TAP_MASKED>
 __global__ void __launch_bounds__(GEMM_THREADS) wgrad_kernel(WgradArgs g) {
   __shared__ __align__(32) __nv_bfloat16 As[BK * WG_LD];
   __shared__ __align__(32) __nv_bfloat16 Bs[BK * WG_LD];
@@ -204,7 +238,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) wgrad_kernel(WgradArgs g) {
         if (BL == B_DENSE)
           v = g.b[p * g.N2 + n2];
         else
-          v = conv3x3_patch<BL == B_CONV3X3_BAND>(g.z, g.ldz, g.hh, g.ww, g.cin, p, n2, g.band);
+          v = conv3x3_patch<BL == B_CONV3X3_BAND, TAP>(g.z, g.ldz, g.hh, g.ww, g.cin, p, n2,
+                                                        g.band, g.M);
       }
       Bs[r * WG_LD + c] = v;
     }
@@ -289,25 +324,27 @@ cudaError_t reduce(int parts, int N, const float* part, float scale, float* out,
   return cudaGetLastError();
 }
 
-template <bool PROD>
+// Column sum over M pixels by chunk partials; without ACCUM the sum reads
+// chunk 0's partial alone (the no_accum variant).
+template <bool PROD, bool ACCUM = true>
 cudaError_t col_sum(int M, int N, const float* a, const float* b, float scale, float* part,
                     float* out, cudaStream_t stream) {
   const int chunks = ceil_div(M, COL_CHUNK);
   col_partial_kernel<PROD><<<ceil_div(chunks * N, 256), 256, 0, stream>>>(M, N, a, b, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce(chunks, N, part, scale, out, stream);
+  return reduce(ACCUM ? chunks : 1, N, part, scale, out, stream);
 }
 
-template <int BL>
+template <int BL, int TAP = TAP_MASKED, bool ACCUM = true>
 cudaError_t wgrad(WgradArgs g, float* out, cudaStream_t stream) {
   g.chunk = wgrad_chunk(g.M, g.N1, g.N2);
   const int chunks = ceil_div(g.M, g.chunk);
   dim3 grid(ceil_div(g.N1, BM), ceil_div(g.N2, BN), chunks);
-  wgrad_kernel<BL><<<grid, GEMM_THREADS, 0, stream>>>(g);
+  wgrad_kernel<BL, TAP><<<grid, GEMM_THREADS, 0, stream>>>(g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce(chunks, g.N1 * g.N2, g.part, 1.0f, out, stream);
+  return reduce(ACCUM ? chunks : 1, g.N1 * g.N2, g.part, 1.0f, out, stream);
 }
 
 // The chain's workspace: every intermediate, each region aligned to 256
@@ -371,31 +408,34 @@ Workspace carve(Carver& cv, int M, int c, int hidden, int cout) {
 // hh x ww (for a band, hh = R + 4 and `bd` places the bands).  z: (M, c)
 // step input; gzn: (M, c) output cotangent; gld: per-image logdet
 // cotangent.  Writes gz (M, c) and the 12 f32 weight grads g[0..11].
-template <bool BAND>
+// V: the production chain (BwdProd) or an anatomy variant; `patches`, the
+// staged (M, 9*ch) bf16 conv1 patches, is read by V::staged only.
+template <bool BAND, class V = BwdProd>
 cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden, const Band& bd,
                            const float* z, const StepWeights& sw, const void* w1t,
                            const void* w2t, const void* w3t, const float* gzn,
                            const float* gld, float* gz, float* const* g, const Workspace& ws,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, const void* patches = nullptr) {
   const int ch = c / 2;
   const int cout = affine ? c : ch;
   const int gm = ceil_div(M, BM);
 
   // -- recompute, with the forward's kernels -----------------------------
   GLOW_CHECK(launch_mix<false>(M, c, z, sw.wmat, sw.anb, sw.anl, ws.v, stream));
-  GLOW_CHECK(launch_net<BAND>(M, hh, ww, c, hidden, cout, ws.v, sw.w1, sw.a1b, sw.a1l, sw.w2,
-                            sw.a2b, sw.a2l, sw.w3, ws.h1, ws.h2, ws.y, stream, bd));
+  GLOW_CHECK((launch_net<BAND, V::tap, V::staged>(M, hh, ww, c, hidden, cout, ws.v, sw.w1, sw.a1b,
+                                                  sw.a1l, sw.w2, sw.a2b, sw.a2l, sw.w3, ws.h1,
+                                                  ws.h2, ws.y, stream, bd, patches)));
 
   // -- coupling and zero-conv ---------------------------------------------
   if (affine)
-    coupling_bwd_kernel<true, BAND><<<ceil_div(M * ch, 256), 256, 0, stream>>>(
+    coupling_bwd_kernel<true, BAND, V::tap><<<ceil_div(M * ch, 256), 256, 0, stream>>>(
         M, hh, ww, c, ws.v, ws.y, sw.b3, sw.l3, gzn, gld, ws.gv, ws.gacc, ws.t3, bd);
   else
-    coupling_bwd_kernel<false, BAND><<<ceil_div(M * ch, 256), 256, 0, stream>>>(
+    coupling_bwd_kernel<false, BAND, V::tap><<<ceil_div(M * ch, 256), 256, 0, stream>>>(
         M, hh, ww, c, ws.v, ws.y, sw.b3, sw.l3, gzn, gld, ws.gv, ws.gacc, ws.t3, bd);
   GLOW_CHECK(cudaGetLastError());
-  gy_kernel<BAND><<<ceil_div(M * 9 * cout, 256), 256, 0, stream>>>(M, hh, ww, cout, ws.gacc,
-                                                                   ws.gy, bd);
+  gy_kernel<BAND, V::tap><<<ceil_div(M * 9 * cout, 256), 256, 0, stream>>>(M, hh, ww, cout,
+                                                                           ws.gacc, ws.gy, bd);
   GLOW_CHECK(cudaGetLastError());
 
   // -- data gradients through the coupling net ----------------------------
@@ -403,13 +443,13 @@ cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden,
   g3.M = M; g3.N = hidden; g3.K = 9 * cout;
   g3.a = ws.gy; g3.w = (const __nv_bfloat16*)w3t; g3.logs = sw.a2l; g3.h = ws.h2;
   g3.out_bf16 = ws.ga2; g3.part_b = ws.part_a2b; g3.part_l = ws.part_a2l;
-  GLOW_CHECK((launch_gemm<A_DENSE, EPI_RELU_GRAD_BF16>(g3, stream)));
+  GLOW_CHECK((launch_gemm<A_DENSE, EPI_RELU_GRAD_BF16, TAP_MASKED, V::rowsum>(g3, stream)));
 
   GemmArgs g2 = {};
   g2.M = M; g2.N = hidden; g2.K = hidden;
   g2.a = ws.ga2; g2.w = (const __nv_bfloat16*)w2t; g2.logs = sw.a1l; g2.h = ws.h1;
   g2.out_bf16 = ws.ga1; g2.part_b = ws.part_a1b; g2.part_l = ws.part_a1l;
-  GLOW_CHECK((launch_gemm<A_DENSE, EPI_RELU_GRAD_BF16>(g2, stream)));
+  GLOW_CHECK((launch_gemm<A_DENSE, EPI_RELU_GRAD_BF16, TAP_MASKED, V::rowsum>(g2, stream)));
 
   GemmArgs g1 = {};
   g1.M = M; g1.N = 9 * ch; g1.K = hidden;
@@ -417,43 +457,68 @@ cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden,
   GLOW_CHECK((launch_gemm<A_DENSE, EPI_F32>(g1, stream)));
 
   // -- mix and actnorm ------------------------------------------------------
-  gv1_kernel<BAND><<<ceil_div(M * ch, 256), 256, 0, stream>>>(M, hh, ww, c, ws.gp1, ws.gv, bd);
+  gv1_kernel<BAND, V::tap><<<ceil_div(M * ch, 256), 256, 0, stream>>>(M, hh, ww, c, ws.gp1,
+                                                                      ws.gv, bd);
   GLOW_CHECK(cudaGetLastError());
   mix_bwd_kernel<<<ceil_div(M * c, 256), 256, 0, stream>>>(M, c, z, sw.wmat, sw.anb, sw.anl,
                                                            ws.gv, gz, ws.u, ws.gu);
   GLOW_CHECK(cudaGetLastError());
 
   // -- weight gradients -------------------------------------------------------
+  // The variants that drop a gradient write it as zeros.
+  const size_t sizes[N_WEIGHTS] = {
+      (size_t)c * c, (size_t)c, (size_t)c, (size_t)hidden * 9 * ch, (size_t)hidden,
+      (size_t)hidden, (size_t)hidden * hidden, (size_t)hidden, (size_t)hidden,
+      (size_t)9 * cout * hidden, (size_t)cout, (size_t)cout};
+  auto zero = [&](int i) { return cudaMemsetAsync(g[i], 0, sizes[i] * sizeof(float), stream); };
+  if constexpr (!V::wgrad) {
+    for (int i = 0; i < N_WEIGHTS; ++i) GLOW_CHECK(zero(i));
+    return cudaSuccess;
+  }
+
   WgradArgs w2g = {};
   w2g.M = M; w2g.N1 = hidden; w2g.N2 = hidden; w2g.a = ws.ga2; w2g.b = ws.h1;
   w2g.part = ws.part_w;
-  GLOW_CHECK(wgrad<B_DENSE>(w2g, g[6], stream));
+  GLOW_CHECK((wgrad<B_DENSE, TAP_MASKED, V::accum>(w2g, g[6], stream)));
 
   WgradArgs w1g = {};
   w1g.M = M; w1g.N1 = hidden; w1g.N2 = 9 * ch; w1g.a = ws.ga1;
   w1g.z = ws.v; w1g.ldz = c; w1g.hh = hh; w1g.ww = ww; w1g.cin = ch; w1g.part = ws.part_w;
   w1g.band = bd;
-  GLOW_CHECK(wgrad<BAND ? B_CONV3X3_BAND : B_CONV3X3>(w1g, g[3], stream));
+  if constexpr (V::staged) {
+    w1g.b = (const __nv_bfloat16*)patches;
+    GLOW_CHECK((wgrad<B_DENSE, TAP_MASKED, V::accum>(w1g, g[3], stream)));
+  } else {
+    GLOW_CHECK((wgrad<BAND ? B_CONV3X3_BAND : B_CONV3X3, V::tap, V::accum>(w1g, g[3], stream)));
+  }
 
   WgradArgs w3g = {};
   w3g.M = M; w3g.N1 = 9 * cout; w3g.N2 = hidden; w3g.a = ws.gy; w3g.b = ws.h2;
   w3g.part = ws.part_w;
-  GLOW_CHECK(wgrad<B_DENSE>(w3g, g[9], stream));
+  GLOW_CHECK((wgrad<B_DENSE, TAP_MASKED, V::accum>(w3g, g[9], stream)));
 
-  GLOW_CHECK(reduce(gm, hidden, ws.part_a2b, 1.0f, g[7], stream));
-  GLOW_CHECK(reduce(gm, hidden, ws.part_a2l, 1.0f, g[8], stream));
-  GLOW_CHECK(reduce(gm, hidden, ws.part_a1b, 1.0f, g[4], stream));
-  GLOW_CHECK(reduce(gm, hidden, ws.part_a1l, 1.0f, g[5], stream));
-  GLOW_CHECK(col_sum<false>(M, cout, ws.gacc, nullptr, 1.0f, ws.part_col, g[10], stream));
-  GLOW_CHECK(col_sum<false>(M, cout, ws.t3, nullptr, 3.0f, ws.part_col, g[11], stream));
-  GLOW_CHECK(col_sum<false>(M, c, gz, nullptr, 1.0f, ws.part_col, g[1], stream));
-  GLOW_CHECK(col_sum<true>(M, c, ws.gu, ws.u, 1.0f, ws.part_col, g[2], stream));
+  if constexpr (V::rowsum) {
+    const int parts = V::accum ? gm : 1;
+    GLOW_CHECK(reduce(parts, hidden, ws.part_a2b, 1.0f, g[7], stream));
+    GLOW_CHECK(reduce(parts, hidden, ws.part_a2l, 1.0f, g[8], stream));
+    GLOW_CHECK(reduce(parts, hidden, ws.part_a1b, 1.0f, g[4], stream));
+    GLOW_CHECK(reduce(parts, hidden, ws.part_a1l, 1.0f, g[5], stream));
+    GLOW_CHECK((col_sum<false, V::accum>(M, cout, ws.gacc, nullptr, 1.0f, ws.part_col, g[10],
+                                         stream)));
+    GLOW_CHECK((col_sum<false, V::accum>(M, cout, ws.t3, nullptr, 3.0f, ws.part_col, g[11],
+                                         stream)));
+    GLOW_CHECK((col_sum<false, V::accum>(M, c, gz, nullptr, 1.0f, ws.part_col, g[1], stream)));
+    GLOW_CHECK((col_sum<true, V::accum>(M, c, ws.gu, ws.u, 1.0f, ws.part_col, g[2], stream)));
+  } else {
+    const int rowsums[] = {1, 2, 4, 5, 7, 8, 10, 11};
+    for (int i : rowsums) GLOW_CHECK(zero(i));
+  }
 
   const int chunks = ceil_div(M, COL_CHUNK);
   outer_partial_kernel<<<ceil_div(chunks * c * c, 256), 256, 0, stream>>>(M, c, ws.gv, ws.u,
                                                                           ws.part_col);
   GLOW_CHECK(cudaGetLastError());
-  GLOW_CHECK(reduce(chunks, c * c, ws.part_col, 1.0f, g[0], stream));
+  GLOW_CHECK(reduce(V::accum ? chunks : 1, c * c, ws.part_col, 1.0f, g[0], stream));
   return cudaSuccess;
 }
 

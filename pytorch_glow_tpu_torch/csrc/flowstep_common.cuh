@@ -7,6 +7,11 @@
 // Every translation unit compiles this same code with the same flags, so
 // the backward's recompute of h1, h2 and y is bit for bit the forward's,
 // and a band's centre rows are bit for bit the whole chain's.
+//
+// The template parameters `Tap` and `Form`, and the gemm's ROWSUM and the
+// mix's SPLIT, select the anatomy studies' variants (csrc/anatomy.cu);
+// their defaults are the production kernels, the only ones the other
+// translation units instantiate.
 
 #pragma once
 
@@ -28,6 +33,30 @@ constexpr int ROW_THREADS = 256;
 
 enum ALoad { A_DENSE = 0, A_CONV3X3 = 1, A_CONV3X3_BAND = 2 };
 enum Epilogue { EPI_ACTNORM_RELU_BF16 = 0, EPI_F32 = 1, EPI_RELU_GRAD_BF16 = 2 };
+
+// How a 3x3 tap k of pixel m reads its neighbour at flattened offset
+// off_k = (dy - 1) * ww + (dx - 1).  Production masks; the anatomy
+// variants drop the border test or the shift.
+enum Tap {
+  TAP_MASKED = 0,         // the neighbour, zero where it leaves the image
+  TAP_WRAP = 1,           // pixel (m + off_k) mod M, no border test
+  TAP_CENTRE = 2,         // pixel m, no border test
+  TAP_CENTRE_MASKED = 3,  // pixel m, zero where the neighbour leaves the image
+};
+
+// The coupling update: production, or one anatomy variant of it.
+enum Form {
+  FORM_PROD = 0,       // forward (z2 + shift) * s and the logdet; reverse z2 / s - shift
+  FORM_NO_LOGDET = 1,  // forward without the logdet: ld = 0
+  FORM_RECIP_EXP = 2,  // reverse z2 * (1 + e^-(raw + 2)) - shift (1/sigmoid, same math)
+  FORM_NO_DIV = 3,     // reverse z2 * s - shift (drops the divide; wrong math)
+  FORM_SPLIT = 4,      // reverse, writes only z2' into an (M, C/2) buffer
+};
+
+__device__ __forceinline__ int wrap_index(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
+}
 
 // Row-band geometry.  A band launch stages `count` consecutive bands of R
 // rows, each extended by a 2-row halo above and below (the coupling net's
@@ -69,13 +98,22 @@ struct GemmArgs {
 // Patch element k = tap * cin + ci of pixel m: z1 at the tap's neighbour,
 // zero where the tap leaves the image (SAME padding, masked on (y, x)
 // inside each image, and for a band on the absolute row).  Taps
-// k = 3*dy + dx, neighbour (y + dy - 1, x + dx - 1).
-template <bool BAND>
+// k = 3*dy + dx, neighbour (y + dy - 1, x + dx - 1).  `total` (the pixel
+// count M) is read by TAP_WRAP only.
+template <bool BAND, int TAP = TAP_MASKED>
 __device__ __forceinline__ __nv_bfloat16 conv3x3_patch(const float* z, int ldz, int hh, int ww,
-                                                       int cin, int m, int k, const Band& bd) {
+                                                       int cin, int m, int k, const Band& bd,
+                                                       int total = 0) {
+  static_assert(TAP != TAP_CENTRE_MASKED, "no variant reads masked centre patches");
+  static_assert(TAP == TAP_MASKED || !BAND, "no band variants");
   const int hw = hh * ww;
   const int tap = k / cin, ci = k - tap * cin;
   const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+  if constexpr (TAP == TAP_WRAP) {
+    return __float2bfloat16(z[wrap_index(m + dy * ww + dx, total) * ldz + ci]);
+  } else if constexpr (TAP == TAP_CENTRE) {
+    return __float2bfloat16(z[m * ldz + ci]);
+  }
   const int img = m / hw, rem = m - img * hw;
   const int y = rem / ww + dy, x = rem % ww + dx;
   if (y >= 0 && y < hh && x >= 0 && x < ww && row_in_image<BAND>(bd, img, y))
@@ -84,8 +122,10 @@ __device__ __forceinline__ __nv_bfloat16 conv3x3_patch(const float* z, int ldz, 
 }
 
 // out[m, n] = sum_k A[m, k] * w[n, k], bf16 operands, f32 accumulation.
-// A_CONV3X3 builds the im2col patch tile of z1 in shared memory.
-template <int AL, int EP>
+// A_CONV3X3 builds the im2col patch tile of z1 in shared memory, its taps
+// read as TAP says.  Without ROWSUM, EPI_RELU_GRAD_BF16 writes no block
+// partials.
+template <int AL, int EP, int TAP = TAP_MASKED, bool ROWSUM = true>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
   __shared__ __align__(32) __nv_bfloat16 As[BM * LDS];
   __shared__ __align__(32) __nv_bfloat16 Bs[BN * LDS];
@@ -112,7 +152,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
         if (AL == A_DENSE)
           v = g.a[m * g.K + k];
         else
-          v = conv3x3_patch<AL == A_CONV3X3_BAND>(g.z, g.ldz, g.hh, g.ww, g.cin, m, k, g.band);
+          v = conv3x3_patch<AL == A_CONV3X3_BAND, TAP>(g.z, g.ldz, g.hh, g.ww, g.cin, m, k,
+                                                        g.band, g.M);
       }
       As[r * LDS + kk] = v;
     }
@@ -166,7 +207,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
     }
   }
 
-  if (EP == EPI_RELU_GRAD_BF16 && tid < 2 * BN) {
+  if (EP == EPI_RELU_GRAD_BF16 && ROWSUM && tid < 2 * BN) {
     // Block partials over this block's rows, in row order: thread c sums
     // g_a of column c, thread BN + c sums g_an * h (a_n == h where the
     // ReLU passes).  f32, before the bf16 cast, as the reference sums.
@@ -186,9 +227,10 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
 
 // The 1x1 channel mix in f32, one output element per thread.
 //   forward: out = W @ ((z + b) * e^l)      reverse: out = (W @ z) * e^-l - b
-template <bool REVERSE>
+// With SPLIT, inputs C/2.. come from z2 (M, C/2) instead of zin.
+template <bool REVERSE, bool SPLIT = false>
 __global__ void mix_kernel(int M, int C, const float* zin, const float* w, const float* anb,
-                           const float* anl, float* out) {
+                           const float* anl, float* out, const float* z2) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= M * C) return;
   const int m = idx / C, o = idx - m * C;
@@ -196,7 +238,11 @@ __global__ void mix_kernel(int M, int C, const float* zin, const float* w, const
   const float* wr = w + o * C;
   float acc = 0.0f;
   for (int i = 0; i < C; ++i) {
-    float v = row[i];
+    float v;
+    if constexpr (SPLIT)
+      v = i < C / 2 ? row[i] : z2[m * (C / 2) + i - C / 2];
+    else
+      v = row[i];
     if (!REVERSE) v = (v + anb[i]) * expf(anl[i]);
     acc = fmaf(wr[i], v, acc);
   }
@@ -206,12 +252,27 @@ __global__ void mix_kernel(int M, int C, const float* zin, const float* w, const
 
 // Zero-conv output channel c at pixel (py, px) of image img from the
 // tap-packed y (M, 9*cout): taps summed in order k = 0..8, masked as the
-// conv1 patches are.
-template <bool BAND>
+// conv1 patches are, or read as TAP says (`total`, the pixel count M, for
+// TAP_WRAP).
+template <bool BAND, int TAP = TAP_MASKED>
 __device__ __forceinline__ float zero_conv_at(const float* y, int img, int hh, int ww, int py,
                                               int px, int cout, int c, const float* b3,
-                                              const float* l3, const Band& bd) {
+                                              const float* l3, const Band& bd, int total = 0) {
   float acc = 0.0f;
+  if constexpr (TAP != TAP_MASKED) {
+    static_assert(!BAND, "no band variants");
+    const int m = (img * hh + py) * ww + px;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const int dy = k / 3 - 1, dx = k % 3 - 1;
+      if (TAP == TAP_WRAP)
+        acc += y[wrap_index(m + dy * ww + dx, total) * 9 * cout + k * cout + c];
+      else if (TAP == TAP_CENTRE ||
+               (py + dy >= 0 && py + dy < hh && px + dx >= 0 && px + dx < ww))
+        acc += y[m * 9 * cout + k * cout + c];
+    }
+    return (acc + b3[c]) * expf(l3[c] * 3.0f);
+  }
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int yy = py + k / 3 - 1, xx = px + k % 3 - 1;
@@ -225,38 +286,48 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
 }
 
-template <int AL, int EP>
+template <int AL, int EP, int TAP = TAP_MASKED, bool ROWSUM = true>
 cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
   dim3 grid((g.M + BM - 1) / BM, (g.N + BN - 1) / BN);
-  gemm_kernel<AL, EP><<<grid, GEMM_THREADS, 0, stream>>>(g);
+  gemm_kernel<AL, EP, TAP, ROWSUM><<<grid, GEMM_THREADS, 0, stream>>>(g);
   return cudaGetLastError();
 }
 
-template <bool REVERSE>
+template <bool REVERSE, bool SPLIT = false>
 cudaError_t launch_mix(int M, int C, const float* zin, const float* w, const float* anb,
-                       const float* anl, float* out, cudaStream_t stream) {
+                       const float* anl, float* out, cudaStream_t stream,
+                       const float* z2 = nullptr) {
   const int total = M * C;
-  mix_kernel<REVERSE><<<(total + 255) / 256, 256, 0, stream>>>(M, C, zin, w, anb, anl, out);
+  mix_kernel<REVERSE, SPLIT><<<(total + 255) / 256, 256, 0, stream>>>(M, C, zin, w, anb, anl,
+                                                                     out, z2);
   return cudaGetLastError();
 }
 
 // f() of the coupling from the mixed z: h1, h2 (bf16) and the tap-packed
 // zero-conv product y (f32), the same three launches in both directions
 // and in the backward's recompute; with BAND, over staged row bands.
-template <bool BAND = false>
+// Anatomy variants: TAP for conv1's patch taps, or with STAGED a dense
+// (M, 9*ch) bf16 patch tensor `patches` read as it is.
+template <bool BAND = false, int TAP = TAP_MASKED, bool STAGED = false>
 inline cudaError_t launch_net(int M, int hh, int ww, int c, int hidden, int cout,
                               const float* z1_src, const void* w1, const float* a1b,
                               const float* a1l, const void* w2, const float* a2b,
                               const float* a2l, const void* w3, void* h1, void* h2, float* y,
-                              cudaStream_t stream, Band bd = Band{}) {
+                              cudaStream_t stream, Band bd = Band{},
+                              const void* patches = nullptr) {
   const int ch = c / 2;
   GemmArgs g1 = {};
   g1.M = M; g1.N = hidden; g1.K = 9 * ch;
   g1.z = z1_src; g1.ldz = c; g1.hh = hh; g1.ww = ww; g1.cin = ch;
   g1.w = (const __nv_bfloat16*)w1; g1.bias = a1b; g1.logs = a1l;
   g1.out_bf16 = (__nv_bfloat16*)h1; g1.band = bd;
-  cudaError_t err =
-      launch_gemm<BAND ? A_CONV3X3_BAND : A_CONV3X3, EPI_ACTNORM_RELU_BF16>(g1, stream);
+  cudaError_t err;
+  if constexpr (STAGED) {
+    g1.a = (const __nv_bfloat16*)patches;
+    err = launch_gemm<A_DENSE, EPI_ACTNORM_RELU_BF16>(g1, stream);
+  } else {
+    err = launch_gemm<BAND ? A_CONV3X3_BAND : A_CONV3X3, EPI_ACTNORM_RELU_BF16, TAP>(g1, stream);
+  }
   if (err != cudaSuccess) return err;
 
   GemmArgs g2 = {};
@@ -270,6 +341,79 @@ inline cudaError_t launch_net(int M, int hh, int ww, int c, int hidden, int cout
   g3.M = M; g3.N = 9 * cout; g3.K = hidden; g3.hh = hh; g3.ww = ww;
   g3.a = (const __nv_bfloat16*)h2; g3.w = (const __nv_bfloat16*)w3; g3.out_f32 = y;
   return launch_gemm<A_DENSE, EPI_F32>(g3, stream);
+}
+
+// Coupling update and per-image logdet; one block per image.  zsrc and
+// zdst may alias (forward updates the mixed z in place): each element is
+// read and written by the same thread only.  Anatomy variants: TAP for the
+// zero-conv's taps, FORM for the update (FORM_SPLIT writes z2' alone into
+// zdst, an (M, C/2) buffer).
+template <bool REVERSE, bool AFFINE, int TAP = TAP_MASKED, int FORM = FORM_PROD>
+__global__ void __launch_bounds__(ROW_THREADS)
+    coupling_kernel(int hh, int ww, int C, const float* zsrc, const float* y, const float* b3,
+                    const float* l3, float* zdst, float* ld) {
+  __shared__ float red[ROW_THREADS];
+  const int img = blockIdx.x;
+  const int hw = hh * ww, ch = C / 2;
+  const int cout = AFFINE ? C : ch;
+  const int total = TAP == TAP_WRAP ? (int)gridDim.x * hw : 0;
+  float part = 0.0f;
+  for (int q = threadIdx.x; q < hw; q += ROW_THREADS) {
+    const int py = q / ww, px = q - py * ww;
+    const float* src = zsrc + (img * hw + q) * C;
+    float* dst = zdst + (img * hw + q) * C;
+    for (int j = 0; j < ch; ++j) {
+      const float z1 = src[j];
+      float z2 = src[ch + j];
+      const float h =
+          zero_conv_at<false, TAP>(y, img, hh, ww, py, px, cout, j, b3, l3, Band{}, total);
+      if (AFFINE) {
+        const float raw = zero_conv_at<false, TAP>(y, img, hh, ww, py, px, cout, ch + j, b3, l3,
+                                                   Band{}, total) + 2.0f;
+        const float s = 1.0f / (1.0f + expf(-raw));
+        if constexpr (FORM == FORM_RECIP_EXP)
+          z2 = z2 * (1.0f + expf(-raw)) - h;
+        else if constexpr (FORM == FORM_NO_DIV)
+          z2 = z2 * s - h;
+        else
+          z2 = REVERSE ? z2 / s - h : (z2 + h) * s;
+        if (!REVERSE && FORM != FORM_NO_LOGDET) part += log_sigmoid(raw);
+      } else {
+        z2 = REVERSE ? z2 - h : z2 + h;
+      }
+      if constexpr (FORM == FORM_SPLIT) {
+        zdst[(img * hw + q) * ch + j] = z2;
+      } else {
+        dst[j] = z1;
+        dst[ch + j] = z2;
+      }
+    }
+  }
+  if (REVERSE) return;
+  if constexpr (FORM == FORM_NO_LOGDET) {
+    if (threadIdx.x == 0) ld[img] = 0.0f;
+    return;
+  }
+  red[threadIdx.x] = part;
+  __syncthreads();
+  for (int s = ROW_THREADS / 2; s > 0; s /= 2) {
+    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) ld[img] = red[0];
+}
+
+template <bool REVERSE>
+cudaError_t launch_coupling(int affine, int b, int hh, int ww, int C, const float* zsrc,
+                            const float* y, const float* b3, const float* l3, float* zdst,
+                            float* ld, cudaStream_t stream) {
+  if (affine)
+    coupling_kernel<REVERSE, true><<<b, ROW_THREADS, 0, stream>>>(hh, ww, C, zsrc, y, b3, l3,
+                                                                  zdst, ld);
+  else
+    coupling_kernel<REVERSE, false><<<b, ROW_THREADS, 0, stream>>>(hh, ww, C, zsrc, y, b3, l3,
+                                                                   zdst, ld);
+  return cudaGetLastError();
 }
 
 // Stage `count` bands of the batch (b, height, ww, c) f32 into ext

@@ -1,12 +1,12 @@
 """Build and load the hand-written CUDA kernels in `csrc/`.
 
-At first use, `library()` compiles every `csrc/*.cu` (the flow-step chains
-and the LU 1x1 conv, `invconv.cu`) with nvcc for sm_90a,
-one nvcc process per source, all started together, then links the objects
-into a shared library with a plain C interface under `_build/<hash>/` in
-this package (the hash covers the sources, headers and flags, so an edited
-kernel rebuilds), and loads it with ctypes.  A missing nvcc or a failed
-build raises: nothing falls back.
+At first use, `library()` compiles every `csrc/*.cu` (the flow-step chains,
+the LU 1x1 conv `invconv.cu` and the anatomy variants `anatomy.cu`) with
+nvcc for sm_90a, one nvcc process per source, all started together, then
+links the objects into a shared library with a plain C interface under
+`_build/<hash>/` in this package (the hash covers the sources, headers and
+flags, so an edited kernel rebuilds), and loads it with ctypes.  A
+missing nvcc or a failed build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -68,6 +68,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glow_invconv_forward.restype = i32
     lib.glow_invconv_mix.argtypes = [i32] * 2 + [ptr] * 3 + [ptr]
     lib.glow_invconv_mix.restype = i32
+    lib.glow_anatomy_forward.argtypes = [i32] * 6 + [ptr] * 19 + [ptr]
+    lib.glow_anatomy_forward.restype = i32
+    lib.glow_anatomy_reverse.argtypes = [i32] * 6 + [ptr] * 19 + [ptr]
+    lib.glow_anatomy_reverse.restype = i32
+    lib.glow_anatomy_backward.argtypes = [i32] * 6 + [ptr] * 33 + [ptr]
+    lib.glow_anatomy_backward.restype = i32
     lib.glow_error_string.argtypes = [i32]
     lib.glow_error_string.restype = ctypes.c_char_p
     return lib

@@ -227,6 +227,42 @@ def supported(h: int, w: int, c: int, hidden: int, affine: bool = True,
 
 
 # ---------------------------------------------------------------------------
+# The roofline bound of one chain call
+# ---------------------------------------------------------------------------
+
+# Published H100 SXM peaks at 700 W: dense bf16 tensor cores, f32 outside
+# them, HBM3.
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound_ms(kind: str, b: int, h: int, w: int, c: int, hidden: int,
+             affine: bool) -> tuple[float, str]:
+    """The least time one flow-step chain call ("forward", "reverse" or
+    "backward") could take on the card, and what bounds it ("operations" or
+    "bytes"): the larger of its operations over the peak rate of their type
+    (the coupling net's bf16 products, the f32 mix) and its compulsory
+    bytes (each input read once, each output written once) over the memory
+    rate.  The backward recomputes the net and forms two more products per
+    layer, as the JAX kernel's cost estimate counts it."""
+    m, ch = b * h * w, c // 2
+    net_w = hidden * (9 * ch + hidden + 9 * _cout(c, affine))
+    vec = c * c + 2 * c + 4 * hidden + 2 * _cout(c, affine)
+    net = 2 * m * net_w
+    weight_bytes = 4 * vec + 2 * net_w
+    if kind == "backward":  # z, g_zn in, g_z out; g_ld in; 12 f32 grads out
+        bf16, f32 = 3 * net, 12 * m * c * c
+        nbytes = 3 * 4 * m * c + 4 * b + weight_bytes + 4 * (vec + net_w)
+    else:  # z in, z_next out, logdet out
+        bf16, f32 = net, 2 * m * c * c
+        nbytes = 2 * 4 * m * c + 4 * b + weight_bytes
+    t_ops = bf16 / PEAK_BF16 + f32 / PEAK_F32
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# ---------------------------------------------------------------------------
 # Plain PyTorch version (CPU tensors, tests, and the on-card comparison)
 # ---------------------------------------------------------------------------
 

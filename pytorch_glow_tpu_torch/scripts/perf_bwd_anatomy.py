@@ -1,0 +1,62 @@
+"""S3: anatomy of the flow-step backward (training) chain (K3) at celeba64
+level 0.
+
+    python -m pytorch_glow_tpu_torch.scripts.perf_bwd_anatomy
+
+Counterpart of the JAX package's `scripts/perf_bwd_anatomy.py`: the same
+shape, variants and order, g_zn normal and g_ld = 1, timed by two-N
+differencing on the card (`_anatomy`).  Variants (`ops/anatomy.BACKWARD`;
+all but `full` are wrong math, for attribution only):
+
+  full         the production chain (csrc/flowstep_bwd.cu): recompute,
+               dgrad, wgrad, column sums, chunk reductions
+  no_accum     each chunk-partial reduction reads chunk 0 alone
+  no_rowsum    no bias/logs column sums or GEMM-epilogue block partials
+  no_wgrad     no weight-gradient product, partial or reduction (recompute
+               + dgrad: the cost of g_z alone)
+  no_masks     every 3x3 read (conv1, zero-conv, gy, g_v1, gW1's gather)
+               at pixel (m + off) mod M, no border test
+  no_rolls     every 3x3 read at pixel m
+  matmul_only  conv1 and gW1 read a staged dense patch tensor; the
+               zero-conv, gy and g_v1 sum or copy their taps at pixel m
+
+The bound counts the recompute, dgrad and wgrad products (3x the forward's
+net) and the f32 mix products.  Rows as in `perf_kernel_anatomy`, and
+`full`'s device time by kernel splits the chain into recompute, dgrad,
+wgrad, the partials and the reductions.  Env: KA_BATCH (128), KA_N1/KA_N2
+(20/70).  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+from pytorch_glow_tpu_torch.scripts import _anatomy as A
+
+# (kernel, label, bf16 operations per pixel): the chain's launches in order.
+_REDUCE = ("reduce_partials_kernel", "reductions of chunk partials", 0)
+_COLS = ("col_partial_kernel", "column-sum partials", 0)
+_P1, _H, _Y = A.CONV1_OPS, A.CONV2_OPS, A.CONV3_OPS
+CHAIN = [
+    ("mix_kernel", "recompute: mix", 0), ("gemm_kernel", "recompute: conv1 GEMM (im2col)", _P1),
+    ("gemm_kernel", "recompute: conv2 GEMM", _H), ("gemm_kernel", "recompute: conv3 GEMM", _Y),
+    ("coupling_bwd_kernel", "coupling backward", 0), ("gy_kernel", "gy (zero-conv transpose)", 0),
+    ("gemm_kernel", "dgrad: g_h2 GEMM + block partials", _Y),
+    ("gemm_kernel", "dgrad: g_h1 GEMM + block partials", _H),
+    ("gemm_kernel", "dgrad: g_p1 GEMM", _P1),
+    ("gv1_kernel", "g_v1 col2im", 0), ("mix_bwd_kernel", "mix backward", 0),
+    ("wgrad_kernel", "wgrad: gW2 GEMM", _H), _REDUCE,
+    ("wgrad_kernel", "wgrad: gW1 GEMM (p1 gather)", _P1), _REDUCE,
+    ("wgrad_kernel", "wgrad: gW3 GEMM", _Y), _REDUCE,
+    _REDUCE, _REDUCE, _REDUCE, _REDUCE,
+    _COLS, _REDUCE, _COLS, _REDUCE, _COLS, _REDUCE, _COLS, _REDUCE,
+    ("outer_partial_kernel", "mix-gradient partials", 0), _REDUCE,
+]
+
+
+def main(batch: int | None = None, n1: int | None = None, n2: int | None = None) -> dict:
+    b, n1, n2 = A.knobs(batch, n1, n2, 20, 70)
+    A.card()
+    return A.report("BACKWARD", "backward", b, n1, n2, A.operands("backward", b), CHAIN)
+
+
+if __name__ == "__main__":
+    main()
