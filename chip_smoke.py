@@ -25,7 +25,8 @@
    every coupling depends on the data, nll against the unfused path again.
 5. Times the kernel and the plain path with CUDA events (median of reps
    after warm-up): each level's step, nll and sample images/s.
-6. Holds the backward kernel (`csrc/flowstep_bwd.cu`) against
+6. Holds the backward kernel (`csrc/flowstep_bwd.cu`, its six gradient
+   products on the GEMM core of 17) against
    `step_backward_ref` at every celeba64 level shape at b=128 and the odd
    shapes, affine and additive: g_z and each weight grad within 5e-2 of the
    plain version's largest magnitude (g_z also elementwise rtol 5e-2 and
@@ -119,6 +120,14 @@
    bitwise against a launch outside the timing loop's buffers; `full`'s
    plain version and library yardstick (one unfused bf16 `FlowStep`
    call) timed at b=128.
+
+17. Runs before 6: the backward's wgmma/TMA GEMM core (`csrc/gemm_sm90.cuh`)
+   alone, through `ops/flowstep.gemm_core`, against torch.matmul in f32 on
+   the same bf16 operands, at every product shape the chain uses (N or K of
+   54, 108, 512, 1728 and 3456, celeba64 level 0, a ragged band-group M,
+   the odd shapes' 27 columns) in both operand orders: max |diff| within
+   1e-5 of the largest |a| |b| product sum, a second launch bitwise equal,
+   each product timed.
 
 With --profile, also prints torch.profiler's device time by kernel, and
 the device's idle share, for one fused and one unfused train step of
@@ -442,6 +451,54 @@ def check_backward(torch, fs, results: dict, cases=None, time_all: bool = False,
                 times["backward"] += (median_ms(library_backward(torch, step, z, gzn, gld), torch),)
                 print_times(fs, tag, times, b, h, w, c, affine, results,
                         (h, w, c) == LEVEL_SHAPES[0])
+
+
+# (trans, m, n, k) of the GEMM core check (phase 17): the chain's six
+# products at celeba64 level 0 (b=128), celebahq256's widest levels and a
+# K5 band group, N or K of 54, 108, 512, 1728 and 3456, ragged M, and the
+# odd shapes' narrow 27-column patches.  trans 0: out (m, n) = a (m, k)
+# b (n, k)^T, the data gradients; trans 1: out (m, n) = a (k, m)^T b (k, n),
+# the weight gradients over k pixels.
+GEMM_CASES = [
+    (0, 131072, 512, 108), (0, 131072, 512, 512), (0, 131072, 54, 512),
+    (1, 512, 512, 131072), (1, 512, 54, 131072), (1, 108, 512, 131072),
+    (0, 4096, 512, 1728), (0, 4096, 1728, 512), (0, 1024, 512, 3456),
+    (1, 512, 1728, 4096), (1, 3456, 512, 1024),
+    (0, 36000, 512, 54), (0, 36000, 54, 512), (1, 512, 54, 36000), (1, 54, 512, 36000),
+    (0, 210, 27, 512), (1, 512, 27, 210),
+]
+
+
+def check_gemm_core(torch, fs) -> None:
+    """Phase 17: the backward's wgmma/TMA GEMM core alone (`fs.gemm_core`)
+    against torch.matmul in f32 on the same bf16 operands, at GEMM_CASES,
+    rows padded to a multiple of 8 columns with a non-zero pad the core
+    must not read: max |diff| within 1e-5 of the largest |a| |b| product
+    sum (about 2^-24 times the reduction length at most, far under what a
+    wrong tile, lane or chunk moves), and a second launch bitwise equal."""
+    gen = torch.Generator().manual_seed(SEED + 60)
+    for trans, m, n, k in GEMM_CASES:
+        shapes = ((k, m), (k, n)) if trans else ((m, k), (n, k))
+        a, b = (torch.full((rows, fs.padded(cols)), 7.0, dtype=torch.bfloat16)
+                for rows, cols in shapes)
+        a[:, :shapes[0][1]] = torch.randn(shapes[0], generator=gen)
+        b[:, :shapes[1][1]] = torch.randn(shapes[1], generator=gen)
+        a, b = a.cuda(), b.cuda()
+        got = fs.gemm_core(a, b, bool(trans), m, n, k)
+        again = fs.gemm_core(a, b, bool(trans), m, n, k)
+        av, bv = a[:, :shapes[0][1]].float(), b[:, :shapes[1][1]].float()
+        want = av.T @ bv if trans else av @ bv.T
+        scale = float((av.abs().T @ bv.abs() if trans else av.abs() @ bv.abs().T).max())
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tag = f"gemm core trans={trans} ({m}, {n}) over k={k}"
+        require(torch.equal(got, again), f"{tag}: a second launch differs")
+        require(bool(torch.isfinite(got).all()) and err <= 1e-5 * scale,
+                f"{tag}: max |diff| {err} at scale {scale}")
+        ms = median_ms(lambda: fs.gemm_core(a, b, bool(trans), m, n, k), torch)
+        print(f"{tag}: max |diff| {err:.3e} (scale {scale:.1f}), {ms:.4f} ms, "
+              f"{2e-9 * m * n * k / ms:.1f} TFLOP/s")
+        del a, b, got, again, want
 
 
 def random_lu(c: int, generator, torch):
@@ -1582,6 +1639,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     launches = check_serving(torch, fs, card, "celeba64")
 
     # -- the training path ----------------------------------------------------
+    check_gemm_core(torch, fs)
     check_backward(torch, fs, results)
     train_launches = check_training(torch, fs, card, os.path.join(out_root, "celeba64"),
                                     "--profile" in sys.argv[1:])

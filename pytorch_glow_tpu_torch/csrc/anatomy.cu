@@ -25,9 +25,9 @@
 //                (the TPU's lane roll over one tile, unmasked)
 //   no_rolls     taps read pixel m; masked where the JAX variant keeps its
 //                masks (S1's zero-conv), else not
-//   matmul_only  conv1 (and in S3 the gW1 product) reads a staged dense
-//                (M, 9*ch) bf16 patch tensor; the zero-conv, gy and g_v1's
-//                col2im sum their 9 taps at pixel m
+//   matmul_only  conv1 reads a staged dense (M, 9*ch) bf16 patch tensor;
+//                the zero-conv, gy, g_v1's col2im and (S3) the gW1 patch
+//                staging read their 9 taps at pixel m
 //   no_logdet    (S1) the coupling writes ld = 0, no log_sigmoid sum
 //   recip_exp    (S2) z2 * (1 + e^-(raw+2)) - shift: 1/sigmoid, same math
 //   split_mix    (S2) the coupling writes only z2' into an (M, ch) buffer
@@ -35,7 +35,10 @@
 //                the mix sums in the same order, so the bits are K2's
 //   no_div       (S2) z2 * s - shift
 //   no_mix       (S2) no W^-1 mix and actnorm inverse: out = [z1 | z2']
-//   no_accum     (S3) each chunk-partial reduction reads chunk 0 alone
+//   no_accum     (S3) the weight grads are the last batch tile's alone, as
+//                the JAX variant's (each tile overwrites them): every
+//                chunking is cut at the tile's first pixel, every chunk is
+//                computed, and each reduction sums the tile's partials only
 //   no_rowsum    (S3) no bias/logs column sums and no GEMM-epilogue block
 //                partials; those 8 grads are 0
 //   no_wgrad     (S3) no weight-gradient product, partial or reduction;
@@ -117,17 +120,18 @@ struct MatmulOnly : BwdProd {
   static constexpr bool staged = true;
 };
 
+// `split`: the first pixel of the last batch tile (no_accum's cut).
 template <class V>
 cudaError_t backward_variant(int b, int hh, int ww, int c, int hidden, const float* z,
                              const StepWeights& sw, const void* w1t, const void* w2t,
                              const void* w3t, const float* gzn, const float* gld,
                              const void* patches, float* gz, float* const* g, void* workspace,
-                             cudaStream_t stream) {
+                             int split, cudaStream_t stream) {
   const int M = b * hh * ww;
   Carver cv = {(char*)workspace, 0};
-  const Workspace ws = carve(cv, M, c, hidden, c);
+  const Workspace ws = carve(cv, M, c, hidden, c, split);
   return backward_chain<false, V>(1, M, hh, ww, c, hidden, Band{}, z, sw, w1t, w2t, w3t, gzn,
-                                  gld, gz, g, ws, stream, patches);
+                                  gld, gz, g, ws, stream, patches, split);
 }
 
 }  // namespace
@@ -201,23 +205,35 @@ int glow_anatomy_reverse(int variant, int b, int hh, int ww, int c, int hidden, 
   return (int)cudaErrorInvalidValue;
 }
 
+// Bytes of scratch `glow_anatomy_backward` needs: the backward chain's,
+// with every chunking cut where the last batch tile of `tile` pixels
+// starts.
+size_t glow_anatomy_bwd_workspace(int b, int hh, int ww, int c, int hidden, int tile) {
+  const int M = b * hh * ww;
+  Carver cv = {nullptr, 0};
+  return carve(cv, M, c, hidden, c, M - tile).bytes;
+}
+
 // S3, K3's variants (0 full, 1 no_accum, 2 no_rowsum, 3 no_wgrad,
 // 4 no_masks, 5 no_rolls, 6 matmul_only), affine.  Arguments as
-// glow_flowstep_bwd's, plus patches ((M, 9*ch) bf16, matmul_only); the
-// workspace is glow_flowstep_bwd_workspace's size.
-int glow_anatomy_backward(int variant, int b, int hh, int ww, int c, int hidden, const float* z,
-                          const float* wmat, const float* anb, const float* anl, const void* w1,
-                          const float* a1b, const float* a1l, const void* w2, const float* a2b,
-                          const float* a2l, const void* w3, const float* b3, const float* l3,
-                          const void* w1t, const void* w2t, const void* w3t, const float* gzn,
-                          const float* gld, const void* patches, float* gz, float* g_wmat,
-                          float* g_anb, float* g_anl, float* g_w1, float* g_a1b, float* g_a1l,
-                          float* g_w2, float* g_a2b, float* g_a2l, float* g_w3, float* g_b3,
-                          float* g_l3, void* workspace, void* stream_ptr) {
+// glow_flowstep_bwd's, plus patches ((M, 9*ch) bf16, matmul_only) and
+// tile, the pixels of the JAX study's batch tile (no_accum keeps the last
+// one's grads; M - tile a multiple of 128); the workspace is
+// glow_anatomy_bwd_workspace's size.
+int glow_anatomy_backward(int variant, int b, int hh, int ww, int c, int hidden, int tile,
+                          const float* z, const float* wmat, const float* anb, const float* anl,
+                          const void* w1, const float* a1b, const float* a1l, const void* w2,
+                          const float* a2b, const float* a2l, const void* w3, const float* b3,
+                          const float* l3, const void* w1t, const void* w2t, const void* w3t,
+                          const float* gzn, const float* gld, const void* patches, float* gz,
+                          float* g_wmat, float* g_anb, float* g_anl, float* g_w1, float* g_a1b,
+                          float* g_a1l, float* g_w2, float* g_a2b, float* g_a2l, float* g_w3,
+                          float* g_b3, float* g_l3, void* workspace, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const StepWeights sw = {wmat, anb, anl, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3};
   float* const g[N_WEIGHTS] = {g_wmat, g_anb, g_anl, g_w1, g_a1b, g_a1l,
                                g_w2,   g_a2b, g_a2l, g_w3, g_b3,  g_l3};
+  const int split = b * hh * ww - tile;
   switch (variant) {
     case 0:
       return glow_flowstep_bwd(1, b, hh, ww, c, hidden, z, wmat, anb, anl, w1, a1b, a1l, w2, a2b,
@@ -226,22 +242,22 @@ int glow_anatomy_backward(int variant, int b, int hh, int ww, int c, int hidden,
                                workspace, stream_ptr);
     case 1:
       return (int)backward_variant<NoAccum>(b, hh, ww, c, hidden, z, sw, w1t, w2t, w3t, gzn, gld,
-                                            patches, gz, g, workspace, stream);
+                                            patches, gz, g, workspace, split, stream);
     case 2:
       return (int)backward_variant<NoRowsum>(b, hh, ww, c, hidden, z, sw, w1t, w2t, w3t, gzn,
-                                             gld, patches, gz, g, workspace, stream);
+                                             gld, patches, gz, g, workspace, split, stream);
     case 3:
       return (int)backward_variant<NoWgrad>(b, hh, ww, c, hidden, z, sw, w1t, w2t, w3t, gzn, gld,
-                                            patches, gz, g, workspace, stream);
+                                            patches, gz, g, workspace, split, stream);
     case 4:
       return (int)backward_variant<NoMasks>(b, hh, ww, c, hidden, z, sw, w1t, w2t, w3t, gzn, gld,
-                                            patches, gz, g, workspace, stream);
+                                            patches, gz, g, workspace, split, stream);
     case 5:
       return (int)backward_variant<NoRolls>(b, hh, ww, c, hidden, z, sw, w1t, w2t, w3t, gzn, gld,
-                                            patches, gz, g, workspace, stream);
+                                            patches, gz, g, workspace, split, stream);
     case 6:
       return (int)backward_variant<MatmulOnly>(b, hh, ww, c, hidden, z, sw, w1t, w2t, w3t, gzn,
-                                               gld, patches, gz, g, workspace, stream);
+                                               gld, patches, gz, g, workspace, split, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

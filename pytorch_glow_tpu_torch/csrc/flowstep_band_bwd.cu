@@ -28,7 +28,8 @@
 // launches on the same inputs give the same bits.
 //
 // What bounds it on this card: as K3, operations, plus (R+4)/R of them for
-// the recomputed halo rows.  Written to be right first.
+// the recomputed halo rows.  The six gradient products run on K3's
+// wgmma/TMA core (gemm_sm90.cuh); the recompute on K4's kernels.
 
 #include "flowstep_bwd_common.cuh"
 

@@ -8,20 +8,22 @@
 // Layout as the forward (flowstep.cu): pixel-major (M = B*H*W, C) f32 z,
 // packed weights from `ops/flowstep.pack_weights(reverse=False)`, plus the
 // wrapper's transposed bf16 copies w1t (9*ch, hid), w2t (hid, hid) and
-// w3t (hid, 9*cout).
+// w3t (hid, padded(9*cout)), its pad columns zero.
 //
 // The chain itself (recompute, coupling and zero-conv cotangents, three
-// data-gradient GEMMs, col2im and mix backward, three "K = M" weight-grad
-// GEMMs, column sums) is `backward_chain` in flowstep_bwd_common.cuh,
-// shared with the row-band backward (flowstep_band_bwd.cu); this file runs
-// it once over the whole batch.
+// data-gradient GEMMs, col2im and mix backward, the staged conv1 patches,
+// three "K = M" weight-grad GEMMs, column sums) is `backward_chain` in
+// flowstep_bwd_common.cuh, shared with the row-band backward
+// (flowstep_band_bwd.cu); this file runs it once over the whole batch.
 //
 // What bounds it on this card: operations.  Per step 3 * 2*M*hid*(9*ch +
 // hid + 9*cout) + 12*M*C^2, about 272 GFLOP at celeba64 level 0 with b=128
 // (0.27 ms at 989 TFLOP/s bf16), against about 22 MB of compulsory traffic
-// (7 us at 3.35 TB/s).  This first version stages every intermediate in
-// device memory and runs the seven GEMM-shaped products on the simple
-// 64x64 wmma tiles of the forward; it is written to be right first.
+// (7 us at 3.35 TB/s).  The six gradient products run on the wgmma/TMA
+// core of gemm_sm90.cuh (128 x 128 tiles, a 4-stage TMA ring, split-K over
+// pixels for the weight gradients); the recompute stays on the forward's
+// 64 x 64 wmma kernels, so its ReLU masks are K1's, and every intermediate
+// is still staged in device memory.
 
 #include "flowstep_bwd_common.cuh"
 

@@ -10,18 +10,24 @@
 //                    g_acc = g_out*e^{3 l3}, and g_out*out for l3's grad
 //   gy_kernel        tap-packed zero-conv cotangent gy (M, 9*cout) in bf16:
 //                    the transpose of the forward's 9-tap shift-sum
-//   gemm             g_h2 = gy @ w3; epilogue: ReLU mask of h2, * e^{a2l},
-//                    g_a2 in bf16, block partials of its bias/logs grads
-//   gemm             g_h1 = g_a2 @ w2; the same epilogue with h1
-//   gemm             g_p1 = g_a1 @ w1 (f32)
+//   data_grad        g_h2 = gy @ w3 on the wgmma/TMA core (gemm_sm90.cuh);
+//                    epilogue: ReLU mask of h2, * e^{a2l}, g_a2 in bf16,
+//                    block partials of its bias/logs grads
+//   data_grad        g_h1 = g_a2 @ w2; the same epilogue with h1
+//   data_grad        g_p1 = g_a1 @ w1 (f32)
 //   gv1_kernel       g_v1 = go1 + col2im(g_p1), the conv1 gather transposed
 //   mix_bwd          g_u = W^T g_v, g_z = g_u * e^{anl}, u recomputed
-//   wgrad_kernel     gW2 = g_a2^T h1, gW1 = g_a1^T p1 (p1 gathered into
-//                    shared memory as conv1 gathers it), gW3 = gy^T h2:
-//                    "K = M" products, one partial per chunk of pixels
+//   stage_patches    conv1's patches p1 (M, 9*ch) in bf16, written once
+//   weight_grad      gW2 = g_a2^T h1, gW1 = g_a1^T p1, gW3 = gy^T h2 on the
+//                    core: "K = M" products read pixel-major, one partial per
+//                    chunk of pixels
 //   col_partial,     the bias/logs column sums and the C x C mix gradient,
 //   outer_partial    one partial per chunk of pixels
 //   reduce_partials  each partial set summed in chunk order
+//
+// The bf16 operands the core reads through TMA need row strides of a
+// multiple of 16 bytes: gy and p1 rows are padded to a multiple of 8
+// columns (`padded`), the pad zero, and so is the wrapper's transposed w3.
 //
 // With BAND the chain runs over staged row bands (flowstep_common.cuh
 // `Band`): every gather and its transpose masks on absolute rows, and g_ld
@@ -37,31 +43,24 @@
 #pragma once
 
 #include "flowstep_common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int WG_LD = BM + 8;    // wgrad shared tile row stride (bf16, multiple of 8)
-constexpr int WG_TARGET_BLOCKS = 264;  // about two blocks per SM
 constexpr int COL_CHUNK = 256;   // pixels per column-sum partial
 constexpr int N_WEIGHTS = 12;
 
 __host__ __device__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Pixels per wgrad partial: enough chunks to give the card about
-// WG_TARGET_BLOCKS blocks, each chunk a whole number of BK slices.
-int wgrad_chunk(int M, int n1, int n2) {
-  const int tiles = ceil_div(n1, BM) * ceil_div(n2, BN);
-  int chunks = ceil_div(WG_TARGET_BLOCKS, tiles);
-  chunks = chunks < 1 ? 1 : chunks;
-  const int rows = ceil_div(ceil_div(M, chunks), BK) * BK;
-  return rows;
-}
+// Columns of a bf16 buffer the core reads through TMA: a multiple of 8,
+// so that its rows are a multiple of 16 bytes apart.
+__host__ __device__ int padded(int n) { return ceil_div(n, 8) * 8; }
 
 // What a backward-chain variant does; production is every default.
 struct BwdProd {
-  static constexpr int tap = TAP_MASKED;  // every 3x3 read: conv1, zero-conv, gy, g_v1, gW1
-  static constexpr bool staged = false;   // conv1 and gW1 read a dense staged patch tensor
-  static constexpr bool accum = true;     // chunk partials summed (else chunk 0's alone)
+  static constexpr int tap = TAP_MASKED;  // every 3x3 read: conv1, zero-conv, gy, g_v1, p1
+  static constexpr bool staged = false;   // the recompute's conv1 reads a dense staged patch tensor
+  static constexpr bool accum = true;     // every chunk partial summed (else the last tile's)
   static constexpr bool rowsum = true;    // the 8 bias/logs column sums (else 0)
   static constexpr bool wgrad = true;     // any weight gradient (else all 12 are 0)
 };
@@ -116,17 +115,23 @@ __global__ void coupling_bwd_kernel(int M, int hh, int ww, int C, const float* v
 
 // gy[q, k*cout + c] = g_acc[q - off_k, c] where that pixel is in the image
 // (and, for a band, where q's absolute row is): the forward summed
-// y[p + off_k, k*cout + c] into pixel p.  TAP_WRAP reads pixel
-// (q - off_k) mod M, TAP_CENTRE pixel q, neither tested.
+// y[p + off_k, k*cout + c] into pixel p.  Rows are padded(9*cout) long,
+// the pad zero.  TAP_WRAP reads pixel (q - off_k) mod M, TAP_CENTRE pixel
+// q, neither tested.
 template <bool BAND, int TAP = TAP_MASKED>
 __global__ void gy_kernel(int M, int hh, int ww, int cout, const float* gacc,
                           __nv_bfloat16* gy, Band bd) {
   static_assert(TAP != TAP_CENTRE_MASKED && (TAP == TAP_MASKED || !BAND), "no such variant");
+  const int ld = padded(9 * cout);
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * 9 * cout) return;
+  if (idx >= M * ld) return;
   const int hw = hh * ww;
-  const int m = idx / (9 * cout), r = idx - m * 9 * cout;
+  const int m = idx / ld, r = idx - m * ld;
   const int k = r / cout, c = r - k * cout;
+  if (k >= 9) {
+    gy[idx] = __float2bfloat16(0.0f);
+    return;
+  }
   if constexpr (TAP != TAP_MASKED) {
     const int src = TAP == TAP_WRAP ? wrap_index(m - (k / 3 - 1) * ww - (k % 3 - 1), M) : m;
     gy[idx] = __float2bfloat16(gacc[src * cout + c]);
@@ -138,6 +143,21 @@ __global__ void gy_kernel(int M, int hh, int ww, int cout, const float* gacc,
   if (py >= 0 && py < hh && px >= 0 && px < ww && row_in_image<BAND>(bd, img, q / ww))
     v = gacc[(img * hw + py * ww + px) * cout + c];
   gy[idx] = __float2bfloat16(v);
+}
+
+// Conv1's patches p1 (M, padded(9*ch)) in bf16, the pad zero: element
+// k = tap * ch + ci of pixel m is `conv3x3_patch` of v1 = v[:, :ch], as
+// the forward's conv1 gathers it (masked on absolute rows for a band, or
+// read as TAP says).  The gW1 product reads it as a dense operand.
+template <bool BAND, int TAP = TAP_MASKED>
+__global__ void stage_patches_kernel(int M, int hh, int ww, int c, const float* v,
+                                     __nv_bfloat16* p1, Band bd) {
+  const int ch = c / 2, ld = padded(9 * ch);
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= M * ld) return;
+  const int m = idx / ld, k = idx - m * ld;
+  p1[idx] = k < 9 * ch ? conv3x3_patch<BAND, TAP>(v, c, hh, ww, ch, m, k, bd, M)
+                       : __float2bfloat16(0.0f);
 }
 
 // g_v1[p, i] += sum_k g_p1[p - off_k, k*ch + i] over in-image pixels, taps
@@ -189,169 +209,106 @@ __global__ void mix_bwd_kernel(int M, int C, const float* z, const float* w, con
   gu[idx] = acc;
 }
 
-enum BLoad { B_DENSE = 0, B_CONV3X3 = 1, B_CONV3X3_BAND = 2 };
-
-struct WgradArgs {
-  int M, N1, N2, chunk;
-  const __nv_bfloat16* a;   // (M, N1) row-major
-  const __nv_bfloat16* b;   // B_DENSE: (M, N2) row-major
-  const float* z;           // B_CONV3X3: z1 = z[:, :cin] gathered as conv1's patches
-  int ldz, hh, ww, cin;
-  float* part;              // (chunks, N1, N2)
-  Band band;                // B_CONV3X3_BAND
-};
-
-// part[chunk, n1, n2] = sum over the chunk's pixels p of A[p, n1] * B[p, n2],
-// bf16 operands, f32 accumulation, pixels in order within the chunk.
-// B_CONV3X3 reads its taps as TAP says.
-template <int BL, int TAP = TAP_MASKED>
-__global__ void __launch_bounds__(GEMM_THREADS) wgrad_kernel(WgradArgs g) {
-  __shared__ __align__(32) __nv_bfloat16 As[BK * WG_LD];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK * WG_LD];
-  __shared__ __align__(32) float Cs[BM * LDC];
-
-  const int n10 = blockIdx.x * BM, n20 = blockIdx.y * BN;
-  const int p_begin = blockIdx.z * g.chunk;
-  const int p_end = min(p_begin + g.chunk, g.M);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int p0 = p_begin; p0 < p_end; p0 += BK) {
-    for (int idx = tid; idx < BK * BM; idx += GEMM_THREADS) {
-      const int r = idx / BM, c = idx % BM;
-      const int p = p0 + r, n1 = n10 + c;
-      As[r * WG_LD + c] =
-          (p < p_end && n1 < g.N1) ? g.a[p * g.N1 + n1] : __float2bfloat16(0.0f);
-    }
-    for (int idx = tid; idx < BK * BN; idx += GEMM_THREADS) {
-      const int r = idx / BN, c = idx % BN;
-      const int p = p0 + r, n2 = n20 + c;
-      __nv_bfloat16 v = __float2bfloat16(0.0f);
-      if (p < p_end && n2 < g.N2) {
-        if (BL == B_DENSE)
-          v = g.b[p * g.N2 + n2];
-        else
-          v = conv3x3_patch<BL == B_CONV3X3_BAND, TAP>(g.z, g.ldz, g.hh, g.ww, g.cin, p, n2,
-                                                        g.band, g.M);
-      }
-      Bs[r * WG_LD + c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // A^T tile (n1 x p) is the p-major As read column-major.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + kk * WG_LD + wm * 32 + i * 16, WG_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * WG_LD + wn * 32 + j * 16, WG_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  float* part = g.part + (size_t)blockIdx.z * g.N1 * g.N2;
-  for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
-    const int r = idx / BN, c = idx % BN;
-    const int n1 = n10 + r, n2 = n20 + c;
-    if (n1 < g.N1 && n2 < g.N2) part[n1 * g.N2 + n2] = Cs[r * LDC + c];
-  }
-}
+// Partial sums over pixel chunks of `chunk` pixels, cut at `split` as
+// gemm_sm90.cuh `chunk_range` cuts them (split = 0: plain chunks).
 
 // part[chunk, n] = sum over the chunk's pixels of a[p, n] (* b[p, n]).
 template <bool PROD>
-__global__ void col_partial_kernel(int M, int N, const float* a, const float* b, float* part) {
+__global__ void col_partial_kernel(int M, int N, int chunk, int split, const float* a,
+                                   const float* b, float* part) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int chunks = ceil_div(M, COL_CHUNK);
-  if (idx >= chunks * N) return;
-  const int chunk = idx / N, n = idx - chunk * N;
-  const int end = min((chunk + 1) * COL_CHUNK, M);
+  if (idx >= sm90::chunk_count(M, chunk, split) * N) return;
+  const int z = idx / N, n = idx - z * N;
+  int begin, end;
+  sm90::chunk_range(z, M, chunk, split, &begin, &end);
   float s = 0.0f;
-  for (int p = chunk * COL_CHUNK; p < end; ++p)
-    s += PROD ? a[p * N + n] * b[p * N + n] : a[p * N + n];
+  for (int p = begin; p < end; ++p) s += PROD ? a[p * N + n] * b[p * N + n] : a[p * N + n];
   part[idx] = s;
 }
 
 // part[chunk, o, i] = sum over the chunk's pixels of gv[p, o] * u[p, i]: the
 // mix gradient g_v u^T, in f32.
-__global__ void outer_partial_kernel(int M, int C, const float* gv, const float* u,
-                                     float* part) {
+__global__ void outer_partial_kernel(int M, int C, int chunk, int split, const float* gv,
+                                     const float* u, float* part) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int chunks = ceil_div(M, COL_CHUNK);
-  if (idx >= chunks * C * C) return;
-  const int chunk = idx / (C * C), r = idx - chunk * C * C;
+  if (idx >= sm90::chunk_count(M, chunk, split) * C * C) return;
+  const int z = idx / (C * C), r = idx - z * C * C;
   const int o = r / C, i = r - o * C;
-  const int end = min((chunk + 1) * COL_CHUNK, M);
+  int begin, end;
+  sm90::chunk_range(z, M, chunk, split, &begin, &end);
   float s = 0.0f;
-  for (int p = chunk * COL_CHUNK; p < end; ++p) s = fmaf(gv[p * C + o], u[p * C + i], s);
+  for (int p = begin; p < end; ++p) s = fmaf(gv[p * C + o], u[p * C + i], s);
   part[idx] = s;
 }
 
-// out[n] = scale * sum over parts, in part order.
+// out[n] = scale * sum over parts, in a fixed order: strand s of the
+// block's blockDim.y strands sums parts s, s + blockDim.y, ... in order,
+// then the strand sums are added in strand order.
+constexpr int RED_STRANDS = 16;
+
 __global__ void reduce_partials_kernel(int parts, int N, const float* part, float scale,
                                        float* out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  __shared__ float red[RED_STRANDS][33];
+  const int n = blockIdx.x * 32 + threadIdx.x, strand = threadIdx.y, strands = blockDim.y;
   float s = 0.0f;
-  for (int i = 0; i < parts; ++i) s += part[(size_t)i * N + n];
-  out[n] = s * scale;
+  if (n < N)
+    for (int i = strand; i < parts; i += strands) s += part[(size_t)i * N + n];
+  red[strand][threadIdx.x] = s;
+  __syncthreads();
+  if (strand == 0 && n < N) {
+    float t = 0.0f;
+    for (int k = 0; k < strands; ++k) t += red[k][threadIdx.x];
+    out[n] = t * scale;
+  }
 }
 
 cudaError_t reduce(int parts, int N, const float* part, float scale, float* out,
                    cudaStream_t stream) {
-  reduce_partials_kernel<<<ceil_div(N, 256), 256, 0, stream>>>(parts, N, part, scale, out);
+  const int strands = parts < 1 ? 1 : parts < RED_STRANDS ? parts : RED_STRANDS;
+  reduce_partials_kernel<<<ceil_div(N, 32), dim3(32, strands), 0, stream>>>(parts, N, part,
+                                                                           scale, out);
   return cudaGetLastError();
 }
 
-// Column sum over M pixels by chunk partials; without ACCUM the sum reads
-// chunk 0's partial alone (the no_accum variant).
-template <bool PROD, bool ACCUM = true>
-cudaError_t col_sum(int M, int N, const float* a, const float* b, float scale, float* part,
-                    float* out, cudaStream_t stream) {
-  const int chunks = ceil_div(M, COL_CHUNK);
-  col_partial_kernel<PROD><<<ceil_div(chunks * N, 256), 256, 0, stream>>>(M, N, a, b, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce(ACCUM ? chunks : 1, N, part, scale, out, stream);
+// The partials of chunk_count(M, chunk, split) that a reduction sums, from
+// `first` on: every one, or with ACCUM false (the no_accum variant) those
+// of the last batch tile, which starts at pixel `split`.
+template <bool ACCUM>
+cudaError_t reduce_from(int M, int chunk, int split, int N, const float* part, float scale,
+                        float* out, cudaStream_t stream) {
+  const int first = ACCUM ? 0 : ceil_div(split, chunk);
+  return reduce(sm90::chunk_count(M, chunk, split) - first, N, part + (size_t)first * N, scale,
+                out, stream);
 }
 
-template <int BL, int TAP = TAP_MASKED, bool ACCUM = true>
-cudaError_t wgrad(WgradArgs g, float* out, cudaStream_t stream) {
-  g.chunk = wgrad_chunk(g.M, g.N1, g.N2);
-  const int chunks = ceil_div(g.M, g.chunk);
-  dim3 grid(ceil_div(g.N1, BM), ceil_div(g.N2, BN), chunks);
-  wgrad_kernel<BL, TAP><<<grid, GEMM_THREADS, 0, stream>>>(g);
+// Column sum over M pixels by chunk partials.
+template <bool PROD, bool ACCUM = true>
+cudaError_t col_sum(int M, int N, int split, const float* a, const float* b, float scale,
+                    float* part, float* out, cudaStream_t stream) {
+  const int chunks = sm90::chunk_count(M, COL_CHUNK, split);
+  col_partial_kernel<PROD><<<ceil_div(chunks * N, 256), 256, 0, stream>>>(M, N, COL_CHUNK, split,
+                                                                         a, b, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce(ACCUM ? chunks : 1, g.N1 * g.N2, g.part, 1.0f, out, stream);
+  return reduce_from<ACCUM>(M, COL_CHUNK, split, N, part, scale, out, stream);
+}
+
+// A weight gradient A^T B over M pixels (gemm_sm90.cuh `weight_grad_partials`:
+// one partial per chunk, cut at `split`), then its partials summed in order.
+template <bool ACCUM>
+cudaError_t weight_grad(int M, int n1, int n2, const void* a, int lda, const void* b, int ldb,
+                        int split, float* part, float* out, cudaStream_t stream) {
+  const int chunk = sm90::wgrad_chunk(M, n1, n2);
+  GLOW_CHECK(sm90::weight_grad_partials(M, n1, n2, a, lda, b, ldb, chunk, split, part, stream));
+  return reduce_from<ACCUM>(M, chunk, split, n1 * n2, part, 1.0f, out, stream);
 }
 
 // The chain's workspace: every intermediate, each region aligned to 256
-// bytes.  With a null base, only counts the bytes.
+// bytes.  With a null base, only counts the bytes.  `split` (the no_accum
+// variant's last-tile start, else 0) may add one chunk to each partial set.
 struct Workspace {
   float *v, *y, *gacc, *t3, *gp1, *gv, *u, *gu;
-  __nv_bfloat16 *h1, *h2, *gy, *ga2, *ga1;
+  __nv_bfloat16 *h1, *h2, *gy, *ga2, *ga1, *p1;
   float *part_a2b, *part_a2l, *part_a1b, *part_a1l, *part_w, *part_col;
   size_t bytes;
 };
@@ -366,15 +323,15 @@ struct Carver {
   }
 };
 
-Workspace carve(Carver& cv, int M, int c, int hidden, int cout) {
+Workspace carve(Carver& cv, int M, int c, int hidden, int cout, int split = 0) {
   const int ch = c / 2;
-  const size_t gm = (size_t)ceil_div(M, BM);
-  const size_t col_chunks = (size_t)ceil_div(M, COL_CHUNK);
+  const size_t gm = (size_t)ceil_div(M, sm90::TM);
+  const size_t col_chunks = (size_t)sm90::chunk_count(M, COL_CHUNK, split);
   size_t wmax = 0;
   const int dims[3][2] = {{hidden, 9 * ch}, {hidden, hidden}, {9 * cout, hidden}};
   for (const auto& d : dims) {
-    const size_t chunks = (size_t)ceil_div(M, wgrad_chunk(M, d[0], d[1]));
-    const size_t n = chunks * d[0] * d[1];
+    const int chunk = sm90::wgrad_chunk(M, d[0], d[1]);
+    const size_t n = (size_t)sm90::chunk_count(M, chunk, split) * d[0] * d[1];
     wmax = n > wmax ? n : wmax;
   }
   const size_t col_max = col_chunks * (size_t)(c * c > hidden ? c * c : hidden);
@@ -387,13 +344,14 @@ Workspace carve(Carver& cv, int M, int c, int hidden, int cout) {
   w.y = (float*)cv.take(mm * 9 * cout * 4);
   w.gacc = (float*)cv.take(mm * cout * 4);
   w.t3 = (float*)cv.take(mm * cout * 4);
-  w.gy = (__nv_bfloat16*)cv.take(mm * 9 * cout * 2);
+  w.gy = (__nv_bfloat16*)cv.take(mm * padded(9 * cout) * 2);
   w.ga2 = (__nv_bfloat16*)cv.take(mm * hidden * 2);
   w.ga1 = (__nv_bfloat16*)cv.take(mm * hidden * 2);
   w.gp1 = (float*)cv.take(mm * 9 * ch * 4);
   w.gv = (float*)cv.take(mm * c * 4);
   w.u = (float*)cv.take(mm * c * 4);
   w.gu = (float*)cv.take(mm * c * 4);
+  w.p1 = (__nv_bfloat16*)cv.take(mm * padded(9 * ch) * 2);
   w.part_a2b = (float*)cv.take(gm * hidden * 4);
   w.part_a2l = (float*)cv.take(gm * hidden * 4);
   w.part_a1b = (float*)cv.take(gm * hidden * 4);
@@ -407,18 +365,25 @@ Workspace carve(Carver& cv, int M, int c, int hidden, int cout) {
 // The backward of one forward step over M staged pixels in images of
 // hh x ww (for a band, hh = R + 4 and `bd` places the bands).  z: (M, c)
 // step input; gzn: (M, c) output cotangent; gld: per-image logdet
-// cotangent.  Writes gz (M, c) and the 12 f32 weight grads g[0..11].
+// cotangent; w1t (9*ch, hidden), w2t (hidden, hidden) and w3t
+// (hidden, padded(9*cout)), the pad zero: the bf16 transposes of w1, w2,
+// w3.  Writes gz (M, c) and the 12 f32 weight grads g[0..11].
 // V: the production chain (BwdProd) or an anatomy variant; `patches`, the
-// staged (M, 9*ch) bf16 conv1 patches, is read by V::staged only.
+// staged (M, 9*ch) bf16 conv1 patches, is read by V::staged only;
+// `split`, the pixel where the last batch tile starts, by !V::accum only
+// (a multiple of sm90::TM, so that every chunking has a boundary there).
+// The core needs hidden to be a multiple of 8 (its TMA row strides).
 template <bool BAND, class V = BwdProd>
 cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden, const Band& bd,
                            const float* z, const StepWeights& sw, const void* w1t,
                            const void* w2t, const void* w3t, const float* gzn,
                            const float* gld, float* gz, float* const* g, const Workspace& ws,
-                           cudaStream_t stream, const void* patches = nullptr) {
+                           cudaStream_t stream, const void* patches = nullptr, int split = 0) {
   const int ch = c / 2;
   const int cout = affine ? c : ch;
-  const int gm = ceil_div(M, BM);
+  const int gy_ld = padded(9 * cout), p1_ld = padded(9 * ch);
+  if (V::accum) split = 0;
+  if (hidden % 8 != 0 || split % sm90::TM != 0) return cudaErrorInvalidValue;
 
   // -- recompute, with the forward's kernels -----------------------------
   GLOW_CHECK(launch_mix<false>(M, c, z, sw.wmat, sw.anb, sw.anl, ws.v, stream));
@@ -434,27 +399,28 @@ cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden,
     coupling_bwd_kernel<false, BAND, V::tap><<<ceil_div(M * ch, 256), 256, 0, stream>>>(
         M, hh, ww, c, ws.v, ws.y, sw.b3, sw.l3, gzn, gld, ws.gv, ws.gacc, ws.t3, bd);
   GLOW_CHECK(cudaGetLastError());
-  gy_kernel<BAND, V::tap><<<ceil_div(M * 9 * cout, 256), 256, 0, stream>>>(M, hh, ww, cout,
-                                                                           ws.gacc, ws.gy, bd);
+  gy_kernel<BAND, V::tap><<<ceil_div(M * gy_ld, 256), 256, 0, stream>>>(M, hh, ww, cout, ws.gacc,
+                                                                        ws.gy, bd);
   GLOW_CHECK(cudaGetLastError());
 
-  // -- data gradients through the coupling net ----------------------------
-  GemmArgs g3 = {};
-  g3.M = M; g3.N = hidden; g3.K = 9 * cout;
-  g3.a = ws.gy; g3.w = (const __nv_bfloat16*)w3t; g3.logs = sw.a2l; g3.h = ws.h2;
-  g3.out_bf16 = ws.ga2; g3.part_b = ws.part_a2b; g3.part_l = ws.part_a2l;
-  GLOW_CHECK((launch_gemm<A_DENSE, EPI_RELU_GRAD_BF16, TAP_MASKED, V::rowsum>(g3, stream)));
+  // -- data gradients through the coupling net, on the wgmma/TMA core --------
+  sm90::Args d3 = {};
+  d3.M = M; d3.N = hidden; d3.K = 9 * cout;
+  d3.logs = sw.a2l; d3.h = ws.h2; d3.out_bf16 = ws.ga2;
+  d3.part_b = ws.part_a2b; d3.part_l = ws.part_a2l;
+  GLOW_CHECK((sm90::data_grad<sm90::EPI_RELU_GRAD_BF16, V::rowsum>(d3, ws.gy, gy_ld, w3t, gy_ld,
+                                                                   stream)));
 
-  GemmArgs g2 = {};
-  g2.M = M; g2.N = hidden; g2.K = hidden;
-  g2.a = ws.ga2; g2.w = (const __nv_bfloat16*)w2t; g2.logs = sw.a1l; g2.h = ws.h1;
-  g2.out_bf16 = ws.ga1; g2.part_b = ws.part_a1b; g2.part_l = ws.part_a1l;
-  GLOW_CHECK((launch_gemm<A_DENSE, EPI_RELU_GRAD_BF16, TAP_MASKED, V::rowsum>(g2, stream)));
+  sm90::Args d2 = {};
+  d2.M = M; d2.N = hidden; d2.K = hidden;
+  d2.logs = sw.a1l; d2.h = ws.h1; d2.out_bf16 = ws.ga1;
+  d2.part_b = ws.part_a1b; d2.part_l = ws.part_a1l;
+  GLOW_CHECK((sm90::data_grad<sm90::EPI_RELU_GRAD_BF16, V::rowsum>(d2, ws.ga2, hidden, w2t, hidden,
+                                                                   stream)));
 
-  GemmArgs g1 = {};
-  g1.M = M; g1.N = 9 * ch; g1.K = hidden;
-  g1.a = ws.ga1; g1.w = (const __nv_bfloat16*)w1t; g1.out_f32 = ws.gp1;
-  GLOW_CHECK((launch_gemm<A_DENSE, EPI_F32>(g1, stream)));
+  sm90::Args d1 = {};
+  d1.M = M; d1.N = 9 * ch; d1.K = hidden; d1.out_f32 = ws.gp1;
+  GLOW_CHECK((sm90::data_grad<sm90::EPI_F32>(d1, ws.ga1, hidden, w1t, hidden, stream)));
 
   // -- mix and actnorm ------------------------------------------------------
   gv1_kernel<BAND, V::tap><<<ceil_div(M * ch, 256), 256, 0, stream>>>(M, hh, ww, c, ws.gp1,
@@ -476,49 +442,41 @@ cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden,
     return cudaSuccess;
   }
 
-  WgradArgs w2g = {};
-  w2g.M = M; w2g.N1 = hidden; w2g.N2 = hidden; w2g.a = ws.ga2; w2g.b = ws.h1;
-  w2g.part = ws.part_w;
-  GLOW_CHECK((wgrad<B_DENSE, TAP_MASKED, V::accum>(w2g, g[6], stream)));
-
-  WgradArgs w1g = {};
-  w1g.M = M; w1g.N1 = hidden; w1g.N2 = 9 * ch; w1g.a = ws.ga1;
-  w1g.z = ws.v; w1g.ldz = c; w1g.hh = hh; w1g.ww = ww; w1g.cin = ch; w1g.part = ws.part_w;
-  w1g.band = bd;
-  if constexpr (V::staged) {
-    w1g.b = (const __nv_bfloat16*)patches;
-    GLOW_CHECK((wgrad<B_DENSE, TAP_MASKED, V::accum>(w1g, g[3], stream)));
-  } else {
-    GLOW_CHECK((wgrad<BAND ? B_CONV3X3_BAND : B_CONV3X3, V::tap, V::accum>(w1g, g[3], stream)));
-  }
-
-  WgradArgs w3g = {};
-  w3g.M = M; w3g.N1 = 9 * cout; w3g.N2 = hidden; w3g.a = ws.gy; w3g.b = ws.h2;
-  w3g.part = ws.part_w;
-  GLOW_CHECK((wgrad<B_DENSE, TAP_MASKED, V::accum>(w3g, g[9], stream)));
+  GLOW_CHECK((weight_grad<V::accum>(M, hidden, hidden, ws.ga2, hidden, ws.h1, hidden, split,
+                                    ws.part_w, g[6], stream)));
+  stage_patches_kernel<BAND, V::tap><<<ceil_div(M * p1_ld, 256), 256, 0, stream>>>(
+      M, hh, ww, c, ws.v, ws.p1, bd);
+  GLOW_CHECK(cudaGetLastError());
+  GLOW_CHECK((weight_grad<V::accum>(M, hidden, 9 * ch, ws.ga1, hidden, ws.p1, p1_ld, split,
+                                    ws.part_w, g[3], stream)));
+  GLOW_CHECK((weight_grad<V::accum>(M, 9 * cout, hidden, ws.gy, gy_ld, ws.h2, hidden, split,
+                                    ws.part_w, g[9], stream)));
 
   if constexpr (V::rowsum) {
-    const int parts = V::accum ? gm : 1;
-    GLOW_CHECK(reduce(parts, hidden, ws.part_a2b, 1.0f, g[7], stream));
-    GLOW_CHECK(reduce(parts, hidden, ws.part_a2l, 1.0f, g[8], stream));
-    GLOW_CHECK(reduce(parts, hidden, ws.part_a1b, 1.0f, g[4], stream));
-    GLOW_CHECK(reduce(parts, hidden, ws.part_a1l, 1.0f, g[5], stream));
-    GLOW_CHECK((col_sum<false, V::accum>(M, cout, ws.gacc, nullptr, 1.0f, ws.part_col, g[10],
+    const int first = split / sm90::TM, parts = ceil_div(M, sm90::TM) - first;
+    const size_t off = (size_t)first * hidden;
+    GLOW_CHECK(reduce(parts, hidden, ws.part_a2b + off, 1.0f, g[7], stream));
+    GLOW_CHECK(reduce(parts, hidden, ws.part_a2l + off, 1.0f, g[8], stream));
+    GLOW_CHECK(reduce(parts, hidden, ws.part_a1b + off, 1.0f, g[4], stream));
+    GLOW_CHECK(reduce(parts, hidden, ws.part_a1l + off, 1.0f, g[5], stream));
+    GLOW_CHECK((col_sum<false, V::accum>(M, cout, split, ws.gacc, nullptr, 1.0f, ws.part_col,
+                                         g[10], stream)));
+    GLOW_CHECK((col_sum<false, V::accum>(M, cout, split, ws.t3, nullptr, 3.0f, ws.part_col,
+                                         g[11], stream)));
+    GLOW_CHECK((col_sum<false, V::accum>(M, c, split, gz, nullptr, 1.0f, ws.part_col, g[1],
                                          stream)));
-    GLOW_CHECK((col_sum<false, V::accum>(M, cout, ws.t3, nullptr, 3.0f, ws.part_col, g[11],
-                                         stream)));
-    GLOW_CHECK((col_sum<false, V::accum>(M, c, gz, nullptr, 1.0f, ws.part_col, g[1], stream)));
-    GLOW_CHECK((col_sum<true, V::accum>(M, c, ws.gu, ws.u, 1.0f, ws.part_col, g[2], stream)));
+    GLOW_CHECK((col_sum<true, V::accum>(M, c, split, ws.gu, ws.u, 1.0f, ws.part_col, g[2],
+                                        stream)));
   } else {
     const int rowsums[] = {1, 2, 4, 5, 7, 8, 10, 11};
     for (int i : rowsums) GLOW_CHECK(zero(i));
   }
 
-  const int chunks = ceil_div(M, COL_CHUNK);
-  outer_partial_kernel<<<ceil_div(chunks * c * c, 256), 256, 0, stream>>>(M, c, ws.gv, ws.u,
-                                                                          ws.part_col);
+  const int chunks = sm90::chunk_count(M, COL_CHUNK, split);
+  outer_partial_kernel<<<ceil_div(chunks * c * c, 256), 256, 0, stream>>>(
+      M, c, COL_CHUNK, split, ws.gv, ws.u, ws.part_col);
   GLOW_CHECK(cudaGetLastError());
-  GLOW_CHECK(reduce(V::accum ? chunks : 1, c * c, ws.part_col, 1.0f, g[0], stream));
+  GLOW_CHECK((reduce_from<V::accum>(M, COL_CHUNK, split, c * c, ws.part_col, 1.0f, g[0], stream)));
   return cudaSuccess;
 }
 

@@ -1,12 +1,16 @@
 """Build and load the hand-written CUDA kernels in `csrc/`.
 
 At first use, `library()` compiles every `csrc/*.cu` (the flow-step chains,
-the LU 1x1 conv `invconv.cu` and the anatomy variants `anatomy.cu`) with
-nvcc for sm_90a, one nvcc process per source, all started together, then
+whose backward runs on the wgmma/TMA GEMM core `gemm_sm90.cuh`, the core
+alone `gemm_sm90.cu`, the LU 1x1 conv `invconv.cu` and the anatomy variants
+`anatomy.cu`) with nvcc for sm_90a (`wgmma` exists only for the `a`
+target), one nvcc process per source, all started together, then
 links the objects into a shared library with a plain C interface under
 `_build/<hash>/` in this package (the hash covers the sources, headers and
-flags, so an edited kernel rebuilds), and loads it with ctypes.  A
-missing nvcc or a failed build raises: nothing falls back.
+flags, so an edited kernel rebuilds), and loads it with ctypes.  The core
+fetches the driver's cuTensorMapEncodeTiled through the runtime's
+cudaGetDriverEntryPoint, so nothing links against libcuda.  A missing nvcc
+or a failed build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -72,8 +76,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glow_anatomy_forward.restype = i32
     lib.glow_anatomy_reverse.argtypes = [i32] * 6 + [ptr] * 19 + [ptr]
     lib.glow_anatomy_reverse.restype = i32
-    lib.glow_anatomy_backward.argtypes = [i32] * 6 + [ptr] * 33 + [ptr]
+    lib.glow_anatomy_bwd_workspace.argtypes = [i32] * 6
+    lib.glow_anatomy_bwd_workspace.restype = ctypes.c_size_t
+    lib.glow_anatomy_backward.argtypes = [i32] * 7 + [ptr] * 33 + [ptr]
     lib.glow_anatomy_backward.restype = i32
+    lib.glow_gemm_sm90_workspace.argtypes = [i32] * 4
+    lib.glow_gemm_sm90_workspace.restype = ctypes.c_size_t
+    lib.glow_gemm_sm90.argtypes = [i32] * 4 + [ptr, i32, ptr, i32, ptr, ptr, ptr]
+    lib.glow_gemm_sm90.restype = i32
     lib.glow_error_string.argtypes = [i32]
     lib.glow_error_string.restype = ctypes.c_char_p
     return lib

@@ -14,10 +14,20 @@ off_k = (dy - 1) * W + (dx - 1) in one of four ways (`csrc/flowstep_common.cuh`
 `Tap`): "masked" (production: zero where the neighbour leaves the image),
 "wrap" (pixel (m + off_k) mod M, no border test: the TPU's lane roll over
 one tile, unmasked), "centre" (pixel m) and "centre_masked" (pixel m, zero
-where the neighbour leaves the image).  `matmul_only` feeds conv1 (and in
-the backward the gW1 product) a staged dense patch tensor, `patches`
-(B, H, W, 9 * C/2), which the caller makes (`staged_patches`): the JAX
-variant reads a scratch it never writes, so the port gives it data.
+where the neighbour leaves the image).  `matmul_only` feeds conv1 a staged
+dense patch tensor, `patches` (B, H, W, 9 * C/2), which the caller makes
+(`staged_patches`): the JAX variant reads a scratch it never writes, so the
+port gives it data.  In the backward, the gW1 product reads the patches the
+chain stages itself (`csrc/flowstep_bwd_common.cuh` `stage_patches_kernel`),
+with each variant's taps (matmul_only: centre).
+
+S3's `no_accum` is the JAX variant's: every batch tile of the JAX backward
+(`bwd_tile_batch`, a copy of `flowstep_pallas._bwd_tile_batch`) overwrites
+the weight grads, so they hold the last tile's contribution alone.  On the
+card every chunking of the chain's partial sums is cut where that tile
+starts, every chunk is computed as in production, and each reduction sums
+the tile's partials only: what the variant drops is the cross-chunk
+reduction, as the TPU study dropped the accumulation over its grid.
 
 `forward_variant` / `reverse_variant` / `backward_variant` take the plain
 version for a CPU tensor and launch the kernel chain for a CUDA tensor, or
@@ -49,8 +59,8 @@ REVERSE = {
     "no_mix": ("masked", False, "div", None),
     "matmul_only": ("centre", True, "div", "mix"),
 }
-# variant: (taps of every 3x3 read, staged patches, accumulate chunks,
-# bias/logs sums, weight grads)
+# variant: (taps of every 3x3 read, staged conv1 patches, accumulate over
+# the batch tiles, bias/logs sums, weight grads)
 BACKWARD = {
     "full": ("masked", False, True, True, True),
     "no_accum": ("masked", False, False, True, True),
@@ -186,27 +196,62 @@ def reverse_variant_ref(variant: str, weights, z: torch.Tensor,
     return fs._reverse_mix(weights, torch.cat([z1, z2], dim=-1))
 
 
-def _chunks(m: int, c: int, hidden: int) -> list[int]:
-    """Pixels in chunk 0 of each grad's partial sums, in grad order, as the
-    chain cuts them: column sums and the mix product by COL_CHUNK, the
-    conv biases and logs by the GEMM epilogue's BM rows, the weight
-    products by `wgrad_chunk`."""
-    ch, col, bm = c // 2, fs._COL_CHUNK, fs._BM
-    wg = [fs._wgrad_chunk(m, n1, n2)
-          for n1, n2 in ((hidden, 9 * ch), (hidden, hidden), (9 * c, hidden))]
-    return [col, col, col, wg[0], bm, bm, wg[1], bm, bm, wg[2], col, col]
+# The JAX backward's batch tile (`pytorch_glow_tpu/ops/flowstep_pallas.py`
+# `_bwd_tile_batch` and what it reads), copied: no_accum keeps the last
+# tile's weight grads, as the JAX variant does.
+MAX_TILE_COLS = 4096
+_BWD_TOTAL_VMEM = 13 * 2**20
+
+
+def _bwd_bytes_per_col(c: int, hidden: int) -> int:
+    ch = c // 2
+    return (2 * hidden * 4 + 2 * hidden * 2 + 9 * ch * 2 + 9 * ch * 4 + 9 * c * 2 + 3 * c * 4
+            + 2 * (3 * c + 1) * 4 * 2)
+
+
+def _bwd_fixed_bytes(c: int, hidden: int, affine: bool = True) -> int:
+    ch = c // 2
+    cout = c if affine else ch
+    w1, w2, w3 = hidden * 9 * ch, hidden * hidden, 9 * cout * hidden
+    return (w1 + w2 + w3) * (2 + 4) + 2 * c * c * 4 + 24 * max(c, hidden) * 4
+
+
+def _bwd_max_cols(c: int, hidden: int, affine: bool = True) -> int:
+    budget = _BWD_TOTAL_VMEM - _bwd_fixed_bytes(c, hidden, affine)
+    if budget <= 0:
+        return 0
+    return min(MAX_TILE_COLS, budget // _bwd_bytes_per_col(c, hidden))
+
+
+def bwd_tile_batch(b: int, h: int, w: int, c: int, hidden: int, affine: bool = True) -> int:
+    """Images per batch tile of the JAX backward at this shape: the divisor
+    d of b whose d*h*w columns are a multiple of 128 and nearest its column
+    cap, else b."""
+    hw = h * w
+    cap = _bwd_max_cols(c, hidden, affine)
+    best = None
+    for d in range(1, b + 1):
+        if b % d:
+            continue
+        if (d * hw) % 128 == 0 and d * hw <= cap:
+            if best is None or abs(d * hw - cap) < abs(best * hw - cap):
+                best = d
+    return best if best is not None else b
 
 
 def backward_variant_ref(variant: str, weights, z: torch.Tensor, g_zn: torch.Tensor,
                          g_ld: torch.Tensor, patches: torch.Tensor | None = None,
                          dtype: torch.dtype = fs.COUPLING_DTYPE):
     """S3's variant of `fs.step_backward_ref` (affine): NHWC z, g_zn and
-    g_ld (B,) -> (g_z, [12 f32 weight grads]).  no_accum sums each grad
-    over its chunk 0 only; no_rowsum's 8 bias/logs grads and no_wgrad's 12
-    grads are zero."""
+    g_ld (B,) -> (g_z, [12 f32 weight grads]).  no_accum's grads are the
+    last batch tile's alone (`bwd_tile_batch` images); no_rowsum's 8
+    bias/logs grads and no_wgrad's 12 grads are zero.  The gW1 product reads
+    conv1's patches as the staging kernel writes them, with the variant's
+    taps (matmul_only: centre), whatever conv1 read."""
     tap, staged, accum, rowsum, wgrad = BACKWARD[variant]
     wmat, anb, anl, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3 = weights
-    ch = z.shape[-1] // 2
+    b, h, w, c = z.shape
+    ch = c // 2
 
     def cast(t):
         return t.to(dtype).float()
@@ -214,8 +259,8 @@ def backward_variant_ref(variant: str, weights, z: torch.Tensor, g_zn: torch.Ten
     u = (z.float() + anb.view(-1)) * torch.exp(anl.view(-1))
     v = u @ wmat.T
     v2 = v[..., ch:]
-    p1, h1, h2, out = _net_parts(v[..., :ch], weights, dtype, None if staged else tap, tap,
-                                 patches)
+    _, h1, h2, out = _net_parts(v[..., :ch], weights, dtype, None if staged else tap, tap,
+                                patches)
     g_zn = g_zn.float()
     go1, go2 = g_zn[..., :ch], g_zn[..., ch:]
     shift = out[..., :ch]
@@ -225,15 +270,16 @@ def backward_variant_ref(variant: str, weights, z: torch.Tensor, g_zn: torch.Ten
     g_v2 = go2 * s
     g_out = torch.cat([g_v2, g_raw], dim=-1)
     g_acc = g_out * torch.exp(l3.view(-1) * 3.0)
-    gy = cast(torch.cat([_scatter(g_acc, k, tap) for k in range(9)], dim=-1))
+    gy = fs._pad_cols(cast(torch.cat([_scatter(g_acc, k, tap) for k in range(9)], dim=-1)))
+    w1t, w2t, w3t = (t.float() for t in fs.transposed_weights(weights))
 
-    g_a2n = (gy @ w3.float()) * (h2 > 0)
+    g_a2n = (gy @ w3t.T) * (h2 > 0)
     g_a2 = g_a2n * torch.exp(a2l.view(-1))
     g_a2b = cast(g_a2)
-    g_a1n = (g_a2b @ w2.float()) * (h1 > 0)
+    g_a1n = (g_a2b @ w2t.T) * (h1 > 0)
     g_a1 = g_a1n * torch.exp(a1l.view(-1))
     g_a1b = cast(g_a1)
-    g_p1 = g_a1b @ w1.float()
+    g_p1 = g_a1b @ w1t.T
     g_v1 = go1
     for k in range(9):
         g_v1 = g_v1 + _scatter(g_p1[..., k * ch:(k + 1) * ch], k, tap)
@@ -243,21 +289,20 @@ def backward_variant_ref(variant: str, weights, z: torch.Tensor, g_zn: torch.Ten
     if not wgrad:
         return g_z, [torch.zeros(wt.shape, dtype=torch.float32, device=z.device)
                      for wt in weights]
+    p1 = fs._pad_cols(torch.cat(_gather(v[..., :ch].float(), tap), dim=-1).to(dtype)).float()
+    first = 0 if accum else (b - bwd_tile_batch(b, h, w, c, w1.shape[0])) * h * w
 
-    m = z.shape[0] * z.shape[1] * z.shape[2]
-    rows = _chunks(m, z.shape[-1], w1.shape[0]) if not accum else [m] * fs.N_WEIGHTS
+    def flat(t):
+        return t.reshape(-1, t.shape[-1])[first:]
 
-    def flat(t, i):
-        return t.reshape(-1, t.shape[-1])[:rows[i]]
-
-    def colsum(t, i):
-        return flat(t, i).sum(0).reshape(-1, 1)
+    def colsum(t):
+        return flat(t).sum(0).reshape(-1, 1)
 
     grads = [
-        flat(g_v, 0).T @ flat(u, 0), colsum(g_z, 1), colsum(g_u * u, 2),
-        flat(g_a1b, 3).T @ flat(p1, 3), colsum(g_a1, 4), colsum(g_a1n * h1, 5),
-        flat(g_a2b, 6).T @ flat(h1, 6), colsum(g_a2, 7), colsum(g_a2n * h2, 8),
-        flat(gy, 9).T @ flat(h2, 9), colsum(g_acc, 10), 3.0 * colsum(g_out * out, 11),
+        flat(g_v).T @ flat(u), colsum(g_z), colsum(g_u * u),
+        (flat(g_a1b).T @ flat(p1))[:, :9 * ch], colsum(g_a1), colsum(g_a1n * h1),
+        flat(g_a2b).T @ flat(h1), colsum(g_a2), colsum(g_a2n * h2),
+        (flat(gy).T @ flat(h2))[:w3.shape[0]], colsum(g_acc), 3.0 * colsum(g_out * out),
     ]
     if not rowsum:
         for i in ROWSUM_GRADS:
@@ -315,10 +360,11 @@ def make_buffers(direction: str, weights, z: torch.Tensor) -> dict:
         return torch.empty(*shape, dtype=dtype, device=dev)
 
     if direction == "backward":
-        nbytes = _build.library().glow_flowstep_bwd_workspace(1, b, h, w, c, hidden)
+        tile = bwd_tile_batch(b, h, w, c, hidden) * h * w
+        nbytes = _build.library().glow_anatomy_bwd_workspace(b, h, w, c, hidden, tile)
         return {"key": key, "g_z": torch.empty_like(z, dtype=torch.float32),
                 "grads": [empty(*wt.shape) for wt in weights],
-                "transposed": [weights[i].t().contiguous() for i in (3, 6, 9)],
+                "transposed": fs.transposed_weights(weights),
                 "workspace": empty(nbytes, dtype=torch.uint8)}
     bufs = {"key": key, "out": torch.empty_like(z, dtype=torch.float32),
             "h1": empty(m, hidden, dtype=torch.bfloat16),
@@ -382,12 +428,17 @@ def _launch_backward(variant: str, weights, z: torch.Tensor, g_zn: torch.Tensor,
                          f"z {tuple(z.shape)}")
     if g_zn.device != z.device or g_ld.device != z.device:
         raise ValueError("the cotangents must lie on z's device")
+    tile = bwd_tile_batch(b, h, w, c, hidden) * h * w
+    if (b * h * w - tile) % fs._TM:
+        raise NotImplementedError(f"no_accum cuts every chunking where the last batch tile "
+                                  f"starts, pixel {b * h * w - tile}: a multiple of {fs._TM} "
+                                  f"pixels only")
     lib = _build.library()
     z, g_zn, g_ld = z.contiguous(), g_zn.float().contiguous(), g_ld.float().contiguous()
     bufs = _buffers("backward", weights, z, bufs)
     with torch.cuda.device(z.device):
         status = lib.glow_anatomy_backward(
-            list(BACKWARD).index(variant), b, h, w, c, hidden, z.data_ptr(),
+            list(BACKWARD).index(variant), b, h, w, c, hidden, tile, z.data_ptr(),
             *(wt.data_ptr() for wt in weights), *(t.data_ptr() for t in bufs["transposed"]),
             g_zn.data_ptr(), g_ld.data_ptr(), _ptr(patches), bufs["g_z"].data_ptr(),
             *(g.data_ptr() for g in bufs["grads"]), bufs["workspace"].data_ptr(),

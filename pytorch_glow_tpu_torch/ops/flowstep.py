@@ -9,7 +9,9 @@ Counterpart of the non-kernel parts of `pytorch_glow_tpu/ops/flowstep_pallas.py`
 `_fused_step_reverse`).  `csrc/flowstep.cu` replaces that module's
 `_make_kernel` (reverse=False and reverse=True), `csrc/flowstep_bwd.cu` its
 `_make_bwd_kernel`, `csrc/flowstep_band.cu` its `_make_kernel_halo` and
-`csrc/flowstep_band_bwd.cu` its `_make_bwd_kernel_halo`.
+`csrc/flowstep_band_bwd.cu` its `_make_bwd_kernel_halo`.  The two backward
+chains run their six gradient products on one wgmma/TMA GEMM core
+(`csrc/gemm_sm90.cuh`), which `gemm_core` exposes alone for checking.
 
 Layout: the port keeps NHWC at its public functions, which is already
 pixel-major; the kernels take the (B*H*W, C) view of it.
@@ -109,9 +111,10 @@ def param_logdet(step) -> torch.Tensor:
 # Tiling: the whole-batch chain or row bands
 # ---------------------------------------------------------------------------
 
-# The backward workspace's constants (csrc/flowstep_common.cuh BM, BK;
-# csrc/flowstep_bwd_common.cuh WG_TARGET_BLOCKS, COL_CHUNK).
-_BM, _BK, _WG_TARGET_BLOCKS, _COL_CHUNK = 64, 32, 264, 256
+# The backward workspace's constants: the GEMM core's tile rows, reduction
+# slice and target grid (csrc/gemm_sm90.cuh TM, TK, TARGET_BLOCKS), and
+# the column-sum chunk (csrc/flowstep_bwd_common.cuh COL_CHUNK).
+_TM, _TK, _TARGET_BLOCKS, _COL_CHUNK = 128, 64, 264, 256
 
 
 def _ceil(a: int, b: int) -> int:
@@ -126,21 +129,34 @@ def _cout(c: int, affine: bool) -> int:
     return c if affine else c // 2
 
 
+def padded(n: int) -> int:
+    """Columns of a bf16 buffer the GEMM core reads through TMA: a multiple
+    of 8, so its rows lie a multiple of 16 bytes apart
+    (csrc/flowstep_bwd_common.cuh `padded`)."""
+    return _ceil(n, 8) * 8
+
+
 def _wgrad_chunk(m: int, n1: int, n2: int) -> int:
-    chunks = max(1, _ceil(_WG_TARGET_BLOCKS, _ceil(n1, _BM) * _ceil(n2, _BM)))
-    return _ceil(_ceil(m, chunks), _BK) * _BK
+    """Pixels per weight-gradient partial (csrc/gemm_sm90.cuh `wgrad_chunk`):
+    enough chunks that the core's grid about fills one wave, none under
+    16 slices of _TK pixels."""
+    tiles = _ceil(n1, _TM) * _ceil(n2, _TM)
+    chunks = max(1, min(_TARGET_BLOCKS // tiles, _ceil(m, 16 * _TK)))
+    return max(_TK, _ceil(_ceil(m, chunks), _TK) * _TK)
 
 
 def bwd_workspace_bytes(m: int, c: int, hidden: int, affine: bool) -> int:
     """Bytes of the backward chain's workspace over m staged pixels, as
     `glow_flowstep_bwd_workspace` counts them (csrc/flowstep_bwd_common.cuh
-    `carve`): 13 per-pixel intermediates and the partial sums."""
+    `carve`): 14 per-pixel intermediates (gy and the conv1 patches p1 with
+    padded rows) and the partial sums."""
     ch, cout = c // 2, _cout(c, affine)
     wmax = max(_ceil(m, _wgrad_chunk(m, n1, n2)) * n1 * n2
                for n1, n2 in ((hidden, 9 * ch), (hidden, hidden), (9 * cout, hidden)))
-    per_pixel = [4 * c, 2 * hidden, 2 * hidden, 36 * cout, 4 * cout, 4 * cout, 18 * cout,
-                 2 * hidden, 2 * hidden, 36 * ch, 4 * c, 4 * c, 4 * c]
-    partials = [4 * hidden * _ceil(m, _BM)] * 4 + [4 * wmax,
+    per_pixel = [4 * c, 2 * hidden, 2 * hidden, 36 * cout, 4 * cout, 4 * cout,
+                 2 * padded(9 * cout), 2 * hidden, 2 * hidden, 36 * ch, 4 * c, 4 * c, 4 * c,
+                 2 * padded(9 * ch)]
+    partials = [4 * hidden * _ceil(m, _TM)] * 4 + [4 * wmax,
                                                   4 * _ceil(m, _COL_CHUNK) * max(c * c, hidden)]
     return sum(_align(m * n) for n in per_pixel) + sum(_align(n) for n in partials)
 
@@ -311,6 +327,24 @@ def _net_parts(z1: torch.Tensor, weights, dtype: torch.dtype, valid: torch.Tenso
     return p1, h1, h2, (acc + b3.view(-1)) * torch.exp(l3.view(-1) * 3.0)
 
 
+def _pad_cols(x: torch.Tensor) -> torch.Tensor:
+    """x with its last dimension zero-padded to `padded` columns."""
+    return F.pad(x, (0, padded(x.shape[-1]) - x.shape[-1]))
+
+
+def stage_patches_ref(z1: torch.Tensor, dtype: torch.dtype = COUPLING_DTYPE,
+                      valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of the backward chain's patch staging
+    (csrc/flowstep_bwd_common.cuh `stage_patches_kernel`): NHWC z1 ->
+    conv1's patches (B, H, W, padded(9 * ch)) in `dtype`, tap k = 3*dy + dx
+    masked at the image border (and, with `valid`, on rows outside the true
+    image), the pad columns zero."""
+    z1 = z1.float()
+    if valid is not None:
+        z1 = torch.where(valid[..., None, None], z1, 0.0)
+    return _pad_cols(torch.cat(_taps(z1), dim=-1).to(dtype))
+
+
 def _net_ref(z1: torch.Tensor, weights, dtype: torch.dtype,
              valid: torch.Tensor | None = None) -> torch.Tensor:
     """The coupling net f(): NHWC z1 (f32) -> (B, H, W, cout) f32."""
@@ -400,7 +434,7 @@ def step_backward_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.
     u = (z.float() + anb.view(-1)) * torch.exp(anl.view(-1))
     v = u @ wmat.T
     v2 = v[..., ch:]
-    p1, h1, h2, out = _net_parts(v[..., :ch], weights, dtype, valid)
+    _, h1, h2, out = _net_parts(v[..., :ch], weights, dtype, valid)
     g_zn = g_zn.float()
     go1, go2 = g_zn[..., :ch], g_zn[..., ch:]
     if affine:
@@ -416,14 +450,20 @@ def step_backward_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.
         g_v2 = g_out = go2
     g_acc = g_out * torch.exp(l3.view(-1) * 3.0)
     gy = cast(in_image(torch.cat([_shift_back(g_acc, k) for k in range(9)], dim=-1)))
+    # The six gradient products in the GEMM core's layouts: gy and the
+    # staged patches p1 padded to `padded` columns, the transposed weights
+    # as the wrapper makes them.
+    gy = _pad_cols(gy)
+    p1 = stage_patches_ref(v[..., :ch], dtype, valid).float()
+    w1t, w2t, w3t = (t.float() for t in transposed_weights(weights))
 
-    g_a2n = (gy @ w3.float()) * (h2 > 0)
+    g_a2n = (gy @ w3t.T) * (h2 > 0)
     g_a2 = g_a2n * torch.exp(a2l.view(-1))
     g_a2b = cast(g_a2)
-    g_a1n = (g_a2b @ w2.float()) * (h1 > 0)
+    g_a1n = (g_a2b @ w2t.T) * (h1 > 0)
     g_a1 = g_a1n * torch.exp(a1l.view(-1))
     g_a1b = cast(g_a1)
-    g_p1 = g_a1b @ w1.float()
+    g_p1 = g_a1b @ w1t.T
     g_v1 = go1
     for k in range(9):
         g_v1 = g_v1 + in_image(_shift_back(g_p1[..., k * ch:(k + 1) * ch], k))
@@ -432,9 +472,9 @@ def step_backward_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.
     g_z = g_u * torch.exp(anl.view(-1))
     grads = [
         flat(g_v).T @ flat(u), colsum(g_z), colsum(g_u * u),
-        flat(g_a1b).T @ flat(p1), colsum(g_a1), colsum(g_a1n * h1),
+        (flat(g_a1b).T @ flat(p1))[:, :9 * ch], colsum(g_a1), colsum(g_a1n * h1),
         flat(g_a2b).T @ flat(h1), colsum(g_a2), colsum(g_a2n * h2),
-        flat(gy).T @ flat(h2), colsum(g_acc), 3.0 * colsum(g_out * out),
+        (flat(gy).T @ flat(h2))[:w3.shape[0]], colsum(g_acc), 3.0 * colsum(g_out * out),
     ]
     return g_z, grads
 
@@ -644,6 +684,16 @@ def _launch_band(weights, z: torch.Tensor, affine: bool, reverse: bool):
     return out, ld
 
 
+def transposed_weights(weights) -> list[torch.Tensor]:
+    """The backward chain's bf16 transposes of w1, w2 and w3: w1t (9*ch,
+    hidden), w2t (hidden, hidden) and w3t (hidden, padded(9*cout)) with zero
+    pad columns, the GEMM core's K-major B operands."""
+    w3 = weights[9]
+    w3t = torch.zeros(w3.shape[1], padded(w3.shape[0]), dtype=w3.dtype, device=w3.device)
+    w3t[:, :w3.shape[0]] = w3.t()
+    return [weights[3].t().contiguous(), weights[6].t().contiguous(), w3t]
+
+
 def _backward_operands(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
                        affine: bool):
     """Checked, contiguous backward operands, the bf16 transposes of w1, w2,
@@ -655,11 +705,13 @@ def _backward_operands(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch
                          f"z {tuple(z.shape)}")
     if g_zn.device != z.device or g_ld.device != z.device:
         raise ValueError("the cotangents must lie on z's device")
+    if hidden % 8:
+        raise NotImplementedError(f"the backward kernels' GEMM core reads rows of a multiple of "
+                                  f"16 bytes: hidden must be a multiple of 8, got {hidden}")
     z = z.contiguous()
-    transposed = [weights[i].t().contiguous() for i in (3, 6, 9)]  # w1t, w2t, w3t
     grads = [torch.empty(wt.shape, dtype=torch.float32, device=z.device) for wt in weights]
-    return (hidden, z, g_zn.float().contiguous(), g_ld.float().contiguous(), transposed,
-            torch.empty_like(z), grads)
+    return (hidden, z, g_zn.float().contiguous(), g_ld.float().contiguous(),
+            transposed_weights(weights), torch.empty_like(z), grads)
 
 
 def _launch_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
@@ -705,6 +757,45 @@ def _launch_band_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: to
     _build.check(lib, status, "glow_flowstep_band_bwd")
     launches["band_backward"] += 1
     return g_z, grads
+
+
+def gemm_core_ref(a: torch.Tensor, b: torch.Tensor, trans: bool, m: int, n: int,
+                  k: int) -> torch.Tensor:
+    """The plain version of the backward chain's GEMM core (csrc/gemm_sm90.cu
+    `glow_gemm_sm90`): the f32 product of two bf16 operands with padded rows.
+    trans False: a (m, >= k), b (n, >= k) -> a[:, :k] b[:, :k]^T (the data
+    gradients' order); trans True: a (k, >= m), b (k, >= n) ->
+    a[:, :m]^T b[:, :n] (the weight gradients')."""
+    if trans:
+        return a[:, :m].float().T @ b[:, :n].float()
+    return a[:, :k].float() @ b[:, :k].float().T
+
+
+def gemm_core(a: torch.Tensor, b: torch.Tensor, trans: bool, m: int, n: int,
+              k: int) -> torch.Tensor:
+    """The GEMM core alone, as `gemm_core_ref` computes it: the plain
+    version for CPU tensors, the wgmma/TMA kernel for CUDA tensors (rows a
+    multiple of 8 columns long), or raises."""
+    if a.device.type == "cpu":
+        return gemm_core_ref(a, b, trans, m, n, k)
+    want = ((k, m), (k, n)) if trans else ((m, k), (n, k))
+    for name, t, (rows, cols) in (("a", a, want[0]), ("b", b, want[1])):
+        if (t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.dim() != 2
+                or not t.is_contiguous() or t.shape[0] != rows or t.shape[1] < cols
+                or t.shape[1] % 8):
+            raise ValueError(f"gemm_core {name}: expected a contiguous bf16 CUDA ({rows}, >= "
+                             f"{cols}) tensor with a multiple of 8 columns, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    lib = _build.library()
+    out = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    workspace = torch.empty(lib.glow_gemm_sm90_workspace(int(trans), m, n, k), dtype=torch.uint8,
+                            device=a.device)
+    with torch.cuda.device(a.device):
+        status = lib.glow_gemm_sm90(int(trans), m, n, k, a.data_ptr(), a.shape[1], b.data_ptr(),
+                                    b.shape[1], out.data_ptr(), workspace.data_ptr(),
+                                    _stream(a.device))
+    _build.check(lib, status, "glow_gemm_sm90")
+    return out
 
 
 def _band(direction: str, weights, z: torch.Tensor, affine: bool) -> bool:

@@ -17,18 +17,12 @@ variant reads its conv1 patch scratch without writing it
 `perf_bwd_anatomy.py:92`), so its output is not defined; the port's
 variant reads a staged patch tensor the caller makes.
 
-`no_accum` is redefined for the card, not ported.  The JAX variant drops
-the accumulation over its grid: each batch tile overwrites the weight
-grads, which keep the last tile's partial, and what it times is the
-TPU's read-modify-write of the grads in VMEM.  The card sums chunk
-partials in a reduction pass of its own, so the port's variant skips that
-pass and each grad keeps chunk 0's partial: COL_CHUNK pixels for the
-column sums and the mix product, BM rows for the conv biases and logs,
-`wgrad_chunk` pixels for the weight products.  The two agree only where
-one tile and one chunk span every pixel, as at SINGLE_CHUNK_SHAPE, where
-both equal `full`: that comparison checks the chain, not the dropped
-work.  `test_no_accum_at_several_chunks_keeps_g_z_and_the_single_chunk_sums`
-holds the port's chunking to its own plain version.
+`no_accum` is the JAX variant's: each batch tile of the JAX backward
+(`anatomy.bwd_tile_batch`, a copy of `flowstep_pallas._bwd_tile_batch`)
+overwrites the weight grads, which keep the last tile's contribution.
+`test_no_accum_matches_jax_variant_at_two_tiles` holds it to the JAX
+variant at MULTI_TILE_SHAPE, where the JAX grid has two tiles; at the
+other shapes one tile spans the batch and both equal `full`.
 """
 
 import functools
@@ -53,9 +47,10 @@ SCRIPTS = {"forward": "perf_kernel_anatomy", "reverse": "perf_reverse_anatomy",
            "backward": "perf_bwd_anatomy"}
 TABLES = {"forward": an.FORWARD, "reverse": an.REVERSE, "backward": an.BACKWARD}
 SHAPE = (2, 8, 8, 4)  # b, h, w, c; hidden 32 (test_torch_flowstep.CFG)
-# no_accum (redefined; module docstring): at 2x4x4 (32 pixels) chunk 0 is
-# every pixel of every sum, as the JAX variant's one tile is.
+# no_accum: at 2x4x4 one JAX batch tile spans the batch; at 32x16x16x4
+# (hidden 32) a tile is 16 images, so the JAX grid has two.
 SINGLE_CHUNK_SHAPE = (2, 4, 4, 4)
+MULTI_TILE_SHAPE = (32, 16, 16, 4)
 CASES = [(d, v) for d, table in TABLES.items() for v in table if v != "matmul_only"]
 
 
@@ -74,11 +69,15 @@ def f32_coupling(monkeypatch):
     yield torch.float32
 
 
-def _jax_variant(direction: str, variant: str, weights, z: np.ndarray, g_zn=None, g_ld=None):
-    """The script's variant kernel in interpret mode, one tile: NHWC numpy
-    in, NHWC (and logdet, or the 12 grads) out."""
+def _jax_variant(direction: str, variant: str, weights, z: np.ndarray, g_zn=None, g_ld=None,
+                 tb=None):
+    """The script's variant kernel in interpret mode, one tile (or, for the
+    backward, tiles of `tb` images as its `run_variant` cuts them): NHWC
+    numpy in, NHWC (and logdet, or the 12 grads) out."""
     b, h, w, c = z.shape
-    n, ch, hidden = b * h * w, c // 2, weights[3].shape[0]
+    tb = tb or b
+    total, ch, hidden = b * h * w, c // 2, weights[3].shape[0]
+    n = tb * h * w
     ws = [jnp.asarray(t.float().numpy()) for t in weights]
     rep = lambda shape: pl.BlockSpec(  # noqa: E731
         shape, lambda i: (0,) * len(shape), memory_space=pltpu.VMEM)
@@ -89,7 +88,7 @@ def _jax_variant(direction: str, variant: str, weights, z: np.ndarray, g_zn=None
     f32 = jnp.float32
 
     def cn(x):
-        return jnp.asarray(x.reshape(n, c).T)
+        return jnp.asarray(x.reshape(total, c).T)
 
     def nhwc(x):
         return np.asarray(x).T.reshape(b, h, w, c)
@@ -104,18 +103,18 @@ def _jax_variant(direction: str, variant: str, weights, z: np.ndarray, g_zn=None
         )(cn(z), *ws)
         return nhwc(zn), np.asarray(ld)[:, 0]
     if variant == "full":
-        kernel = fsp._make_bwd_kernel(b, h, w, c, hidden, True)
+        kernel = fsp._make_bwd_kernel(tb, h, w, c, hidden, True)
     else:
-        kernel = _script(direction)._make_variant(variant, b, h, w, c, hidden)
+        kernel = _script(direction)._make_variant(variant, tb, h, w, c, hidden)
     shapes = [tuple(x.shape) for x in ws]
     gld = jnp.asarray(np.repeat(g_ld, h * w)[None])
     outs = pl.pallas_call(
-        kernel, grid=(1,),
+        kernel, grid=(b // tb,),
         in_specs=[zspec] + [rep(x.shape) for x in ws]
         + [zspec, pl.BlockSpec((1, n), lambda i: (0, i), memory_space=pltpu.VMEM)],
         out_specs=[zspec] + [rep(s) for s in shapes],
-        out_shape=[jax.ShapeDtypeStruct((c, n), f32)] + [jax.ShapeDtypeStruct(s, f32)
-                                                         for s in shapes],
+        out_shape=[jax.ShapeDtypeStruct((c, total), f32)] + [jax.ShapeDtypeStruct(s, f32)
+                                                             for s in shapes],
         scratch_shapes=scratch + [pltpu.VMEM((hidden, n), f32), pltpu.VMEM((hidden, n), f32),
                                   pltpu.VMEM((9 * c, n), fsp.COUPLING_DTYPE)],
         interpret=fsp._interpret(),
@@ -191,20 +190,39 @@ def test_correct_math_reverse_variants_match_step_reverse_ref(variant):
 
 
 def test_no_accum_at_several_chunks_keeps_g_z_and_the_single_chunk_sums():
-    """At 2x8x8 (128 pixels) the column sums (256-pixel chunks) still hold
-    every pixel, the conv biases/logs (64-row GEMM blocks) and the weight
-    products (32-pixel chunks) their first chunk only."""
+    """At MULTI_TILE_SHAPE (two JAX batch tiles of 16 images) no_accum keeps
+    `full`'s g_z, and its grads are `full`'s over the last tile's images
+    run as a batch of their own: the sums of that tile alone."""
+    assert an.bwd_tile_batch(*MULTI_TILE_SHAPE, 32) == 16
     _, step = _pair(4, "affine")
-    z, g_zn, g_ld = map(torch.from_numpy, _inputs(SHAPE))
+    z, g_zn, g_ld = map(torch.from_numpy, _inputs(MULTI_TILE_SHAPE))
     with torch.no_grad():
         weights = tfs.pack_weights(step, True, False)
         g_z, grads = an.backward_variant_ref("no_accum", weights, z, g_zn, g_ld)
         rz, rgrads = an.backward_variant_ref("full", weights, z, g_zn, g_ld)
+        _, tile_grads = an.backward_variant_ref("full", weights, z[16:], g_zn[16:], g_ld[16:])
     assert torch.equal(g_z, rz)
-    for i in (0, 1, 2, 10, 11):
-        assert torch.equal(grads[i], rgrads[i]), i
-    for i in (3, 4, 5, 6, 7, 8, 9):
-        assert not torch.equal(grads[i], rgrads[i]), i
+    for i, (g, t, r) in enumerate(zip(grads, tile_grads, rgrads)):
+        _close(g.numpy(), t.numpy(), f"weight grad {i}")
+        assert not torch.allclose(g, r), i
+
+
+def test_no_accum_matches_jax_variant_at_two_tiles(f32_coupling):
+    """no_accum against the JAX script's variant kernel run as its
+    `run_variant` runs it, grid b // tb = 2 tiles, in interpret mode."""
+    b = MULTI_TILE_SHAPE[0]
+    tb = an.bwd_tile_batch(*MULTI_TILE_SHAPE, 32)
+    assert tb == fsp._bwd_tile_batch(*MULTI_TILE_SHAPE, 32) == b // 2
+    _, step = _pair(4, "affine")
+    z, g_zn, g_ld = _inputs(MULTI_TILE_SHAPE)
+    with torch.no_grad():
+        weights = tfs.pack_weights(step, True, False, f32_coupling)
+        got, grads = an.backward_variant("no_accum", weights,
+                                         *map(torch.from_numpy, (z, g_zn, g_ld)))
+        want, want_grads = _jax_variant("backward", "no_accum", weights, z, g_zn, g_ld, tb)
+    _close(got.numpy(), want, "z output")
+    for i, (g, wg) in enumerate(zip(grads, want_grads)):
+        _close(g.numpy(), wg, f"weight grad {i}")
 
 
 @pytest.mark.parametrize("kind,affine,want_ms,want_by", [

@@ -6,6 +6,10 @@ Weights go JAX -> port through `state_dict_from_jax`, gradients the same
 way (the conversion is linear); images and noise are numpy."""
 
 import dataclasses
+import os
+import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -252,3 +256,71 @@ def test_unported_gap_raises_when_reached(tmp_path):
         train=dataclasses.replace(built.profile.train, plot_gap=2)))
     with pytest.raises(NotImplementedError, match="grids"):
         train(built, num_steps=4, quiet=True)
+
+
+# ---------------------------------------------------------------------------
+# The step-liveness watchdog
+# ---------------------------------------------------------------------------
+
+
+def _watchdog(monkeypatch, timeout_s=0.2):
+    from pytorch_glow_tpu_torch.train import trainer as ttrainer
+
+    fired = threading.Event()
+    wd = ttrainer._StepWatchdog(timeout_s, poll_s=0.01)
+    monkeypatch.setattr(wd, "_die", fired.set)
+    return wd, fired
+
+
+def test_watchdog_fires_on_a_stalled_beat(monkeypatch, capsys):
+    wd, fired = _watchdog(monkeypatch)
+    wd.beat()
+    wd.beat()  # arms
+    assert fired.wait(5.0)
+    assert "step-liveness watchdog" in capsys.readouterr().err
+    wd.stop()
+
+
+def test_watchdog_stays_quiet_while_beats_land(monkeypatch):
+    wd, fired = _watchdog(monkeypatch)
+    for _ in range(40):
+        wd.beat()
+        time.sleep(0.01)
+    wd.stop()
+    assert not fired.is_set()
+    # One beat alone never arms it (the first call pays the kernel build).
+    wd, fired = _watchdog(monkeypatch, timeout_s=0.05)
+    wd.beat()
+    assert not fired.wait(0.3)
+
+
+@pytest.mark.parametrize("budget", ["0", "2"])
+def test_watchdog_exits_17_or_reexecs_within_its_budget(monkeypatch, budget):
+    from pytorch_glow_tpu_torch.train import trainer as ttrainer
+
+    calls = []
+    monkeypatch.setenv("GLOW_WEDGE_RESTART_BUDGET", budget)
+    monkeypatch.setattr(ttrainer.os, "_exit", lambda code: calls.append(("exit", code)))
+    monkeypatch.setattr(ttrainer.os, "execv", lambda exe, argv: calls.append(("execv", exe)))
+    ttrainer._StepWatchdog(1.0)._die()
+    if budget == "0":
+        assert calls == [("exit", ttrainer.WEDGE_EXIT_CODE)] and ttrainer.WEDGE_EXIT_CODE == 17
+    else:
+        assert calls[0] == ("execv", sys.executable)
+        assert os.environ["GLOW_WEDGE_RESTART_BUDGET"] == "1"
+
+
+def test_step_timeout_runs_no_per_call_sync(tmp_path, monkeypatch):
+    """With `step_timeout_s` set, the device syncs only after the first call
+    (and at log boundaries, through the logged scalars), not per call; the
+    watchdog beats once per loop iteration and once before the snapshot."""
+    from pytorch_glow_tpu_torch.train import trainer as ttrainer
+
+    syncs, beats = [], []
+    monkeypatch.setattr(ttrainer, "_sync", lambda device: syncs.append(device))
+    real_beat = ttrainer._StepWatchdog.beat
+    monkeypatch.setattr(ttrainer._StepWatchdog, "beat",
+                        lambda self: (beats.append(1), real_beat(self)))
+    built = build(_profile(tmp_path, data="synthetic", step_timeout_s=1800), device="cpu")
+    assert train(built, num_steps=6, quiet=True)["final_step"] == 6
+    assert len(syncs) == 1 and len(beats) == 7
