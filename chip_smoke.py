@@ -6,7 +6,7 @@
 1. Reads the card (name and power limit from nvidia-smi), pins f32 math to
    true f32 (no TF32) and cuDNN to deterministic algorithms.
 2. Builds the hand-written flow-step kernels (`csrc/*.cu`) with nvcc, one
-   process per source.
+   process per source, and holds their GEMM core alone (17).
 3. Holds each kernel against its plain PyTorch version on the same CUDA
    tensors at every celeba64 level shape (hidden 512, b=64) and two odd
    shapes, both directions, affine and additive coupling, with the repo's
@@ -25,8 +25,8 @@
    every coupling depends on the data, nll against the unfused path again.
 5. Times the kernel and the plain path with CUDA events (median of reps
    after warm-up): each level's step, nll and sample images/s.
-6. Holds the backward kernel (`csrc/flowstep_bwd.cu`, its six gradient
-   products on the GEMM core of 17) against
+6. Holds the backward kernel (`csrc/flowstep_bwd.cu`, its recompute and six
+   gradient products on the GEMM core of 17) against
    `step_backward_ref` at every celeba64 level shape at b=128 and the odd
    shapes, affine and additive: g_z and each weight grad within 5e-2 of the
    plain version's largest magnitude (g_z also elementwise rtol 5e-2 and
@@ -121,13 +121,19 @@
    plain version and library yardstick (one unfused bf16 `FlowStep`
    call) timed at b=128.
 
-17. Runs before 6: the backward's wgmma/TMA GEMM core (`csrc/gemm_sm90.cuh`)
-   alone, through `ops/flowstep.gemm_core`, against torch.matmul in f32 on
-   the same bf16 operands, at every product shape the chain uses (N or K of
+17. Runs first, before 3: the chains' wgmma/TMA GEMM core
+   (`csrc/gemm_sm90.cuh`, the products of K1-K5) alone, through
+   `ops/flowstep.gemm_core`, against torch.matmul in f32 on the same bf16
+   operands, at every product shape the backward chain uses (N or K of
    54, 108, 512, 1728 and 3456, celeba64 level 0, a ragged band-group M,
-   the odd shapes' 27 columns) in both operand orders: max |diff| within
-   1e-5 of the largest |a| |b| product sum, a second launch bitwise equal,
-   each product timed.
+   the odd shapes' 27 columns) in both operand orders, and the forward's
+   conv3 (N = 108): max |diff| within 1e-5 of the largest |a| |b| product
+   sum; then with the coupling net's actnorm-ReLU epilogue at the forward's
+   conv1 and conv2 shapes (celeba64 level 0 at b=64 and b=128, a K4 band
+   group at 128x128x12, the odd shapes), against torch.matmul + actnorm +
+   ReLU in f32 on the same operands: within one bf16 rounding (2^-8 of the
+   value) plus twice that sum-order bound times e^logs; a second launch
+   bitwise equal everywhere, each product timed.
 
 With --profile, also prints torch.profiler's device time by kernel, and
 the device's idle share, for one fused and one unfused train step of
@@ -465,17 +471,31 @@ GEMM_CASES = [
     (0, 4096, 512, 1728), (0, 4096, 1728, 512), (0, 1024, 512, 3456),
     (1, 512, 1728, 4096), (1, 3456, 512, 1024),
     (0, 36000, 512, 54), (0, 36000, 54, 512), (1, 512, 54, 36000), (1, 54, 512, 36000),
-    (0, 210, 27, 512), (1, 512, 27, 210),
+    (0, 210, 27, 512), (1, 512, 27, 210), (0, 65536, 108, 512),
 ]
 
 
+def epilogue_cases(fs) -> list[tuple[int, int, int]]:
+    """(m, n, k) of the actnorm-ReLU epilogue check (phase 17): the coupling
+    net's conv1 (k = 9 * C/2) and conv2 (k = 512) products at celeba64 level
+    0 (b=64, b=128), in a K4 band group at celebahq256's 128x128x12 (the
+    chooser's G at b=64, additive: G * 36 * 128 staged pixels) and at the
+    odd shapes (b=6: 5x7x6, 3x5x16)."""
+    g = fs.bands_per_launch("forward", BATCH, 128, 128, 12, 512, False)
+    band_m = g * (fs.band_rows(128, 128) + 4) * 128
+    cases = [(m, 512, k) for m in (BATCH * 1024, TRAIN_BATCH * 1024, band_m) for k in (54, 512)]
+    return cases + [(ODD_BATCH * h * w, 512, k) for h, w, c in ODD_SHAPES
+                    for k in (9 * (c // 2), 512)]
+
+
 def check_gemm_core(torch, fs) -> None:
-    """Phase 17: the backward's wgmma/TMA GEMM core alone (`fs.gemm_core`)
+    """Phase 17: the chains' wgmma/TMA GEMM core alone (`fs.gemm_core`)
     against torch.matmul in f32 on the same bf16 operands, at GEMM_CASES,
     rows padded to a multiple of 8 columns with a non-zero pad the core
     must not read: max |diff| within 1e-5 of the largest |a| |b| product
     sum (about 2^-24 times the reduction length at most, far under what a
-    wrong tile, lane or chunk moves), and a second launch bitwise equal."""
+    wrong tile, lane or chunk moves), and a second launch bitwise equal.
+    Then the actnorm-ReLU epilogue at `epilogue_cases`."""
     gen = torch.Generator().manual_seed(SEED + 60)
     for trans, m, n, k in GEMM_CASES:
         shapes = ((k, m), (k, n)) if trans else ((m, k), (n, k))
@@ -499,6 +519,40 @@ def check_gemm_core(torch, fs) -> None:
         print(f"{tag}: max |diff| {err:.3e} (scale {scale:.1f}), {ms:.4f} ms, "
               f"{2e-9 * m * n * k / ms:.1f} TFLOP/s")
         del a, b, got, again, want
+    for m, n, k in epilogue_cases(fs):
+        check_gemm_epilogue(torch, fs, m, n, k, gen)
+
+
+def check_gemm_epilogue(torch, fs, m: int, n: int, k: int, gen) -> None:
+    """The core with the coupling net's conv epilogue, out = bf16(relu((a
+    b^T + bias) e^logs)), against torch.matmul + actnorm + ReLU in f32 on
+    the same operands (a pad of 7s the core must not read; w1-like weights
+    scaled by 1/sqrt(k); bias and logs about the actnorms'): within one
+    bf16 rounding of the value (2^-8) plus twice phase 17's sum-order bound
+    times e^logs (a rounding can flip where the f32 sums differ in order),
+    some outputs zero and some not, and a second launch bitwise equal."""
+    a = torch.full((m, fs.padded(k)), 7.0, dtype=torch.bfloat16)
+    b = torch.full((n, fs.padded(k)), 7.0, dtype=torch.bfloat16)
+    a[:, :k] = torch.randn(m, k, generator=gen)
+    b[:, :k] = torch.randn(n, k, generator=gen) / math.sqrt(k)
+    bias, logs = 0.5 * torch.randn(n, generator=gen), 0.2 * torch.randn(n, generator=gen)
+    a, b, bias, logs = a.cuda(), b.cuda(), bias.cuda(), logs.cuda()
+    got = fs.gemm_core(a, b, False, m, n, k, (bias, logs))
+    again = fs.gemm_core(a, b, False, m, n, k, (bias, logs))
+    av, bv = a[:, :k].float(), b[:, :k].float()
+    want = torch.relu((av @ bv.T + bias) * torch.exp(logs))
+    scale = float((av.abs() @ bv.abs().T).max())
+    excess = float(((got.float() - want).abs()
+                    - (2.0 ** -8 * want.abs() + 2e-5 * scale * torch.exp(logs))).max())
+    torch.cuda.synchronize()
+    tag = f"gemm core actnorm-relu ({m}, {n}) over k={k}"
+    require(torch.equal(got, again), f"{tag}: a second launch differs")
+    require(excess <= 0.0, f"{tag}: beyond the bound by {excess}")
+    require(bool((got == 0).any()) and bool((got > 0).any()), f"{tag}: ReLU all one side")
+    err = float((got.float() - want).abs().max())
+    ms = median_ms(lambda: fs.gemm_core(a, b, False, m, n, k, (bias, logs)), torch)
+    print(f"{tag}: max |diff| {err:.3e} (scale {scale:.1f}), {ms:.4f} ms, "
+          f"{2e-9 * m * n * k / ms:.1f} TFLOP/s")
 
 
 def random_lu(c: int, generator, torch):
@@ -1635,11 +1689,11 @@ def main() -> int:
 def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     from pytorch_glow_tpu_torch.ops import _build
 
+    check_gemm_core(torch, fs)
     check_kernels(torch, fs, results)
     launches = check_serving(torch, fs, card, "celeba64")
 
     # -- the training path ----------------------------------------------------
-    check_gemm_core(torch, fs)
     check_backward(torch, fs, results)
     train_launches = check_training(torch, fs, card, os.path.join(out_root, "celeba64"),
                                     "--profile" in sys.argv[1:])

@@ -15,19 +15,21 @@
 // `pytorch_glow_tpu_torch/scripts/perf_*_anatomy.py`.
 //
 // Design: a variant is the production chain with one template flag
-// changed (flowstep_common.cuh `Tap`, `Form`, the gemm's ROWSUM, the mix's
-// SPLIT, the conv1 loader STAGED; flowstep_bwd_common.cuh `BwdProd`), so
+// changed (flowstep_common.cuh `Tap`, `Form`, the mix's SPLIT, the net's
+// STAGED; the core's ROWSUM; flowstep_bwd_common.cuh `BwdProd`), so
 // every other kernel of it is the production kernel's own code.  `full`
 // is not a copy: it calls the production entry (`glow_flowstep`,
 // `glow_flowstep_bwd`).  On this card the chains are several launches,
 // so each variant moves the time of identifiable kernels:
 //   no_masks     taps read pixel (m + off) mod M with no border test
-//                (the TPU's lane roll over one tile, unmasked)
+//                (the TPU's lane roll over one tile, unmasked); conv1's
+//                patches are staged so
 //   no_rolls     taps read pixel m; masked where the JAX variant keeps its
 //                masks (S1's zero-conv), else not
-//   matmul_only  conv1 reads a staged dense (M, 9*ch) bf16 patch tensor;
-//                the zero-conv, gy, g_v1's col2im and (S3) the gW1 patch
-//                staging read their 9 taps at pixel m
+//   matmul_only  conv1 reads a given dense (M, padded(9*ch)) bf16 patch
+//                tensor, no patch staging; the zero-conv, gy, g_v1's col2im
+//                and (S3) the gW1 patches, staged from v, read their 9 taps
+//                at pixel m
 //   no_logdet    (S1) the coupling writes ld = 0, no log_sigmoid sum
 //   recip_exp    (S2) z2 * (1 + e^-(raw+2)) - shift: 1/sigmoid, same math
 //   split_mix    (S2) the coupling writes only z2' into an (M, ch) buffer
@@ -57,8 +59,8 @@ int glow_flowstep(int reverse, int affine, int b, int hh, int ww, int c, int hid
                   const float* z, const float* wmat, const float* anb, const float* anl,
                   const void* w1, const float* a1b, const float* a1l, const void* w2,
                   const float* a2b, const float* a2l, const void* w3, const float* b3,
-                  const float* l3, float* out, float* ld, void* h1, void* h2, float* y,
-                  float* tmp, void* stream_ptr);
+                  const float* l3, float* out, float* ld, void* p1, void* h1, void* h2,
+                  float* y, float* tmp, void* stream_ptr);
 int glow_flowstep_bwd(int affine, int b, int hh, int ww, int c, int hidden, const float* z,
                       const float* wmat, const float* anb, const float* anl, const void* w1,
                       const float* a1b, const float* a1l, const void* w2, const float* a2b,
@@ -78,12 +80,11 @@ enum MixVariant { MIX_PROD = 0, MIX_SPLIT = 1, MIX_NONE = 2 };
 template <int TAP1, int TAP3, bool STAGED, int FORM>
 cudaError_t forward_chain(int b, int hh, int ww, int c, int hidden, const float* z,
                           const StepWeights& sw, const void* patches, float* out, float* ld,
-                          void* h1, void* h2, float* y, cudaStream_t stream) {
+                          void* p1, void* h1, void* h2, float* y, cudaStream_t stream) {
   const int M = b * hh * ww;
   GLOW_CHECK(launch_mix<false>(M, c, z, sw.wmat, sw.anb, sw.anl, out, stream));
-  GLOW_CHECK((launch_net<false, TAP1, STAGED>(M, hh, ww, c, hidden, c, out, sw.w1, sw.a1b, sw.a1l,
-                                              sw.w2, sw.a2b, sw.a2l, sw.w3, h1, h2, y, stream,
-                                              Band{}, patches)));
+  GLOW_CHECK((launch_net<false, TAP1, STAGED>(M, hh, ww, c, hidden, c, out, sw, p1, h1, h2, y,
+                                              stream, Band{}, patches)));
   coupling_kernel<false, true, TAP3, FORM><<<b, ROW_THREADS, 0, stream>>>(hh, ww, c, out, y,
                                                                           sw.b3, sw.l3, out, ld);
   return cudaGetLastError();
@@ -92,12 +93,11 @@ cudaError_t forward_chain(int b, int hh, int ww, int c, int hidden, const float*
 // S2: net on the input's z1, coupling into tmp (or out), then the mix.
 template <int TAP3, bool STAGED, int FORM, int MIX>
 cudaError_t reverse_chain(int b, int hh, int ww, int c, int hidden, const float* z,
-                          const StepWeights& sw, const void* patches, float* out, void* h1,
-                          void* h2, float* y, float* tmp, cudaStream_t stream) {
+                          const StepWeights& sw, const void* patches, float* out, void* p1,
+                          void* h1, void* h2, float* y, float* tmp, cudaStream_t stream) {
   const int M = b * hh * ww;
-  GLOW_CHECK((launch_net<false, TAP_MASKED, STAGED>(M, hh, ww, c, hidden, c, z, sw.w1, sw.a1b,
-                                                    sw.a1l, sw.w2, sw.a2b, sw.a2l, sw.w3, h1, h2,
-                                                    y, stream, Band{}, patches)));
+  GLOW_CHECK((launch_net<false, TAP_MASKED, STAGED>(M, hh, ww, c, hidden, c, z, sw, p1, h1, h2, y,
+                                                    stream, Band{}, patches)));
   float* dst = MIX == MIX_NONE ? out : tmp;
   coupling_kernel<true, true, TAP3, FORM><<<b, ROW_THREADS, 0, stream>>>(hh, ww, c, z, y, sw.b3,
                                                                          sw.l3, dst, nullptr);
@@ -140,33 +140,34 @@ extern "C" {
 
 // S1, K1's variants (0 full, 1 no_logdet, 2 no_masks, 3 no_rolls,
 // 4 matmul_only), affine.  z: (b*hh*ww, c) f32; the 12 packed weights
-// (reverse=False); patches: (M, 9*ch) bf16, read by matmul_only only;
-// out: (M, c); ld: (b,); h1, h2: (M, hidden) bf16 and y: (M, 9*c) f32
+// (reverse=False; w1 padded as glow_flowstep takes it); patches:
+// (M, padded(9*ch)) bf16, read by matmul_only only; out: (M, c); ld: (b,);
+// p1: (M, padded(9*ch)) bf16, h1, h2: (M, hidden) bf16 and y: (M, 9*c) f32
 // scratch.  Returns 0 or the first launch's cudaError_t.
 int glow_anatomy_forward(int variant, int b, int hh, int ww, int c, int hidden, const float* z,
                          const float* wmat, const float* anb, const float* anl, const void* w1,
                          const float* a1b, const float* a1l, const void* w2, const float* a2b,
                          const float* a2l, const void* w3, const float* b3, const float* l3,
-                         const void* patches, float* out, float* ld, void* h1, void* h2,
-                         float* y, void* stream_ptr) {
+                         const void* patches, float* out, float* ld, void* p1, void* h1,
+                         void* h2, float* y, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const StepWeights sw = {wmat, anb, anl, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3};
   switch (variant) {
     case 0:
       return glow_flowstep(0, 1, b, hh, ww, c, hidden, z, wmat, anb, anl, w1, a1b, a1l, w2, a2b,
-                           a2l, w3, b3, l3, out, ld, h1, h2, y, out, stream_ptr);
+                           a2l, w3, b3, l3, out, ld, p1, h1, h2, y, out, stream_ptr);
     case 1:
       return (int)forward_chain<TAP_MASKED, TAP_MASKED, false, FORM_NO_LOGDET>(
-          b, hh, ww, c, hidden, z, sw, patches, out, ld, h1, h2, y, stream);
+          b, hh, ww, c, hidden, z, sw, patches, out, ld, p1, h1, h2, y, stream);
     case 2:
       return (int)forward_chain<TAP_WRAP, TAP_WRAP, false, FORM_PROD>(
-          b, hh, ww, c, hidden, z, sw, patches, out, ld, h1, h2, y, stream);
+          b, hh, ww, c, hidden, z, sw, patches, out, ld, p1, h1, h2, y, stream);
     case 3:
       return (int)forward_chain<TAP_CENTRE, TAP_CENTRE_MASKED, false, FORM_PROD>(
-          b, hh, ww, c, hidden, z, sw, patches, out, ld, h1, h2, y, stream);
+          b, hh, ww, c, hidden, z, sw, patches, out, ld, p1, h1, h2, y, stream);
     case 4:
       return (int)forward_chain<TAP_MASKED, TAP_CENTRE, true, FORM_PROD>(
-          b, hh, ww, c, hidden, z, sw, patches, out, ld, h1, h2, y, stream);
+          b, hh, ww, c, hidden, z, sw, patches, out, ld, p1, h1, h2, y, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -178,29 +179,29 @@ int glow_anatomy_reverse(int variant, int b, int hh, int ww, int c, int hidden, 
                          const float* wmat, const float* anb, const float* anl, const void* w1,
                          const float* a1b, const float* a1l, const void* w2, const float* a2b,
                          const float* a2l, const void* w3, const float* b3, const float* l3,
-                         const void* patches, float* out, void* h1, void* h2, float* y,
-                         float* tmp, void* stream_ptr) {
+                         const void* patches, float* out, void* p1, void* h1, void* h2,
+                         float* y, float* tmp, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const StepWeights sw = {wmat, anb, anl, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3};
   switch (variant) {
     case 0:
       return glow_flowstep(1, 1, b, hh, ww, c, hidden, z, wmat, anb, anl, w1, a1b, a1l, w2, a2b,
-                           a2l, w3, b3, l3, out, nullptr, h1, h2, y, tmp, stream_ptr);
+                           a2l, w3, b3, l3, out, nullptr, p1, h1, h2, y, tmp, stream_ptr);
     case 1:
       return (int)reverse_chain<TAP_MASKED, false, FORM_RECIP_EXP, MIX_PROD>(
-          b, hh, ww, c, hidden, z, sw, patches, out, h1, h2, y, tmp, stream);
+          b, hh, ww, c, hidden, z, sw, patches, out, p1, h1, h2, y, tmp, stream);
     case 2:
       return (int)reverse_chain<TAP_MASKED, false, FORM_SPLIT, MIX_SPLIT>(
-          b, hh, ww, c, hidden, z, sw, patches, out, h1, h2, y, tmp, stream);
+          b, hh, ww, c, hidden, z, sw, patches, out, p1, h1, h2, y, tmp, stream);
     case 3:
       return (int)reverse_chain<TAP_MASKED, false, FORM_NO_DIV, MIX_PROD>(
-          b, hh, ww, c, hidden, z, sw, patches, out, h1, h2, y, tmp, stream);
+          b, hh, ww, c, hidden, z, sw, patches, out, p1, h1, h2, y, tmp, stream);
     case 4:
       return (int)reverse_chain<TAP_MASKED, false, FORM_PROD, MIX_NONE>(
-          b, hh, ww, c, hidden, z, sw, patches, out, h1, h2, y, tmp, stream);
+          b, hh, ww, c, hidden, z, sw, patches, out, p1, h1, h2, y, tmp, stream);
     case 5:
       return (int)reverse_chain<TAP_CENTRE, true, FORM_PROD, MIX_PROD>(
-          b, hh, ww, c, hidden, z, sw, patches, out, h1, h2, y, tmp, stream);
+          b, hh, ww, c, hidden, z, sw, patches, out, p1, h1, h2, y, tmp, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -216,7 +217,7 @@ size_t glow_anatomy_bwd_workspace(int b, int hh, int ww, int c, int hidden, int 
 
 // S3, K3's variants (0 full, 1 no_accum, 2 no_rowsum, 3 no_wgrad,
 // 4 no_masks, 5 no_rolls, 6 matmul_only), affine.  Arguments as
-// glow_flowstep_bwd's, plus patches ((M, 9*ch) bf16, matmul_only) and
+// glow_flowstep_bwd's, plus patches ((M, padded(9*ch)) bf16, matmul_only) and
 // tile, the pixels of the JAX study's batch tile (no_accum keeps the last
 // one's grads; M - tile a multiple of 128); the workspace is
 // glow_anatomy_bwd_workspace's size.

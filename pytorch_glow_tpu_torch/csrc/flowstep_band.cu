@@ -19,22 +19,26 @@
 // image read as zero.  Per group of G bands:
 //   gather_band        ext z, zero outside the image
 //   mix_kernel<fwd>    (forward only) v = W @ ((z + b) * e^l) on ext
-//   launch_net<band>   h1, h2 and the tap-packed y on ext
+//   launch_net<band>   conv1's patches p1 (masked on absolute rows), then
+//                      h1, h2 and the tap-packed y on ext, the three
+//                      products on the wgmma/TMA core (gemm_sm90.cuh)
 //   coupling_band      the R centre rows: forward writes the output and one
 //                      logdet partial per band; reverse writes a scratch
 //   mix_kernel<rev>    (reverse only) on the centre rows into the output
 // then ld_sum adds each image's band partials in band order.  No atomics.
 //
-// Bits: a centre row's h1, h2, y and output come from the same values by
-// the same code as in the whole chain (each GEMM row runs over the same K
-// slices in the same order; the mix, the tap sum and the coupling are per
-// pixel), so the z output equals the whole chain's bit for bit and
-// decode(encode(x)) stays exact.  Only the logdet's sum order changes.
+// Bits: a centre row's p1, h1, h2, y and output come from the same values
+// by the same code as in the whole chain (each product row runs over the
+// same K slices in the same order inside one block, no split-K; the mix,
+// the tap sum and the coupling are per pixel), so the z output equals the
+// whole chain's bit for bit and decode(encode(x)) stays exact.  Only the
+// logdet's sum order changes.
 //
 // What bounds it on this card: as the whole chain, operations (the
 // coupling net's three products), plus (R+4)/R of them for the recomputed
-// halo rows, 36/32 at the 128x128 level.  Written to be right first: the
-// same 64x64 wmma tiles, every intermediate staged in device memory.
+// halo rows, 36/32 at the 128x128 level.  The products run on the core;
+// every intermediate (p1, h1, h2, y, the staged and mixed z) still goes
+// through device memory, as in the whole chain.
 
 #include "flowstep_common.cuh"
 
@@ -114,8 +118,9 @@ extern "C" {
 // One flow step over row bands.  z: (b*hh*ww, c) f32 input, left
 // untouched; R: band rows (divides hh); G: bands per group.  out: (same)
 // f32 result.  ld: (b,) f32 coupling logdet (forward; zeros for additive).
-// Scratch for one group of G bands of (R+4)*ww staged pixels: zext and v
-// (G*(R+4)*ww, c) f32 (v unused in reverse), h1, h2 (.., hidden) bf16,
+// w1 padded to (hidden, padded(9*ch)).  Scratch for one group of G bands
+// of (R+4)*ww staged pixels: zext and v (G*(R+4)*ww, c) f32 (v unused in
+// reverse), p1 (.., padded(9*ch)) bf16, h1, h2 (.., hidden) bf16,
 // y (.., 9*cout) f32, tmp (G*R*ww, c) f32 (reverse only), and ld_band
 // (b*hh/R,) f32.  Returns 0 or the first launch's cudaError_t.
 int glow_flowstep_band(int reverse, int affine, int b, int hh, int ww, int c, int hidden, int R,
@@ -123,11 +128,12 @@ int glow_flowstep_band(int reverse, int affine, int b, int hh, int ww, int c, in
                        const float* anl, const void* w1, const float* a1b, const float* a1l,
                        const void* w2, const float* a2b, const float* a2l, const void* w3,
                        const float* b3, const float* l3, float* out, float* ld, float* zext,
-                       float* v, void* h1, void* h2, float* y, float* tmp, float* ld_band,
-                       void* stream_ptr) {
+                       float* v, void* p1, void* h1, void* h2, float* y, float* tmp,
+                       float* ld_band, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int T = hh / R, nbands = b * T, ext_rows = R + 4;
   const int cout = affine ? c : c / 2;
+  const StepWeights sw = {wmat, anb, anl, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3};
   for (int first = 0; first < nbands; first += G) {
     const int count = nbands - first < G ? nbands - first : G;
     const Band bd = {first, T, R, hh};
@@ -138,8 +144,8 @@ int glow_flowstep_band(int reverse, int affine, int b, int hh, int ww, int c, in
       GLOW_TRY(launch_mix<false>(me, c, zext, wmat, anb, anl, v, stream));
       src = v;
     }
-    GLOW_TRY(launch_net<true>(me, ext_rows, ww, c, hidden, cout, src, w1, a1b, a1l, w2, a2b, a2l,
-                              w3, h1, h2, y, stream, bd));
+    GLOW_TRY(launch_net<true>(me, ext_rows, ww, c, hidden, cout, src, sw, p1, h1, h2, y, stream,
+                              bd));
     if (!reverse) {
       GLOW_TRY(launch_coupling_band<false>(affine, count, ww, c, bd, src, y, b3, l3, out, ld_band,
                                            stream));

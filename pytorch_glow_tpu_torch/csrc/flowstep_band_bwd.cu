@@ -15,10 +15,11 @@
 //                      on the halo rows too: those outputs belong to the
 //                      neighbouring bands, which backpropagate them)
 //   backward_chain     K3's chain (flowstep_bwd_common.cuh) on the staged
-//                      bands: recompute with K4's own kernels, so the ReLU
-//                      masks agree bit for bit; taps and their transposes
-//                      masked on absolute rows; g_ld on centre rows only.
-//                      Weight grads go to this group's slot.
+//                      bands: recompute with K4's own `launch_net`, so the
+//                      ReLU masks agree bit for bit, its staged patches
+//                      kept for gW1; taps and their transposes masked on
+//                      absolute rows; g_ld on centre rows only.  Weight
+//                      grads go to this group's slot.
 //   scatter_band       each band's ext g_z: centre rows to g_z, the two top
 //                      and two bottom halo rows to per-band buffers
 // then fold_band adds to each pixel its neighbour band's halo rows (a band
@@ -28,8 +29,9 @@
 // launches on the same inputs give the same bits.
 //
 // What bounds it on this card: as K3, operations, plus (R+4)/R of them for
-// the recomputed halo rows.  The six gradient products run on K3's
-// wgmma/TMA core (gemm_sm90.cuh); the recompute on K4's kernels.
+// the recomputed halo rows.  All nine products (the recompute's three,
+// K4's own, and the six gradient products) run on K3's wgmma/TMA core
+// (gemm_sm90.cuh).
 
 #include "flowstep_bwd_common.cuh"
 

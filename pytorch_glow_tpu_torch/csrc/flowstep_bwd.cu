@@ -6,24 +6,26 @@
 // version is `step_backward_ref` in `pytorch_glow_tpu_torch/ops/flowstep.py`.
 //
 // Layout as the forward (flowstep.cu): pixel-major (M = B*H*W, C) f32 z,
-// packed weights from `ops/flowstep.pack_weights(reverse=False)`, plus the
-// wrapper's transposed bf16 copies w1t (9*ch, hid), w2t (hid, hid) and
-// w3t (hid, padded(9*cout)), its pad columns zero.
+// packed weights from `ops/flowstep.pack_weights(reverse=False)` with w1
+// padded as the forward takes it, plus the wrapper's transposed bf16
+// copies w1t (9*ch, hid), w2t (hid, hid) and w3t (hid, padded(9*cout)),
+// its pad columns zero.
 //
-// The chain itself (recompute, coupling and zero-conv cotangents, three
-// data-gradient GEMMs, col2im and mix backward, the staged conv1 patches,
-// three "K = M" weight-grad GEMMs, column sums) is `backward_chain` in
-// flowstep_bwd_common.cuh, shared with the row-band backward
-// (flowstep_band_bwd.cu); this file runs it once over the whole batch.
+// The chain itself (recompute with conv1's staged patches, coupling and
+// zero-conv cotangents, three data-gradient GEMMs, col2im and mix
+// backward, three "K = M" weight-grad GEMMs, gW1 on the recompute's
+// patches, column sums) is `backward_chain` in flowstep_bwd_common.cuh,
+// shared with the row-band backward (flowstep_band_bwd.cu); this file runs
+// it once over the whole batch.
 //
 // What bounds it on this card: operations.  Per step 3 * 2*M*hid*(9*ch +
 // hid + 9*cout) + 12*M*C^2, about 272 GFLOP at celeba64 level 0 with b=128
 // (0.27 ms at 989 TFLOP/s bf16), against about 22 MB of compulsory traffic
-// (7 us at 3.35 TB/s).  The six gradient products run on the wgmma/TMA
-// core of gemm_sm90.cuh (128 x 128 tiles, a 4-stage TMA ring, split-K over
-// pixels for the weight gradients); the recompute stays on the forward's
-// 64 x 64 wmma kernels, so its ReLU masks are K1's, and every intermediate
-// is still staged in device memory.
+// (7 us at 3.35 TB/s).  All nine products run on the wgmma/TMA core of
+// gemm_sm90.cuh (128 x 128 tiles, a 3-stage TMA ring, split-K over pixels
+// for the weight gradients only): the recompute's three through the
+// forward's own `launch_net`, so its ReLU masks are K1's bit for bit.
+// Every intermediate is still staged in device memory.
 
 #include "flowstep_bwd_common.cuh"
 
@@ -36,7 +38,8 @@ size_t glow_flowstep_bwd_workspace(int affine, int b, int hh, int ww, int c, int
 }
 
 // Backward of one forward flow step.  z: (b*hh*ww, c) f32 step input;
-// the 12 packed weights; w1t, w2t, w3t: bf16 transposes of w1, w2, w3;
+// the 12 packed weights (w1 padded to (hidden, padded(9*ch)));
+// w1t, w2t, w3t: bf16 transposes of w1, w2, w3;
 // gzn: (M, c) f32 cotangent of the step output; gld: (b,) f32 cotangent
 // of the per-image logdet.  Writes gz (M, c) and the 12 f32 weight grads
 // (each the packed weight's shape).  Returns 0 or the first launch's

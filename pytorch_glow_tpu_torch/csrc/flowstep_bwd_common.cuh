@@ -3,31 +3,32 @@
 // recompute, then the cotangents of z and of all 12 packed weights.
 //
 // Chain (`backward_chain`):
-//   recompute        v = mix(z), h1, h2, y with the forward's own kernels
-//                    (flowstep_common.cuh), so the ReLU masks agree bit for bit
+//   recompute        v = mix(z), conv1's patches p1, h1, h2, y with the
+//                    forward's own `launch_net` (flowstep_common.cuh), so the
+//                    ReLU masks agree bit for bit
 //   coupling_bwd     per (pixel, j): g_raw in the saturation-safe form
 //                    go2*(v2+shift)*s(1-s) + g_ld*(1-s), g_v2 = go2*s,
 //                    g_acc = g_out*e^{3 l3}, and g_out*out for l3's grad
 //   gy_kernel        tap-packed zero-conv cotangent gy (M, 9*cout) in bf16:
 //                    the transpose of the forward's 9-tap shift-sum
-//   data_grad        g_h2 = gy @ w3 on the wgmma/TMA core (gemm_sm90.cuh);
+//   gemm_nt          g_h2 = gy @ w3 on the wgmma/TMA core (gemm_sm90.cuh);
 //                    epilogue: ReLU mask of h2, * e^{a2l}, g_a2 in bf16,
 //                    block partials of its bias/logs grads
-//   data_grad        g_h1 = g_a2 @ w2; the same epilogue with h1
-//   data_grad        g_p1 = g_a1 @ w1 (f32)
+//   gemm_nt          g_h1 = g_a2 @ w2; the same epilogue with h1
+//   gemm_nt          g_p1 = g_a1 @ w1 (f32)
 //   gv1_kernel       g_v1 = go1 + col2im(g_p1), the conv1 gather transposed
 //   mix_bwd          g_u = W^T g_v, g_z = g_u * e^{anl}, u recomputed
-//   stage_patches    conv1's patches p1 (M, 9*ch) in bf16, written once
-//   weight_grad      gW2 = g_a2^T h1, gW1 = g_a1^T p1, gW3 = gy^T h2 on the
-//                    core: "K = M" products read pixel-major, one partial per
-//                    chunk of pixels
+//   weight_grad      gW2 = g_a2^T h1, gW1 = g_a1^T p1 (the recompute's
+//                    patches), gW3 = gy^T h2 on the core: "K = M" products
+//                    read pixel-major, one partial per chunk of pixels
 //   col_partial,     the bias/logs column sums and the C x C mix gradient,
 //   outer_partial    one partial per chunk of pixels
 //   reduce_partials  each partial set summed in chunk order
 //
 // The bf16 operands the core reads through TMA need row strides of a
 // multiple of 16 bytes: gy and p1 rows are padded to a multiple of 8
-// columns (`padded`), the pad zero, and so is the wrapper's transposed w3.
+// columns (`padded`), the pad zero, and so are the wrapper's copies of w1
+// and its transposed w3.
 //
 // With BAND the chain runs over staged row bands (flowstep_common.cuh
 // `Band`): every gather and its transpose masks on absolute rows, and g_ld
@@ -43,37 +44,19 @@
 #pragma once
 
 #include "flowstep_common.cuh"
-#include "gemm_sm90.cuh"
 
 namespace {
 
 constexpr int COL_CHUNK = 256;   // pixels per column-sum partial
 constexpr int N_WEIGHTS = 12;
 
-__host__ __device__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// Columns of a bf16 buffer the core reads through TMA: a multiple of 8,
-// so that its rows are a multiple of 16 bytes apart.
-__host__ __device__ int padded(int n) { return ceil_div(n, 8) * 8; }
-
 // What a backward-chain variant does; production is every default.
 struct BwdProd {
   static constexpr int tap = TAP_MASKED;  // every 3x3 read: conv1, zero-conv, gy, g_v1, p1
-  static constexpr bool staged = false;   // the recompute's conv1 reads a dense staged patch tensor
+  static constexpr bool staged = false;   // the recompute's conv1 reads the given staged patches
   static constexpr bool accum = true;     // every chunk partial summed (else the last tile's)
   static constexpr bool rowsum = true;    // the 8 bias/logs column sums (else 0)
   static constexpr bool wgrad = true;     // any weight gradient (else all 12 are 0)
-};
-
-// The 12 packed weights in `pack_weights` order, as the C entries take them.
-struct StepWeights {
-  const float *wmat, *anb, *anl;
-  const void* w1;
-  const float *a1b, *a1l;
-  const void* w2;
-  const float *a2b, *a2l;
-  const void* w3;
-  const float *b3, *l3;
 };
 
 template <bool AFFINE, bool BAND, int TAP = TAP_MASKED>
@@ -143,21 +126,6 @@ __global__ void gy_kernel(int M, int hh, int ww, int cout, const float* gacc,
   if (py >= 0 && py < hh && px >= 0 && px < ww && row_in_image<BAND>(bd, img, q / ww))
     v = gacc[(img * hw + py * ww + px) * cout + c];
   gy[idx] = __float2bfloat16(v);
-}
-
-// Conv1's patches p1 (M, padded(9*ch)) in bf16, the pad zero: element
-// k = tap * ch + ci of pixel m is `conv3x3_patch` of v1 = v[:, :ch], as
-// the forward's conv1 gathers it (masked on absolute rows for a band, or
-// read as TAP says).  The gW1 product reads it as a dense operand.
-template <bool BAND, int TAP = TAP_MASKED>
-__global__ void stage_patches_kernel(int M, int hh, int ww, int c, const float* v,
-                                     __nv_bfloat16* p1, Band bd) {
-  const int ch = c / 2, ld = padded(9 * ch);
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * ld) return;
-  const int m = idx / ld, k = idx - m * ld;
-  p1[idx] = k < 9 * ch ? conv3x3_patch<BAND, TAP>(v, c, hh, ww, ch, m, k, bd, M)
-                       : __float2bfloat16(0.0f);
 }
 
 // g_v1[p, i] += sum_k g_p1[p - off_k, k*ch + i] over in-image pixels, taps
@@ -369,7 +337,7 @@ Workspace carve(Carver& cv, int M, int c, int hidden, int cout, int split = 0) {
 // (hidden, padded(9*cout)), the pad zero: the bf16 transposes of w1, w2,
 // w3.  Writes gz (M, c) and the 12 f32 weight grads g[0..11].
 // V: the production chain (BwdProd) or an anatomy variant; `patches`, the
-// staged (M, 9*ch) bf16 conv1 patches, is read by V::staged only;
+// staged (M, padded(9*ch)) bf16 conv1 patches, is read by V::staged only;
 // `split`, the pixel where the last batch tile starts, by !V::accum only
 // (a multiple of sm90::TM, so that every chunking has a boundary there).
 // The core needs hidden to be a multiple of 8 (its TMA row strides).
@@ -383,13 +351,12 @@ cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden,
   const int cout = affine ? c : ch;
   const int gy_ld = padded(9 * cout), p1_ld = padded(9 * ch);
   if (V::accum) split = 0;
-  if (hidden % 8 != 0 || split % sm90::TM != 0) return cudaErrorInvalidValue;
+  if (split % sm90::TM != 0) return cudaErrorInvalidValue;
 
-  // -- recompute, with the forward's kernels -----------------------------
+  // -- recompute, with the forward's kernels; p1 stays for gW1 -------------
   GLOW_CHECK(launch_mix<false>(M, c, z, sw.wmat, sw.anb, sw.anl, ws.v, stream));
-  GLOW_CHECK((launch_net<BAND, V::tap, V::staged>(M, hh, ww, c, hidden, cout, ws.v, sw.w1, sw.a1b,
-                                                  sw.a1l, sw.w2, sw.a2b, sw.a2l, sw.w3, ws.h1,
-                                                  ws.h2, ws.y, stream, bd, patches)));
+  GLOW_CHECK((launch_net<BAND, V::tap, V::staged>(M, hh, ww, c, hidden, cout, ws.v, sw, ws.p1,
+                                                  ws.h1, ws.h2, ws.y, stream, bd, patches)));
 
   // -- coupling and zero-conv ---------------------------------------------
   if (affine)
@@ -408,19 +375,19 @@ cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden,
   d3.M = M; d3.N = hidden; d3.K = 9 * cout;
   d3.logs = sw.a2l; d3.h = ws.h2; d3.out_bf16 = ws.ga2;
   d3.part_b = ws.part_a2b; d3.part_l = ws.part_a2l;
-  GLOW_CHECK((sm90::data_grad<sm90::EPI_RELU_GRAD_BF16, V::rowsum>(d3, ws.gy, gy_ld, w3t, gy_ld,
-                                                                   stream)));
+  GLOW_CHECK((sm90::gemm_nt<sm90::EPI_RELU_GRAD_BF16, V::rowsum>(d3, ws.gy, gy_ld, w3t, gy_ld,
+                                                                 stream)));
 
   sm90::Args d2 = {};
   d2.M = M; d2.N = hidden; d2.K = hidden;
   d2.logs = sw.a1l; d2.h = ws.h1; d2.out_bf16 = ws.ga1;
   d2.part_b = ws.part_a1b; d2.part_l = ws.part_a1l;
-  GLOW_CHECK((sm90::data_grad<sm90::EPI_RELU_GRAD_BF16, V::rowsum>(d2, ws.ga2, hidden, w2t, hidden,
-                                                                   stream)));
+  GLOW_CHECK((sm90::gemm_nt<sm90::EPI_RELU_GRAD_BF16, V::rowsum>(d2, ws.ga2, hidden, w2t, hidden,
+                                                                 stream)));
 
   sm90::Args d1 = {};
   d1.M = M; d1.N = 9 * ch; d1.K = hidden; d1.out_f32 = ws.gp1;
-  GLOW_CHECK((sm90::data_grad<sm90::EPI_F32>(d1, ws.ga1, hidden, w1t, hidden, stream)));
+  GLOW_CHECK((sm90::gemm_nt<sm90::EPI_F32>(d1, ws.ga1, hidden, w1t, hidden, stream)));
 
   // -- mix and actnorm ------------------------------------------------------
   gv1_kernel<BAND, V::tap><<<ceil_div(M * ch, 256), 256, 0, stream>>>(M, hh, ww, c, ws.gp1,
@@ -444,9 +411,8 @@ cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden,
 
   GLOW_CHECK((weight_grad<V::accum>(M, hidden, hidden, ws.ga2, hidden, ws.h1, hidden, split,
                                     ws.part_w, g[6], stream)));
-  stage_patches_kernel<BAND, V::tap><<<ceil_div(M * p1_ld, 256), 256, 0, stream>>>(
-      M, hh, ww, c, ws.v, ws.p1, bd);
-  GLOW_CHECK(cudaGetLastError());
+  if constexpr (V::staged)  // conv1 read the given patches: gW1 reads v's, with V::tap's taps
+    GLOW_CHECK((stage_patches<BAND, V::tap>(M, hh, ww, c, ws.v, ws.p1, bd, stream)));
   GLOW_CHECK((weight_grad<V::accum>(M, hidden, 9 * ch, ws.ga1, hidden, ws.p1, p1_ld, split,
                                     ws.part_w, g[3], stream)));
   GLOW_CHECK((weight_grad<V::accum>(M, 9 * cout, hidden, ws.gy, gy_ld, ws.h2, hidden, split,

@@ -1,38 +1,48 @@
 // Kernels shared by the flow step's forward/reverse chain (flowstep.cu), its
 // backward (flowstep_bwd.cu) and their row-band variants (flowstep_band.cu,
-// flowstep_band_bwd.cu): the bf16 wmma GEMM with its operand loaders and
-// epilogues, the f32 channel mix, the zero-conv tap sum, and the row-band
-// geometry with its gather.
+// flowstep_band_bwd.cu): the coupling net on the wgmma/TMA GEMM core
+// (gemm_sm90.cuh) with conv1's patch staging, the f32 channel mix, the
+// zero-conv tap sum, the coupling update, and the row-band geometry with
+// its gather.
 //
 // Every translation unit compiles this same code with the same flags, so
-// the backward's recompute of h1, h2 and y is bit for bit the forward's,
-// and a band's centre rows are bit for bit the whole chain's.
+// the backward's recompute of p1, h1, h2 and y is bit for bit the
+// forward's, and a band's centre rows are bit for bit the whole chain's.
 //
-// The template parameters `Tap` and `Form`, and the gemm's ROWSUM and the
-// mix's SPLIT, select the anatomy studies' variants (csrc/anatomy.cu);
-// their defaults are the production kernels, the only ones the other
+// The template parameters `Tap` and `Form`, the net's STAGED and the mix's
+// SPLIT select the anatomy studies' variants (csrc/anatomy.cu); their
+// defaults are the production kernels, the only ones the other
 // translation units instantiate.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "gemm_sm90.cuh"
+
+// In a C entry (returns int) and in a chain helper (returns cudaError_t):
+// return the first failing launch's error.
+#define GLOW_TRY(expr)              \
+  do {                              \
+    cudaError_t err_ = (expr);      \
+    if (err_ != cudaSuccess) return (int)err_; \
+  } while (0)
+#define GLOW_CHECK(expr)            \
+  do {                              \
+    cudaError_t err_ = (expr);      \
+    if (err_ != cudaSuccess) return err_; \
+  } while (0)
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BM = 64;        // output rows (pixels) per block
-constexpr int BN = 64;        // output columns per block
-constexpr int BK = 32;        // reduction slice per shared-memory stage
-constexpr int GEMM_THREADS = 128;  // 4 warps, each a 32x32 sub-tile
-constexpr int LDS = BK + 8;   // bf16 tile row stride (multiple of 8)
-constexpr int LDC = BN + 4;   // f32 staging row stride (multiple of 4)
 constexpr int ROW_THREADS = 256;
 
-enum ALoad { A_DENSE = 0, A_CONV3X3 = 1, A_CONV3X3_BAND = 2 };
-enum Epilogue { EPI_ACTNORM_RELU_BF16 = 0, EPI_F32 = 1, EPI_RELU_GRAD_BF16 = 2 };
+__host__ __device__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// Columns of a bf16 buffer the GEMM core reads through TMA: a multiple of
+// 8, so that its rows are a multiple of 16 bytes apart.
+__host__ __device__ int padded(int n) { return ceil_div(n, 8) * 8; }
 
 // How a 3x3 tap k of pixel m reads its neighbour at flattened offset
 // off_k = (dy - 1) * ww + (dx - 1).  Production masks; the anatomy
@@ -79,22 +89,6 @@ __device__ __forceinline__ bool row_in_image(const Band& bd, int img, int yy) {
   return row >= 0 && row < bd.height;
 }
 
-struct GemmArgs {
-  int M, N, K;
-  const __nv_bfloat16* a;       // A_DENSE: (M, K) row-major
-  const float* z;               // A_CONV3X3: z1 = z[:, :cin], row stride ldz
-  int ldz, hh, ww, cin;
-  const __nv_bfloat16* w;       // (N, K) row-major
-  const float* bias;            // EPI_ACTNORM_RELU_BF16: (N,)
-  const float* logs;            // EPI_ACTNORM_RELU_BF16, EPI_RELU_GRAD_BF16: (N,)
-  const __nv_bfloat16* h;       // EPI_RELU_GRAD_BF16: the ReLU output (M, N)
-  __nv_bfloat16* out_bf16;      // (M, N)
-  float* out_f32;               // (M, N)
-  float* part_b;                // EPI_RELU_GRAD_BF16: (M / BM blocks, N) partials
-  float* part_l;                //   of sum g_a and of sum g_an * h
-  Band band;                    // A_CONV3X3_BAND: hh is the staged R + 4 rows
-};
-
 // Patch element k = tap * cin + ci of pixel m: z1 at the tap's neighbour,
 // zero where the tap leaves the image (SAME padding, masked on (y, x)
 // inside each image, and for a band on the absolute row).  Taps
@@ -119,110 +113,6 @@ __device__ __forceinline__ __nv_bfloat16 conv3x3_patch(const float* z, int ldz, 
   if (y >= 0 && y < hh && x >= 0 && x < ww && row_in_image<BAND>(bd, img, y))
     return __float2bfloat16(z[(img * hw + y * ww + x) * ldz + ci]);
   return __float2bfloat16(0.0f);
-}
-
-// out[m, n] = sum_k A[m, k] * w[n, k], bf16 operands, f32 accumulation.
-// A_CONV3X3 builds the im2col patch tile of z1 in shared memory, its taps
-// read as TAP says.  Without ROWSUM, EPI_RELU_GRAD_BF16 writes no block
-// partials.
-template <int AL, int EP, int TAP = TAP_MASKED, bool ROWSUM = true>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
-  __shared__ __align__(32) __nv_bfloat16 As[BM * LDS];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BN * LDS];
-  __shared__ __align__(32) float Cs[BM * LDC];
-
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < g.K; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += GEMM_THREADS) {
-      const int r = idx / BK, kk = idx % BK;
-      const int m = m0 + r, k = k0 + kk;
-      __nv_bfloat16 v = __float2bfloat16(0.0f);
-      if (m < g.M && k < g.K) {
-        if (AL == A_DENSE)
-          v = g.a[m * g.K + k];
-        else
-          v = conv3x3_patch<AL == A_CONV3X3_BAND, TAP>(g.z, g.ldz, g.hh, g.ww, g.cin, m, k,
-                                                        g.band, g.M);
-      }
-      As[r * LDS + kk] = v;
-    }
-    for (int idx = tid; idx < BN * BK; idx += GEMM_THREADS) {
-      const int r = idx / BK, kk = idx % BK;
-      const int n = n0 + r, k = k0 + kk;
-      Bs[r * LDS + kk] = (n < g.N && k < g.K) ? g.w[n * g.K + k] : __float2bfloat16(0.0f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + (wn * 32 + j * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
-    const int r = idx / BN, c = idx % BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= g.M || n >= g.N) continue;
-    float v = Cs[r * LDC + c];
-    if (EP == EPI_ACTNORM_RELU_BF16) {
-      v = (v + g.bias[n]) * expf(g.logs[n]);
-      g.out_bf16[m * g.N + n] = __float2bfloat16(fmaxf(v, 0.0f));
-    } else if (EP == EPI_RELU_GRAD_BF16) {
-      // v is the cotangent of h = relu((a + b) * e^l): g_an = v where h > 0,
-      // g_a = g_an * e^l, stored in bf16 for the next GEMMs.
-      const float gn = __bfloat162float(g.h[m * g.N + n]) > 0.0f ? v : 0.0f;
-      g.out_bf16[m * g.N + n] = __float2bfloat16(gn * expf(g.logs[n]));
-    } else {
-      g.out_f32[m * g.N + n] = v;
-    }
-  }
-
-  if (EP == EPI_RELU_GRAD_BF16 && ROWSUM && tid < 2 * BN) {
-    // Block partials over this block's rows, in row order: thread c sums
-    // g_a of column c, thread BN + c sums g_an * h (a_n == h where the
-    // ReLU passes).  f32, before the bf16 cast, as the reference sums.
-    const int c = tid % BN, n = n0 + c;
-    if (n < g.N) {
-      const float el = expf(g.logs[n]);
-      float s = 0.0f;
-      for (int r = 0; r < BM && m0 + r < g.M; ++r) {
-        const float hv = __bfloat162float(g.h[(m0 + r) * g.N + n]);
-        const float gn = hv > 0.0f ? Cs[r * LDC + c] : 0.0f;
-        s += tid < BN ? gn * el : gn * hv;
-      }
-      (tid < BN ? g.part_b : g.part_l)[blockIdx.x * g.N + n] = s;
-    }
-  }
 }
 
 // The 1x1 channel mix in f32, one output element per thread.
@@ -286,13 +176,6 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
 }
 
-template <int AL, int EP, int TAP = TAP_MASKED, bool ROWSUM = true>
-cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
-  dim3 grid((g.M + BM - 1) / BM, (g.N + BN - 1) / BN);
-  gemm_kernel<AL, EP, TAP, ROWSUM><<<grid, GEMM_THREADS, 0, stream>>>(g);
-  return cudaGetLastError();
-}
-
 template <bool REVERSE, bool SPLIT = false>
 cudaError_t launch_mix(int M, int C, const float* zin, const float* w, const float* anb,
                        const float* anl, float* out, cudaStream_t stream,
@@ -303,44 +186,77 @@ cudaError_t launch_mix(int M, int C, const float* zin, const float* w, const flo
   return cudaGetLastError();
 }
 
-// f() of the coupling from the mixed z: h1, h2 (bf16) and the tap-packed
-// zero-conv product y (f32), the same three launches in both directions
-// and in the backward's recompute; with BAND, over staged row bands.
-// Anatomy variants: TAP for conv1's patch taps, or with STAGED a dense
-// (M, 9*ch) bf16 patch tensor `patches` read as it is.
+// The 12 packed weights in `pack_weights` order, as the C entries take
+// them; w1 with its rows padded to padded(9*ch) columns, the pad zero (the
+// wrapper's copy: the core's TMA reads 16-byte row strides).
+struct StepWeights {
+  const float *wmat, *anb, *anl;
+  const void* w1;
+  const float *a1b, *a1l;
+  const void* w2;
+  const float *a2b, *a2l;
+  const void* w3;
+  const float *b3, *l3;
+};
+
+// Conv1's patches p1 (M, padded(9*ch)) in bf16, the pad zero: element
+// k = tap * ch + ci of pixel m is `conv3x3_patch` of z1 = z[:, :ch] (masked
+// on absolute rows for a band, or read as TAP says).  The conv1 product
+// reads it as its dense A operand, the backward's gW1 product the
+// recompute's.
+template <bool BAND, int TAP = TAP_MASKED>
+__global__ void stage_patches_kernel(int M, int hh, int ww, int c, const float* z,
+                                     __nv_bfloat16* p1, Band bd) {
+  const int ch = c / 2, ld = padded(9 * ch);
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= M * ld) return;
+  const int m = idx / ld, k = idx - m * ld;
+  p1[idx] = k < 9 * ch ? conv3x3_patch<BAND, TAP>(z, c, hh, ww, ch, m, k, bd, M)
+                       : __float2bfloat16(0.0f);
+}
+
+template <bool BAND, int TAP = TAP_MASKED>
+cudaError_t stage_patches(int M, int hh, int ww, int c, const float* z, void* p1, const Band& bd,
+                          cudaStream_t stream) {
+  const int total = M * padded(9 * (c / 2));
+  stage_patches_kernel<BAND, TAP><<<ceil_div(total, 256), 256, 0, stream>>>(
+      M, hh, ww, c, z, (__nv_bfloat16*)p1, bd);
+  return cudaGetLastError();
+}
+
+// f() of the coupling from the mixed z (z1 = z1_src[:, :ch], rows c
+// apart): conv1's staged patches p1, then h1, h2 (bf16) and the tap-packed
+// zero-conv product y (f32), the same launches in both directions and in
+// the backward's recompute; with BAND, over staged row bands.  The three
+// products run on the wgmma/TMA core, each block summing all of K in
+// order (no split-K):
+//   h1 = relu((p1 . w1^T + a1b) * e^a1l)   K = 9*ch, N = hidden
+//   h2 = relu((h1 . w2^T + a2b) * e^a2l)   K = N = hidden
+//   y  = h2 . w3^T                        K = hidden, N = 9*cout
+// Anatomy variants: TAP for conv1's patch taps, or with STAGED the given
+// (M, padded(9*ch)) bf16 patch tensor `patches` read as it is (p1 is then
+// not written).  hidden must be a multiple of 8 (TMA row strides).
 template <bool BAND = false, int TAP = TAP_MASKED, bool STAGED = false>
-inline cudaError_t launch_net(int M, int hh, int ww, int c, int hidden, int cout,
-                              const float* z1_src, const void* w1, const float* a1b,
-                              const float* a1l, const void* w2, const float* a2b,
-                              const float* a2l, const void* w3, void* h1, void* h2, float* y,
-                              cudaStream_t stream, Band bd = Band{},
-                              const void* patches = nullptr) {
-  const int ch = c / 2;
-  GemmArgs g1 = {};
-  g1.M = M; g1.N = hidden; g1.K = 9 * ch;
-  g1.z = z1_src; g1.ldz = c; g1.hh = hh; g1.ww = ww; g1.cin = ch;
-  g1.w = (const __nv_bfloat16*)w1; g1.bias = a1b; g1.logs = a1l;
-  g1.out_bf16 = (__nv_bfloat16*)h1; g1.band = bd;
-  cudaError_t err;
-  if constexpr (STAGED) {
-    g1.a = (const __nv_bfloat16*)patches;
-    err = launch_gemm<A_DENSE, EPI_ACTNORM_RELU_BF16>(g1, stream);
-  } else {
-    err = launch_gemm<BAND ? A_CONV3X3_BAND : A_CONV3X3, EPI_ACTNORM_RELU_BF16, TAP>(g1, stream);
+cudaError_t launch_net(int M, int hh, int ww, int c, int hidden, int cout, const float* z1_src,
+                       const StepWeights& sw, void* p1, void* h1, void* h2, float* y,
+                       cudaStream_t stream, const Band& bd = Band{},
+                       const void* patches = nullptr) {
+  if (hidden % 8 != 0) return cudaErrorInvalidValue;
+  const int p1_ld = padded(9 * (c / 2));
+  if constexpr (!STAGED) {
+    GLOW_CHECK((stage_patches<BAND, TAP>(M, hh, ww, c, z1_src, p1, bd, stream)));
+    patches = p1;
   }
-  if (err != cudaSuccess) return err;
-
-  GemmArgs g2 = {};
-  g2.M = M; g2.N = hidden; g2.K = hidden; g2.hh = hh; g2.ww = ww;
-  g2.a = (const __nv_bfloat16*)h1; g2.w = (const __nv_bfloat16*)w2;
-  g2.bias = a2b; g2.logs = a2l; g2.out_bf16 = (__nv_bfloat16*)h2;
-  err = launch_gemm<A_DENSE, EPI_ACTNORM_RELU_BF16>(g2, stream);
-  if (err != cudaSuccess) return err;
-
-  GemmArgs g3 = {};
-  g3.M = M; g3.N = 9 * cout; g3.K = hidden; g3.hh = hh; g3.ww = ww;
-  g3.a = (const __nv_bfloat16*)h2; g3.w = (const __nv_bfloat16*)w3; g3.out_f32 = y;
-  return launch_gemm<A_DENSE, EPI_F32>(g3, stream);
+  sm90::Args g = {};
+  g.M = M; g.N = hidden; g.K = 9 * (c / 2);
+  g.bias = sw.a1b; g.logs = sw.a1l; g.out_bf16 = (__nv_bfloat16*)h1;
+  GLOW_CHECK(sm90::gemm_nt<sm90::EPI_ACTNORM_RELU_BF16>(g, patches, p1_ld, sw.w1, p1_ld, stream));
+  g.K = hidden;
+  g.bias = sw.a2b; g.logs = sw.a2l; g.out_bf16 = (__nv_bfloat16*)h2;
+  GLOW_CHECK(sm90::gemm_nt<sm90::EPI_ACTNORM_RELU_BF16>(g, h1, hidden, sw.w2, hidden, stream));
+  sm90::Args g3 = {};
+  g3.M = M; g3.N = 9 * cout; g3.K = hidden; g3.out_f32 = y;
+  return sm90::gemm_nt<sm90::EPI_F32>(g3, h2, hidden, sw.w3, hidden, stream);
 }
 
 // Coupling update and per-image logdet; one block per image.  zsrc and
@@ -446,16 +362,3 @@ cudaError_t gather_band(int count, int ww, int c, const Band& bd, const float* s
 }
 
 }  // namespace
-
-// In a C entry (returns int) and in a chain helper (returns cudaError_t):
-// return the first failing launch's error.
-#define GLOW_TRY(expr)              \
-  do {                              \
-    cudaError_t err_ = (expr);      \
-    if (err_ != cudaSuccess) return (int)err_; \
-  } while (0)
-#define GLOW_CHECK(expr)            \
-  do {                              \
-    cudaError_t err_ = (expr);      \
-    if (err_ != cudaSuccess) return err_; \
-  } while (0)

@@ -1,8 +1,9 @@
-// The wgmma/TMA GEMM core of gemm_sm90.cuh on its own, as the backward
-// chain calls it, for checking it against a plain product on the card
-// (`ops/flowstep.gemm_sm90`, chip_smoke.py).  It replaces no TPU kernel by
-// itself: it is the core of K3 and K5 (flowstep_bwd.cu,
-// flowstep_band_bwd.cu).
+// The wgmma/TMA GEMM core of gemm_sm90.cuh on its own, as the flow-step
+// chains call it, for checking it against a plain product on the card
+// (`ops/flowstep.gemm_core`, chip_smoke.py).  It replaces no TPU kernel by
+// itself: it is the core of K1-K5 (the coupling net's products in
+// flowstep_common.cuh `launch_net`, the gradient products in
+// flowstep_bwd_common.cuh `backward_chain`).
 
 #include "flowstep_bwd_common.cuh"
 
@@ -31,7 +32,24 @@ int glow_gemm_sm90(int trans, int m, int n, int k, const void* a, int lda, const
   g.N = n;
   g.K = k;
   g.out_f32 = out;
-  return (int)sm90::data_grad<sm90::EPI_F32>(g, a, lda, b, ldb, stream);
+  return (int)sm90::gemm_nt<sm90::EPI_F32>(g, a, lda, b, ldb, stream);
+}
+
+// out (m, n) bf16 = relu((a (m, k) . b (n, k)^T + bias) * e^logs), the
+// coupling net's conv epilogue (bias, logs: (n,) f32; n a multiple of 8).
+// Returns 0 or the first failing call's cudaError_t.
+int glow_gemm_sm90_actnorm_relu(int m, int n, int k, const void* a, int lda, const void* b,
+                                int ldb, const float* bias, const float* logs, void* out,
+                                void* stream_ptr) {
+  sm90::Args g = {};
+  g.M = m;
+  g.N = n;
+  g.K = k;
+  g.bias = bias;
+  g.logs = logs;
+  g.out_bf16 = (__nv_bfloat16*)out;
+  return (int)sm90::gemm_nt<sm90::EPI_ACTNORM_RELU_BF16>(g, a, lda, b, ldb,
+                                                         (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

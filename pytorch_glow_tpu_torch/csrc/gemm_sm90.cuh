@@ -1,7 +1,9 @@
 // One GEMM core for Hopper (sm_90a): bf16 operands brought into shared
 // memory by TMA, a warpgroup `wgmma.mma_async` into f32 registers, and the
-// three epilogues the flow step's backward chain needs
-// (flowstep_bwd_common.cuh `backward_chain`).
+// epilogues of the flow step's coupling net (flowstep_common.cuh
+// `launch_net`: conv1, conv2 and conv3 of the forward, the reverse and the
+// backward's recompute) and of its backward chain (flowstep_bwd_common.cuh
+// `backward_chain`: the six gradient products).
 //
 // Block tile TM x TN = 128 x 128, reduction slices of TK = 64 (one
 // 128-byte swizzle row of bf16).  Two consumer warpgroups each own 64 rows
@@ -16,9 +18,15 @@
 // products.
 //
 // Two operand orders, through the descriptors' transpose bits:
-//   TRANS = false  C (M, N) = A (M, K) . B (N, K)^T, both K-major: the
-//                  data gradients, a pixel-major cotangent times a
-//                  transposed weight
+//   TRANS = false  C (M, N) = A (M, K) . B (N, K)^T, both K-major
+//                  (`gemm_nt`): the coupling net's three products, a
+//                  pixel-major activation times a weight, and the data
+//                  gradients, a pixel-major cotangent times a transposed
+//                  weight.  Each block sums all of K for its tile, slice
+//                  by slice in order, so an output row's value does not
+//                  depend on where the row falls (no split-K): the band
+//                  chain's centre rows equal the whole chain's, and the
+//                  backward's recompute equals the forward, bit for bit.
 //   TRANS = true   C (M, N) = A (K, M)^T . B (K, N), both MN-major: the
 //                  "K = M" weight gradients, read straight from the
 //                  pixel-major (pixels, M) and (pixels, N) tensors, no
@@ -32,14 +40,17 @@
 // narrow rows to a multiple of 8 columns.
 //
 // Epilogues:
-//   EPI_PARTIAL_F32     part[chunk, m, n] = C (TRANS only)
-//   EPI_RELU_GRAD_BF16  C is the cotangent of h = relu(a_n) with
-//                       a_n = (a + b) * e^l: g_an = C where h > 0, out =
-//                       bf16(g_an * e^l), and per 128-row block the f32
-//                       column partials of g_an * e^l and g_an * h
-//                       (ROWSUM; one row per blockIdx.x, summed in a fixed
-//                       order); N a multiple of 8
-//   EPI_F32             out[m, n] = C
+//   EPI_PARTIAL_F32        part[chunk, m, n] = C (TRANS only)
+//   EPI_RELU_GRAD_BF16     C is the cotangent of h = relu(a_n) with
+//                          a_n = (a + b) * e^l: g_an = C where h > 0, out =
+//                          bf16(g_an * e^l), and per 128-row block the f32
+//                          column partials of g_an * e^l and g_an * h
+//                          (ROWSUM; one row per blockIdx.x, summed in a
+//                          fixed order); N a multiple of 8
+//   EPI_F32                out[m, n] = C
+//   EPI_ACTNORM_RELU_BF16  out = bf16(max((C + b[n]) * e^{l[n]}, 0)), the
+//                          conv actnorm and ReLU of the coupling net;
+//                          N a multiple of 8
 // No float atomics: two launches on the same inputs give the same bits.
 //
 // The tensor maps come from cuTensorMapEncodeTiled, fetched through the
@@ -67,14 +78,15 @@ constexpr int TARGET_BLOCKS = 264;        // two blocks per SM, one wave
 static_assert((TM * CS_LD + 2 * 16 * TN) * 4 <= 2 * STAGES * SLICE_BYTES,
               "the epilogue's tile and column partials fit in the slices");
 
-enum Epi { EPI_PARTIAL_F32 = 0, EPI_RELU_GRAD_BF16 = 1, EPI_F32 = 2 };
+enum Epi { EPI_PARTIAL_F32 = 0, EPI_RELU_GRAD_BF16 = 1, EPI_F32 = 2, EPI_ACTNORM_RELU_BF16 = 3 };
 
 struct Args {
   int M, N, K;                  // C is (M, N); the reduction runs over K
   int chunk, split;             // TRANS: K per partial (a multiple of TK), see `chunk_range`
-  const float* logs;            // EPI_RELU_GRAD_BF16: (N,)
+  const float* bias;            // EPI_ACTNORM_RELU_BF16: (N,)
+  const float* logs;            // EPI_RELU_GRAD_BF16, EPI_ACTNORM_RELU_BF16: (N,)
   const __nv_bfloat16* h;       // EPI_RELU_GRAD_BF16: the ReLU output (M, N)
-  __nv_bfloat16* out_bf16;      // EPI_RELU_GRAD_BF16: (M, N)
+  __nv_bfloat16* out_bf16;      // EPI_RELU_GRAD_BF16, EPI_ACTNORM_RELU_BF16: (M, N)
   float* out_f32;               // EPI_F32: (M, N); EPI_PARTIAL_F32: (chunks, M, N)
   float* part_b;                // EPI_RELU_GRAD_BF16: (ceil(M / TM), N) partials
   float* part_l;                //   of sum g_an * e^l and of sum g_an * h
@@ -311,6 +323,33 @@ __global__ void __launch_bounds__(THREADS, 2)
       if (row0 + r < g.M && col0 + c < g.N)
         out[(size_t)(row0 + r) * g.N + col0 + c] = cs[r * CS_LD + c];
     }
+  } else if constexpr (EPI == EPI_ACTNORM_RELU_BF16) {
+    // Thread t owns the 8 columns c8 .. c8+7 (N is a multiple of 8) of
+    // rows t/16, t/16 + 16, ...: 16-byte vectors of h out, each element
+    // (C + b) * e^l in f32, then the ReLU and the bf16 cast.
+    const int c8 = (t % 16) * 8, col = col0 + c8;
+    if (col < g.N) {
+      float bias[8], el[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        bias[e] = g.bias[col + e];
+        el[e] = expf(g.logs[col + e]);
+      }
+#pragma unroll
+      for (int i = 0; i < TM / 16; ++i) {
+        const int r = t / 16 + 16 * i;
+        if (row0 + r >= g.M) break;
+        const float4 c_lo = *reinterpret_cast<const float4*>(cs + r * CS_LD + c8);
+        const float4 c_hi = *reinterpret_cast<const float4*>(cs + r * CS_LD + c8 + 4);
+        const float cv[8] = {c_lo.x, c_lo.y, c_lo.z, c_lo.w, c_hi.x, c_hi.y, c_hi.z, c_hi.w};
+        uint4 ov;
+        __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(&ov);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          ob[e] = __float2bfloat16(fmaxf((cv[e] + bias[e]) * el[e], 0.0f));
+        *reinterpret_cast<uint4*>(g.out_bf16 + (size_t)(row0 + r) * g.N + col) = ov;
+      }
+    }
   } else {
     // Thread t owns the 8 columns c8 .. c8+7 (N is a multiple of 8, so
     // they are in or out whole) of rows t/16, t/16 + 16, ...: 16-byte
@@ -421,14 +460,15 @@ cudaError_t launch(const Args& g, const CUtensorMap& ma, const CUtensorMap& mb, 
   return cudaGetLastError();
 }
 
-// C (M, N) = A (M, K) . B (N, K)^T with the epilogue EPI (EPI_F32 or
-// EPI_RELU_GRAD_BF16, which needs N a multiple of 8); A and B row-major
-// with row strides lda, ldb elements (multiples of 8).
+// C (M, N) = A (M, K) . B (N, K)^T with the epilogue EPI (EPI_F32, or
+// EPI_RELU_GRAD_BF16 or EPI_ACTNORM_RELU_BF16, which need N a multiple of
+// 8); A and B row-major with row strides lda, ldb elements (multiples of
+// 8).  No split-K: each block sums all of K, in order.
 template <int EPI, bool ROWSUM = true>
-cudaError_t data_grad(const Args& g, const void* a, int lda, const void* b, int ldb,
-                      cudaStream_t stream) {
+cudaError_t gemm_nt(const Args& g, const void* a, int lda, const void* b, int ldb,
+                    cudaStream_t stream) {
   static_assert(EPI != EPI_PARTIAL_F32, "partials are the weight gradients'");
-  if (EPI == EPI_RELU_GRAD_BF16 && g.N % 8 != 0) return cudaErrorInvalidValue;
+  if (EPI != EPI_F32 && g.N % 8 != 0) return cudaErrorInvalidValue;
   if (g.M == 0) return cudaSuccess;
   CUtensorMap ma, mb;
   cudaError_t err = make_map(&ma, a, g.K, g.M, lda, TK, TM);

@@ -1,7 +1,7 @@
 """Build and load the hand-written CUDA kernels in `csrc/`.
 
 At first use, `library()` compiles every `csrc/*.cu` (the flow-step chains,
-whose backward runs on the wgmma/TMA GEMM core `gemm_sm90.cuh`, the core
+whose products run on the wgmma/TMA GEMM core `gemm_sm90.cuh`, the core
 alone `gemm_sm90.cu`, the LU 1x1 conv `invconv.cu` and the anatomy variants
 `anatomy.cu`) with nvcc for sm_90a (`wgmma` exists only for the `a`
 target), one nvcc process per source, all started together, then
@@ -56,13 +56,13 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.glow_flowstep.argtypes = [i32] * 7 + [ptr] * 19 + [ptr]
+    lib.glow_flowstep.argtypes = [i32] * 7 + [ptr] * 20 + [ptr]
     lib.glow_flowstep.restype = i32
     lib.glow_flowstep_bwd_workspace.argtypes = [i32] * 6
     lib.glow_flowstep_bwd_workspace.restype = ctypes.c_size_t
     lib.glow_flowstep_bwd.argtypes = [i32] * 6 + [ptr] * 33
     lib.glow_flowstep_bwd.restype = i32
-    lib.glow_flowstep_band.argtypes = [i32] * 9 + [ptr] * 22 + [ptr]
+    lib.glow_flowstep_band.argtypes = [i32] * 9 + [ptr] * 23 + [ptr]
     lib.glow_flowstep_band.restype = i32
     lib.glow_flowstep_band_bwd_workspace.argtypes = [i32] * 8
     lib.glow_flowstep_band_bwd_workspace.restype = ctypes.c_size_t
@@ -72,9 +72,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glow_invconv_forward.restype = i32
     lib.glow_invconv_mix.argtypes = [i32] * 2 + [ptr] * 3 + [ptr]
     lib.glow_invconv_mix.restype = i32
-    lib.glow_anatomy_forward.argtypes = [i32] * 6 + [ptr] * 19 + [ptr]
+    lib.glow_anatomy_forward.argtypes = [i32] * 6 + [ptr] * 20 + [ptr]
     lib.glow_anatomy_forward.restype = i32
-    lib.glow_anatomy_reverse.argtypes = [i32] * 6 + [ptr] * 19 + [ptr]
+    lib.glow_anatomy_reverse.argtypes = [i32] * 6 + [ptr] * 20 + [ptr]
     lib.glow_anatomy_reverse.restype = i32
     lib.glow_anatomy_bwd_workspace.argtypes = [i32] * 6
     lib.glow_anatomy_bwd_workspace.restype = ctypes.c_size_t
@@ -84,6 +84,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glow_gemm_sm90_workspace.restype = ctypes.c_size_t
     lib.glow_gemm_sm90.argtypes = [i32] * 4 + [ptr, i32, ptr, i32, ptr, ptr, ptr]
     lib.glow_gemm_sm90.restype = i32
+    lib.glow_gemm_sm90_actnorm_relu.argtypes = [i32] * 3 + [ptr, i32, ptr, i32] + [ptr] * 4
+    lib.glow_gemm_sm90_actnorm_relu.restype = i32
     lib.glow_error_string.argtypes = [i32]
     lib.glow_error_string.restype = ctypes.c_char_p
     return lib

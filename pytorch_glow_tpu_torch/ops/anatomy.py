@@ -14,12 +14,13 @@ off_k = (dy - 1) * W + (dx - 1) in one of four ways (`csrc/flowstep_common.cuh`
 `Tap`): "masked" (production: zero where the neighbour leaves the image),
 "wrap" (pixel (m + off_k) mod M, no border test: the TPU's lane roll over
 one tile, unmasked), "centre" (pixel m) and "centre_masked" (pixel m, zero
-where the neighbour leaves the image).  `matmul_only` feeds conv1 a staged
-dense patch tensor, `patches` (B, H, W, 9 * C/2), which the caller makes
-(`staged_patches`): the JAX variant reads a scratch it never writes, so the
-port gives it data.  In the backward, the gW1 product reads the patches the
-chain stages itself (`csrc/flowstep_bwd_common.cuh` `stage_patches_kernel`),
-with each variant's taps (matmul_only: centre).
+where the neighbour leaves the image).  Conv1 reads its patches staged
+(`csrc/flowstep_common.cuh` `stage_patches_kernel`) with the variant's
+taps; `matmul_only` instead feeds it a given dense patch tensor, `patches`
+(B, H, W, padded(9 * C/2)), which the caller makes (`staged_patches`): the
+JAX variant reads a scratch it never writes, so the port gives it data.  In
+the backward, the gW1 product reads the patches the recompute staged, or
+for `matmul_only` patches the chain stages from v with centre taps.
 
 S3's `no_accum` is the JAX variant's: every batch tile of the JAX backward
 (`bwd_tile_batch`, a copy of `flowstep_pallas._bwd_tile_batch`) overwrites
@@ -84,10 +85,12 @@ def reset_launches() -> None:
 
 def staged_patches(b: int, h: int, w: int, c: int, generator: torch.Generator | None = None,
                    device: torch.device | str = "cuda") -> torch.Tensor:
-    """A dense conv1 patch operand for `matmul_only`: (b, h, w, 9 * c/2)
-    bf16 normal draws from `generator` (a CPU generator)."""
+    """A dense conv1 patch operand for `matmul_only`: (b, h, w,
+    padded(9 * c/2)) bf16, normal draws from `generator` (a CPU generator)
+    in the first 9 * c/2 columns, the pad zero, as the GEMM core reads
+    staged patches."""
     p = torch.randn(b, h, w, 9 * (c // 2), generator=generator)
-    return p.to(fs.COUPLING_DTYPE).to(device)
+    return fs._pad_cols(p.to(fs.COUPLING_DTYPE)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -125,18 +128,19 @@ def _net_parts(z1: torch.Tensor, weights, dtype: torch.dtype, conv1_tap: str | N
                conv3_tap: str, patches: torch.Tensor | None):
     """The coupling net f() as `fs._net_parts` computes it, its conv1 taps
     read as `conv1_tap` says (None: `patches` as they are), its zero-conv
-    taps as `conv3_tap` says: NHWC z1 -> (p1, h1, h2, out (B, H, W, cout))."""
+    taps as `conv3_tap` says: NHWC z1 -> (p1 with padded columns, h1, h2,
+    out (B, H, W, cout))."""
     _, _, _, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3 = weights
     b, h, w, _ = z1.shape
     cout = w3.shape[0] // 9
     z1 = z1.float()
     if conv1_tap is not None:
-        p1 = torch.cat(_gather(z1, conv1_tap), dim=-1).to(dtype).float()
+        p1 = fs._pad_cols(torch.cat(_gather(z1, conv1_tap), dim=-1).to(dtype)).float()
     elif patches is None:
         raise ValueError("matmul_only reads staged patches (`staged_patches`); none given")
     else:
         p1 = patches.to(dtype).float()
-    a = p1 @ w1.float().T
+    a = p1 @ fs.padded_w1(w1).float().T
     a = (a + a1b.view(-1)) * torch.exp(a1l.view(-1))
     h1 = torch.relu(a).to(dtype).float()
     a = h1 @ w2.float().T
@@ -326,7 +330,7 @@ def _check(direction: str, variant: str, table: dict, weights, z: torch.Tensor,
         raise NotImplementedError(f"the anatomy chains run whole batches; {tuple(z.shape)} "
                                   "takes row bands")
     if variant == "matmul_only":
-        want = (b, h, w, 9 * (c // 2))
+        want = (b, h, w, fs.padded(9 * (c // 2)))
         if (patches is None or tuple(patches.shape) != want or patches.dtype != torch.bfloat16
                 or patches.device != z.device or not patches.is_contiguous()):
             raise ValueError(f"matmul_only takes contiguous staged patches {want} bf16 on "
@@ -339,11 +343,11 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _key(direction: str, weights, z: torch.Tensor) -> tuple:
-    """What a launch's buffers depend on: the backward's hold the
-    transposes of w1, w2 and w3."""
-    key = (direction, tuple(z.shape), weights[3].shape[0], z.device)
+    """What a launch's buffers depend on: they hold the padded copy of w1
+    and the backward's the transposes of w1, w2 and w3."""
+    key = (direction, tuple(z.shape), weights[3].shape[0], z.device, weights[3].data_ptr())
     if direction == "backward":
-        key += tuple(weights[i].data_ptr() for i in (3, 6, 9))
+        key += tuple(weights[i].data_ptr() for i in (6, 9))
     return key
 
 
@@ -355,6 +359,7 @@ def make_buffers(direction: str, weights, z: torch.Tensor) -> dict:
     b, h, w, c = z.shape
     m, hidden, dev = b * h * w, weights[3].shape[0], z.device
     key = _key(direction, weights, z)
+    kernel_weights = fs._kernel_weights(weights)
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(*shape, dtype=dtype, device=dev)
@@ -362,11 +367,14 @@ def make_buffers(direction: str, weights, z: torch.Tensor) -> dict:
     if direction == "backward":
         tile = bwd_tile_batch(b, h, w, c, hidden) * h * w
         nbytes = _build.library().glow_anatomy_bwd_workspace(b, h, w, c, hidden, tile)
-        return {"key": key, "g_z": torch.empty_like(z, dtype=torch.float32),
+        return {"key": key, "weights": kernel_weights,
+                "g_z": torch.empty_like(z, dtype=torch.float32),
                 "grads": [empty(*wt.shape) for wt in weights],
                 "transposed": fs.transposed_weights(weights),
                 "workspace": empty(nbytes, dtype=torch.uint8)}
-    bufs = {"key": key, "out": torch.empty_like(z, dtype=torch.float32),
+    bufs = {"key": key, "weights": kernel_weights,
+            "out": torch.empty_like(z, dtype=torch.float32),
+            "p1": empty(m, fs.padded(9 * (c // 2)), dtype=torch.bfloat16),
             "h1": empty(m, hidden, dtype=torch.bfloat16),
             "h2": empty(m, hidden, dtype=torch.bfloat16), "y": empty(m, 9 * c)}
     if direction == "forward":
@@ -394,9 +402,9 @@ def _launch_forward(variant: str, weights, z: torch.Tensor, patches, bufs):
     with torch.cuda.device(z.device):
         status = lib.glow_anatomy_forward(
             list(FORWARD).index(variant), b, h, w, c, hidden, z.data_ptr(),
-            *(wt.data_ptr() for wt in weights), _ptr(patches), bufs["out"].data_ptr(),
-            bufs["ld"].data_ptr(), bufs["h1"].data_ptr(), bufs["h2"].data_ptr(),
-            bufs["y"].data_ptr(), fs._stream(z.device))
+            *(wt.data_ptr() for wt in bufs["weights"]), _ptr(patches), bufs["out"].data_ptr(),
+            bufs["ld"].data_ptr(), bufs["p1"].data_ptr(), bufs["h1"].data_ptr(),
+            bufs["h2"].data_ptr(), bufs["y"].data_ptr(), fs._stream(z.device))
     _build.check(lib, status, f"glow_anatomy_forward ({variant})")
     launches["anatomy_forward"] += 1
     return bufs["out"], bufs["ld"]
@@ -411,9 +419,9 @@ def _launch_reverse(variant: str, weights, z: torch.Tensor, patches, bufs):
     with torch.cuda.device(z.device):
         status = lib.glow_anatomy_reverse(
             list(REVERSE).index(variant), b, h, w, c, hidden, z.data_ptr(),
-            *(wt.data_ptr() for wt in weights), _ptr(patches), bufs["out"].data_ptr(),
-            bufs["h1"].data_ptr(), bufs["h2"].data_ptr(), bufs["y"].data_ptr(),
-            bufs["tmp"].data_ptr(), fs._stream(z.device))
+            *(wt.data_ptr() for wt in bufs["weights"]), _ptr(patches), bufs["out"].data_ptr(),
+            bufs["p1"].data_ptr(), bufs["h1"].data_ptr(), bufs["h2"].data_ptr(),
+            bufs["y"].data_ptr(), bufs["tmp"].data_ptr(), fs._stream(z.device))
     _build.check(lib, status, f"glow_anatomy_reverse ({variant})")
     launches["anatomy_reverse"] += 1
     return bufs["out"]
@@ -439,7 +447,8 @@ def _launch_backward(variant: str, weights, z: torch.Tensor, g_zn: torch.Tensor,
     with torch.cuda.device(z.device):
         status = lib.glow_anatomy_backward(
             list(BACKWARD).index(variant), b, h, w, c, hidden, tile, z.data_ptr(),
-            *(wt.data_ptr() for wt in weights), *(t.data_ptr() for t in bufs["transposed"]),
+            *(wt.data_ptr() for wt in bufs["weights"]),
+            *(t.data_ptr() for t in bufs["transposed"]),
             g_zn.data_ptr(), g_ld.data_ptr(), _ptr(patches), bufs["g_z"].data_ptr(),
             *(g.data_ptr() for g in bufs["grads"]), bufs["workspace"].data_ptr(),
             fs._stream(z.device))

@@ -9,9 +9,13 @@ Counterpart of the non-kernel parts of `pytorch_glow_tpu/ops/flowstep_pallas.py`
 `_fused_step_reverse`).  `csrc/flowstep.cu` replaces that module's
 `_make_kernel` (reverse=False and reverse=True), `csrc/flowstep_bwd.cu` its
 `_make_bwd_kernel`, `csrc/flowstep_band.cu` its `_make_kernel_halo` and
-`csrc/flowstep_band_bwd.cu` its `_make_bwd_kernel_halo`.  The two backward
-chains run their six gradient products on one wgmma/TMA GEMM core
-(`csrc/gemm_sm90.cuh`), which `gemm_core` exposes alone for checking.
+`csrc/flowstep_band_bwd.cu` its `_make_bwd_kernel_halo`.  Every chain runs
+the coupling net's three products (conv1 on staged patches, conv2 and conv3)
+and the backward's six gradient products on one wgmma/TMA GEMM core
+(`csrc/gemm_sm90.cuh`), which `gemm_core` exposes alone for checking.  The
+core reads rows a multiple of 16 bytes apart: the chains stage conv1's
+patches with `padded` columns and read the wrapper's padded copy of w1
+(`padded_w1`), so hidden must be a multiple of 8 (`supported`).
 
 Layout: the port keeps NHWC at its public functions, which is already
 pixel-major; the kernels take the (B*H*W, C) view of it.
@@ -161,14 +165,18 @@ def bwd_workspace_bytes(m: int, c: int, hidden: int, affine: bool) -> int:
     return sum(_align(m * n) for n in per_pixel) + sum(_align(n) for n in partials)
 
 
+def _net_bytes(m: int, c: int, hidden: int, affine: bool) -> int:
+    """The coupling net's staging over m pixels: conv1's patches p1 (bf16,
+    padded rows), h1 and h2 (bf16) and the tap-packed y (f32)."""
+    return m * (2 * padded(9 * (c // 2)) + 4 * hidden + 36 * _cout(c, affine))
+
+
 def _staging_bytes(direction: str, m: int, c: int, hidden: int, affine: bool) -> int:
-    """Device staging of one whole-chain launch over m pixels: h1, h2 and
-    the tap-packed y (and the reverse's scratch), or the backward's
-    workspace."""
+    """Device staging of one whole-chain launch over m pixels: the net's
+    (and the reverse's scratch), or the backward's workspace."""
     if direction == "backward":
         return bwd_workspace_bytes(m, c, hidden, affine)
-    nbytes = m * (4 * hidden + 36 * _cout(c, affine))
-    return nbytes + (4 * m * c if direction == "reverse" else 0)
+    return _net_bytes(m, c, hidden, affine) + (4 * m * c if direction == "reverse" else 0)
 
 
 def _band_staging_bytes(direction: str, g: int, r: int, w: int, c: int, hidden: int,
@@ -182,13 +190,18 @@ def _band_staging_bytes(direction: str, g: int, r: int, w: int, c: int, hidden: 
     ext = 4 * me * c
     if direction == "backward":
         return bwd_workspace_bytes(me, c, hidden, affine) + 3 * _align(ext)
-    nbytes = me * (4 * hidden + 36 * _cout(c, affine)) + ext
+    nbytes = _net_bytes(me, c, hidden, affine) + ext
     return nbytes + (ext if direction == "forward" else 4 * g * r * w * c)
+
+
+def _width(c: int, hidden: int, affine: bool) -> int:
+    """The widest per-pixel row a chain indexes: h1, y or gy (padded), z."""
+    return max(hidden, padded(9 * _cout(c, affine)), c)
 
 
 def _fits_int32(m: int, c: int, hidden: int, affine: bool) -> bool:
     """The chains index their per-pixel buffers in 32 bits."""
-    return m * max(hidden, 9 * _cout(c, affine), c) < 2**31
+    return m * _width(c, hidden, affine) < 2**31
 
 
 def band_rows(h: int, w: int) -> int:
@@ -206,7 +219,7 @@ def bands_per_launch(direction: str, b: int, h: int, w: int, c: int, hidden: int
     """G: how many (R+4)-row extended bands one band-chain launch stages
     within STAGING_BUDGET_BYTES and 32-bit indexing (at least one)."""
     r = band_rows(h, w)
-    index_cap = (2**31 - 1) // ((r + 4) * w * max(hidden, 9 * _cout(c, affine), c))
+    index_cap = (2**31 - 1) // ((r + 4) * w * _width(c, hidden, affine))
     lo, hi = 1, max(1, min(b * (h // r), index_cap))
     while lo < hi:  # the largest g whose staging fits (staging grows with g)
         mid = (lo + hi + 1) // 2
@@ -222,9 +235,7 @@ def tiling(direction: str, b: int, h: int, w: int, c: int, hidden: int,
     """"whole" when the whole-batch chain's staging fits STAGING_BUDGET_BYTES
     and its indices fit in int32, else "band".  direction: "forward",
     "reverse" or "backward".  Raises for a shape no tiling takes."""
-    if not supported(h, w, c, hidden, affine, b):
-        raise NotImplementedError(
-            f"no flow-step kernel tiling takes (b={b}, h={h}, w={w}, c={c}, hidden={hidden})")
+    _require_supported(b, h, w, c, hidden, affine)
     m = b * h * w
     whole = _fits_int32(m, c, hidden, affine)
     if whole and _staging_bytes(direction, m, c, hidden, affine) <= STAGING_BUDGET_BYTES:
@@ -234,12 +245,22 @@ def tiling(direction: str, b: int, h: int, w: int, c: int, hidden: int,
 
 def supported(h: int, w: int, c: int, hidden: int, affine: bool = True,
               b: int | None = None) -> bool:
-    """Shapes some tiling takes: an even channel count, and 32-bit indices
-    over the whole batch or over one extended band."""
-    if c < 2 or c % 2 or hidden < 1 or h < 1 or w < 1:
+    """Shapes some tiling takes: an even channel count, hidden a multiple of
+    8 (the GEMM core's TMA reads h1 and h2 rows a multiple of 16 bytes
+    apart), and 32-bit indices over the whole batch or over one extended
+    band."""
+    if c < 2 or c % 2 or hidden < 8 or hidden % 8 or h < 1 or w < 1:
         return False
     return (_fits_int32((b or 1) * h * w, c, hidden, affine)
             or _fits_int32((band_rows(h, w) + 4) * w, c, hidden, affine))
+
+
+def _require_supported(b: int, h: int, w: int, c: int, hidden: int, affine: bool) -> None:
+    if not supported(h, w, c, hidden, affine, b):
+        raise NotImplementedError(
+            f"no flow-step kernel tiling takes (b={b}, h={h}, w={w}, c={c}, hidden={hidden}): "
+            f"it needs an even c, hidden a multiple of 8, and the whole batch or one "
+            f"{band_rows(h, w)}-row band with its halo to index in 32 bits")
 
 
 # ---------------------------------------------------------------------------
@@ -302,17 +323,16 @@ def _shift_back(x: torch.Tensor, k: int) -> torch.Tensor:
 def _net_parts(z1: torch.Tensor, weights, dtype: torch.dtype, valid: torch.Tensor | None = None):
     """The coupling net f() as the kernel computes it, with its
     intermediates: NHWC z1 (f32) -> (p1, h1, h2, out (B, H, W, cout) f32).
-    `valid` (B, H) marks the rows inside the true image (staged bands): the
-    taps read rows outside it as zero."""
+    Conv1 reads the GEMM core's layout: the staged patches and w1 with
+    `padded` columns, the pad zero (`stage_patches_ref`, `padded_w1`); p1
+    comes back without its pad.  `valid` (B, H) marks the rows inside the
+    true image (staged bands): the taps read rows outside it as zero."""
     _, _, _, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3 = weights
     b, h, w, _ = z1.shape
     cout = w3.shape[0] // 9
-    z1 = z1.float()
-    if valid is not None:
-        rows = valid[..., None, None]
-        z1 = torch.where(rows, z1, 0.0)
-    p1 = torch.cat(_taps(z1), dim=-1).to(dtype).float()
-    a = p1 @ w1.float().T
+    rows = None if valid is None else valid[..., None, None]
+    p1 = stage_patches_ref(z1, dtype, valid).float()
+    a = p1 @ padded_w1(w1).float().T
     a = (a + a1b.view(-1)) * torch.exp(a1l.view(-1))
     h1 = torch.relu(a).to(dtype).float()
     a = h1 @ w2.float().T
@@ -324,18 +344,29 @@ def _net_parts(z1: torch.Tensor, weights, dtype: torch.dtype, valid: torch.Tenso
     acc = torch.zeros(b, h, w, cout, dtype=torch.float32, device=z1.device)
     for k, tap in enumerate(_taps(y)):
         acc = acc + tap[..., k * cout:(k + 1) * cout]
-    return p1, h1, h2, (acc + b3.view(-1)) * torch.exp(l3.view(-1) * 3.0)
+    out = (acc + b3.view(-1)) * torch.exp(l3.view(-1) * 3.0)
+    return p1[..., :w1.shape[1]], h1, h2, out
 
 
 def _pad_cols(x: torch.Tensor) -> torch.Tensor:
-    """x with its last dimension zero-padded to `padded` columns."""
-    return F.pad(x, (0, padded(x.shape[-1]) - x.shape[-1]))
+    """x with its last dimension zero-padded to `padded` columns (x itself
+    where it has them)."""
+    pad = padded(x.shape[-1]) - x.shape[-1]
+    return F.pad(x, (0, pad)) if pad else x
+
+
+def padded_w1(w1: torch.Tensor) -> torch.Tensor:
+    """Conv1's packed weight (hidden, 9*ch) as the GEMM core reads it: rows
+    of `padded(9*ch)` columns, the pad zero (at ch = 6 a row of 54 bf16 is
+    108 bytes, which TMA cannot stride).  `pack_weights` keeps the JAX
+    kernel's (hidden, 9*ch)."""
+    return _pad_cols(w1)
 
 
 def stage_patches_ref(z1: torch.Tensor, dtype: torch.dtype = COUPLING_DTYPE,
                       valid: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain version of the backward chain's patch staging
-    (csrc/flowstep_bwd_common.cuh `stage_patches_kernel`): NHWC z1 ->
+    """The plain version of the chains' patch staging
+    (csrc/flowstep_common.cuh `stage_patches_kernel`): NHWC z1 ->
     conv1's patches (B, H, W, padded(9 * ch)) in `dtype`, tap k = 3*dy + dx
     masked at the image border (and, with `valid`, on rows outside the true
     image), the pad columns zero."""
@@ -611,13 +642,14 @@ def _check_operands(weights, z: torch.Tensor, affine: bool) -> tuple[int, int]:
             )
         if not wt.is_contiguous():
             raise ValueError(f"packed weight {i} is not contiguous")
-    if not supported(h, w, c, hidden, affine, b):
-        raise NotImplementedError(
-            f"no flow-step kernel tiling takes (b={b}, h={h}, w={w}, c={c}, hidden={hidden}): "
-            f"neither the whole batch nor one {band_rows(h, w)}-row band with its halo "
-            f"indexes in 32 bits"
-        )
+    _require_supported(b, h, w, c, hidden, affine)
     return hidden, cout
+
+
+def _kernel_weights(weights) -> list[torch.Tensor]:
+    """The 12 packed weights as the C entries take them: w1 padded
+    (`padded_w1`)."""
+    return [*weights[:3], padded_w1(weights[3]), *weights[4:]]
 
 
 def _stream(dev: torch.device) -> int:
@@ -633,6 +665,7 @@ def _launch(weights, z: torch.Tensor, affine: bool, reverse: bool):
     dev = z.device
     out = torch.empty_like(z)
     ld = torch.empty(b, dtype=torch.float32, device=dev)
+    p1 = torch.empty(m, padded(9 * (c // 2)), dtype=torch.bfloat16, device=dev)
     h1 = torch.empty(m, hidden, dtype=torch.bfloat16, device=dev)
     h2 = torch.empty(m, hidden, dtype=torch.bfloat16, device=dev)
     y = torch.empty(m, 9 * cout, dtype=torch.float32, device=dev)
@@ -640,8 +673,8 @@ def _launch(weights, z: torch.Tensor, affine: bool, reverse: bool):
     with torch.cuda.device(dev):
         status = lib.glow_flowstep(
             int(reverse), int(affine), b, h, w, c, hidden,
-            z.data_ptr(), *(wt.data_ptr() for wt in weights),
-            out.data_ptr(), ld.data_ptr(), h1.data_ptr(), h2.data_ptr(),
+            z.data_ptr(), *(wt.data_ptr() for wt in _kernel_weights(weights)),
+            out.data_ptr(), ld.data_ptr(), p1.data_ptr(), h1.data_ptr(), h2.data_ptr(),
             y.data_ptr(), tmp.data_ptr(), _stream(dev),
         )
     _build.check(lib, status, "glow_flowstep")
@@ -668,6 +701,7 @@ def _launch_band(weights, z: torch.Tensor, affine: bool, reverse: bool):
     ld = torch.empty(b, dtype=torch.float32, device=dev)
     zext = scratch(me, c)
     v = zext if reverse else scratch(me, c)
+    p1 = scratch(me, padded(9 * (c // 2)), torch.bfloat16)
     h1, h2 = scratch(me, hidden, torch.bfloat16), scratch(me, hidden, torch.bfloat16)
     y = scratch(me, 9 * cout)
     tmp = scratch(g * r * w, c) if reverse else out
@@ -675,9 +709,10 @@ def _launch_band(weights, z: torch.Tensor, affine: bool, reverse: bool):
     with torch.cuda.device(dev):
         status = lib.glow_flowstep_band(
             int(reverse), int(affine), b, h, w, c, hidden, r, g,
-            z.data_ptr(), *(wt.data_ptr() for wt in weights),
-            out.data_ptr(), ld.data_ptr(), zext.data_ptr(), v.data_ptr(), h1.data_ptr(),
-            h2.data_ptr(), y.data_ptr(), tmp.data_ptr(), ld_band.data_ptr(), _stream(dev),
+            z.data_ptr(), *(wt.data_ptr() for wt in _kernel_weights(weights)),
+            out.data_ptr(), ld.data_ptr(), zext.data_ptr(), v.data_ptr(), p1.data_ptr(),
+            h1.data_ptr(), h2.data_ptr(), y.data_ptr(), tmp.data_ptr(), ld_band.data_ptr(),
+            _stream(dev),
         )
     _build.check(lib, status, "glow_flowstep_band")
     launches["band_" + direction] += 1
@@ -705,9 +740,6 @@ def _backward_operands(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch
                          f"z {tuple(z.shape)}")
     if g_zn.device != z.device or g_ld.device != z.device:
         raise ValueError("the cotangents must lie on z's device")
-    if hidden % 8:
-        raise NotImplementedError(f"the backward kernels' GEMM core reads rows of a multiple of "
-                                  f"16 bytes: hidden must be a multiple of 8, got {hidden}")
     z = z.contiguous()
     grads = [torch.empty(wt.shape, dtype=torch.float32, device=z.device) for wt in weights]
     return (hidden, z, g_zn.float().contiguous(), g_ld.float().contiguous(),
@@ -726,7 +758,7 @@ def _launch_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.T
     with torch.cuda.device(dev):
         status = lib.glow_flowstep_bwd(
             int(affine), b, h, w, c, hidden,
-            z.data_ptr(), *(wt.data_ptr() for wt in weights),
+            z.data_ptr(), *(wt.data_ptr() for wt in _kernel_weights(weights)),
             *(wt.data_ptr() for wt in transposed), g_zn.data_ptr(), g_ld.data_ptr(),
             g_z.data_ptr(), *(g.data_ptr() for g in grads), workspace.data_ptr(), _stream(dev),
         )
@@ -750,7 +782,7 @@ def _launch_band_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: to
     with torch.cuda.device(dev):
         status = lib.glow_flowstep_band_bwd(
             int(affine), b, h, w, c, hidden, r, g,
-            z.data_ptr(), *(wt.data_ptr() for wt in weights),
+            z.data_ptr(), *(wt.data_ptr() for wt in _kernel_weights(weights)),
             *(wt.data_ptr() for wt in transposed), g_zn.data_ptr(), g_ld.data_ptr(),
             g_z.data_ptr(), *(gr.data_ptr() for gr in grads), workspace.data_ptr(), _stream(dev),
         )
@@ -760,24 +792,33 @@ def _launch_band_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: to
 
 
 def gemm_core_ref(a: torch.Tensor, b: torch.Tensor, trans: bool, m: int, n: int,
-                  k: int) -> torch.Tensor:
-    """The plain version of the backward chain's GEMM core (csrc/gemm_sm90.cu
+                  k: int, actnorm: tuple[torch.Tensor, torch.Tensor] | None = None
+                  ) -> torch.Tensor:
+    """The plain version of the chains' GEMM core (csrc/gemm_sm90.cu
     `glow_gemm_sm90`): the f32 product of two bf16 operands with padded rows.
-    trans False: a (m, >= k), b (n, >= k) -> a[:, :k] b[:, :k]^T (the data
-    gradients' order); trans True: a (k, >= m), b (k, >= n) ->
-    a[:, :m]^T b[:, :n] (the weight gradients')."""
+    trans False: a (m, >= k), b (n, >= k) -> a[:, :k] b[:, :k]^T (the
+    coupling net's and the data gradients' order); trans True: a (k, >= m),
+    b (k, >= n) -> a[:, :m]^T b[:, :n] (the weight gradients').  With
+    `actnorm` = (bias, logs), each (n,) f32 (trans False only), the conv
+    epilogue: bf16(relu((product + bias) * e^logs))."""
     if trans:
         return a[:, :m].float().T @ b[:, :n].float()
-    return a[:, :k].float() @ b[:, :k].float().T
+    out = a[:, :k].float() @ b[:, :k].float().T
+    if actnorm is None:
+        return out
+    bias, logs = (t.reshape(-1).float() for t in actnorm)
+    return torch.relu((out + bias) * torch.exp(logs)).to(torch.bfloat16)
 
 
 def gemm_core(a: torch.Tensor, b: torch.Tensor, trans: bool, m: int, n: int,
-              k: int) -> torch.Tensor:
+              k: int, actnorm: tuple[torch.Tensor, torch.Tensor] | None = None
+              ) -> torch.Tensor:
     """The GEMM core alone, as `gemm_core_ref` computes it: the plain
     version for CPU tensors, the wgmma/TMA kernel for CUDA tensors (rows a
-    multiple of 8 columns long), or raises."""
+    multiple of 8 columns long; with `actnorm`, n a multiple of 8), or
+    raises."""
     if a.device.type == "cpu":
-        return gemm_core_ref(a, b, trans, m, n, k)
+        return gemm_core_ref(a, b, trans, m, n, k, actnorm)
     want = ((k, m), (k, n)) if trans else ((m, k), (n, k))
     for name, t, (rows, cols) in (("a", a, want[0]), ("b", b, want[1])):
         if (t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.dim() != 2
@@ -787,6 +828,19 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, trans: bool, m: int, n: int,
                              f"{cols}) tensor with a multiple of 8 columns, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     lib = _build.library()
+    if actnorm is not None:
+        bias, logs = actnorm
+        if trans or n % 8 or any(t.shape != (n,) or t.dtype != torch.float32
+                                 or t.device != a.device for t in actnorm):
+            raise ValueError(f"gemm_core actnorm: the (m, k) . (n, k)^T order with n a multiple "
+                             f"of 8 and (n,) f32 bias and logs on {a.device}")
+        out = torch.empty(m, n, dtype=torch.bfloat16, device=a.device)
+        with torch.cuda.device(a.device):
+            status = lib.glow_gemm_sm90_actnorm_relu(
+                m, n, k, a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1], bias.data_ptr(),
+                logs.data_ptr(), out.data_ptr(), _stream(a.device))
+        _build.check(lib, status, "glow_gemm_sm90_actnorm_relu")
+        return out
     out = torch.empty(m, n, dtype=torch.float32, device=a.device)
     workspace = torch.empty(lib.glow_gemm_sm90_workspace(int(trans), m, n, k), dtype=torch.uint8,
                             device=a.device)

@@ -26,6 +26,13 @@ HIDDEN = 512
 # bf16 operations per pixel of the coupling net's three products: conv1
 # (K = 9 * C/2), conv2 (K = HIDDEN) and the tap-packed conv3 (N = 9 * C).
 CONV1_OPS, CONV2_OPS, CONV3_OPS = (2 * HIDDEN * k for k in (9 * C // 2, HIDDEN, 9 * C))
+# The wgmma/TMA GEMM core's kernel (csrc/gemm_sm90.cuh), and the coupling
+# net's launches in order (csrc/flowstep_common.cuh `launch_net`) as
+# `chain_split` lists them: the patch staging, then the three products.
+CORE = "sm90::gemm_kernel"
+NET = [("stage_patches_kernel", "conv1 patch staging", 0),
+       (CORE, "conv1 GEMM (staged patches)", CONV1_OPS), (CORE, "conv2 GEMM", CONV2_OPS),
+       (CORE, "conv3 GEMM (tap-packed)", CONV3_OPS)]
 # direction: (its variants in order, its launch)
 VARIANTS = {"forward": (anatomy.FORWARD, anatomy.forward_variant),
             "reverse": (anatomy.REVERSE, anatomy.reverse_variant),

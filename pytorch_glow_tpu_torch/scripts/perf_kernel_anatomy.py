@@ -12,8 +12,8 @@ wrong math, for attribution only):
   no_logdet    no log_sigmoid sum: ld = 0
   no_masks     3x3 taps read pixel (m + off) mod M, no border test
   no_rolls     taps read pixel m (the zero-conv keeps its masks)
-  matmul_only  conv1 reads a staged dense patch tensor; the zero-conv sums
-               its 9 taps at pixel m
+  matmul_only  conv1 reads a given dense patch tensor (no patch staging);
+               the zero-conv sums its 9 taps at pixel m
 
 Each row: the variant's us per call, its share of the bound (bf16 products
 at 989 TFLOP/s, f32 mix at 67 TFLOP/s, bytes at 3.35 TB/s:
@@ -27,10 +27,7 @@ from __future__ import annotations
 from pytorch_glow_tpu_torch.scripts import _anatomy as A
 
 # (kernel, label, bf16 operations per pixel): the chain's launches in order.
-CHAIN = [("mix_kernel", "mix", 0), ("gemm_kernel", "conv1 GEMM (im2col)", A.CONV1_OPS),
-         ("gemm_kernel", "conv2 GEMM", A.CONV2_OPS),
-         ("gemm_kernel", "conv3 GEMM (tap-packed)", A.CONV3_OPS),
-         ("coupling_kernel", "coupling + logdet", 0)]
+CHAIN = [("mix_kernel", "mix", 0), *A.NET, ("coupling_kernel", "coupling + logdet", 0)]
 
 
 def main(batch: int | None = None, n1: int | None = None, n2: int | None = None) -> dict:

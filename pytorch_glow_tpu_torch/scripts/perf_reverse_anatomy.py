@@ -14,8 +14,8 @@ attribution only):
                   the input (no z1 copy)
   no_div       A  z2 * s - shift
   no_mix       A  no W^-1 mix and actnorm inverse
-  matmul_only  A  conv1 reads a staged dense patch tensor; the zero-conv
-                  sums its 9 taps at pixel m
+  matmul_only  A  conv1 reads a given dense patch tensor (no patch
+                  staging); the zero-conv sums its 9 taps at pixel m
 
 A C variant that beats `full` is a candidate edit for K2, to be A/B'd in
 the production kernel before it is applied.  Rows as in
@@ -28,10 +28,7 @@ from __future__ import annotations
 from pytorch_glow_tpu_torch.scripts import _anatomy as A
 
 # (kernel, label, bf16 operations per pixel): the chain's launches in order.
-CHAIN = [("gemm_kernel", "conv1 GEMM (im2col)", A.CONV1_OPS),
-         ("gemm_kernel", "conv2 GEMM", A.CONV2_OPS),
-         ("gemm_kernel", "conv3 GEMM (tap-packed)", A.CONV3_OPS),
-         ("coupling_kernel", "coupling inverse", 0),
+CHAIN = [*A.NET, ("coupling_kernel", "coupling inverse", 0),
          ("mix_kernel", "W^-1 mix + actnorm inverse", 0)]
 
 

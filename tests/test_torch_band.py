@@ -90,8 +90,9 @@ def test_chooser_celebahq256_at_b64():
     for i, (h, w, c) in enumerate(shapes):
         got = tuple(tfs.tiling(d, 64, h, w, c, 512, affine) for d in ("forward", "reverse", "backward"))
         assert got == want.get(i, ("whole",) * 3), (i, got)
-    # Level 1: about 0.65 GB staged forward, about 1.48 GB backward.
-    assert 0.6e9 < tfs._staging_bytes("forward", 64 * 64 * 64, 24, 512, False) < 0.7e9
+    # Level 1: about 0.71 GB staged forward (conv1's padded patches p1
+    # included), about 1.48 GB backward.
+    assert 0.65e9 < tfs._staging_bytes("forward", 64 * 64 * 64, 24, 512, False) < 0.75e9
     assert 1.4e9 < tfs.bwd_workspace_bytes(64 * 64 * 64, 24, 512, False) < 1.6e9
     assert tfs.band_rows(128, 128) == 32 and tfs.band_rows(64, 64) == 64
     for direction in ("forward", "reverse", "backward"):
@@ -99,6 +100,22 @@ def test_chooser_celebahq256_at_b64():
         assert 1 < g < 256
         assert tfs._band_staging_bytes(direction, g, 32, 128, 12, 512, False) <= GIB
         assert tfs._band_staging_bytes(direction, g + 1, 32, 128, 12, 512, False) > GIB
+
+
+@pytest.mark.parametrize("affine,want", [(False, (94, 94, 44)), (True, (86, 86, 41))])
+def test_chooser_band_groups_at_celebahq256_level0(affine, want):
+    """G at 128x128x12, b=64 (R = 32, 36 x 128 staged pixels a band): the
+    forward and reverse stage conv1's patches p1 (2 * padded(54) = 112 bytes
+    a pixel), 516,096 bytes a band, so G is 94 additive (was 98) and 86
+    affine (was 90); the backward's workspace already held p1."""
+    got = tuple(tfs.bands_per_launch(d, 64, 128, 128, 12, 512, affine)
+                for d in ("forward", "reverse", "backward"))
+    assert got == want
+    per_pixel = 4 * 512 + 36 * (12 if affine else 6)  # h1, h2, y
+    assert tfs._net_bytes(36 * 128, 12, 512, affine) - 36 * 128 * per_pixel == 516_096
+    for direction, g in zip(("forward", "reverse"), want):
+        assert tfs._band_staging_bytes(direction, g, 32, 128, 12, 512, affine) <= GIB
+        assert tfs._band_staging_bytes(direction, g + 1, 32, 128, 12, 512, affine) > GIB
 
 
 def test_chooser_b256_at_128x128_takes_bands_and_32bit_limits():
@@ -186,6 +203,32 @@ def test_band_backward_adds_nothing_across_images(small_bands):
         g_z, _ = tfs.step_backward_band_ref(wf, z, gzn, gld, True)
     assert torch.equal(g_z[0], torch.zeros_like(g_z[0])) and torch.equal(g_z[2], torch.zeros_like(g_z[2]))
     assert float(g_z[1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("mode", ["affine", "additive"])
+def test_band_forward_patches_mask_dirty_rows_outside_the_image(small_bands, mode):
+    """A band group's mixed z is not zero on rows outside the image (the
+    mix adds the actnorm bias to the staged zeros, and the kernel's scratch
+    is never cleared): conv1's staged patches, h1, h2 and f() there equal
+    those of the zeroed rows, and the patches equal the band reference's
+    masked taps, the pad columns zero.  Without the mask they differ."""
+    affine = mode == "affine"
+    step = _noisy_step(12, mode, seed=4)
+    z = torch.from_numpy(_z(SHAPE, 8))
+    ext, valid = tfs._band_regions(z, tfs.band_rows(32, 32), 2, 4)  # image 0's last two bands
+    assert not valid.all() and valid.any()
+    dirty = torch.where(valid[..., None, None], ext, 3.0)[..., :6]
+    with torch.no_grad():
+        weights = tfs.pack_weights(step, affine, False)
+        got = tfs._net_parts(dirty, weights, torch.bfloat16, valid)
+        want = tfs._net_parts(ext[..., :6], weights, torch.bfloat16, valid)
+        staged = tfs.stage_patches_ref(dirty, torch.bfloat16, valid)
+        unmasked = tfs._net_parts(dirty, weights, torch.bfloat16)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(staged, tfs.stage_patches_ref(ext[..., :6], torch.bfloat16))
+    assert torch.equal(staged[..., :54].float(), got[0]) and not staged[..., 54:].any()
+    assert not torch.equal(unmasked[0], got[0])
 
 
 def test_step_entries_route_by_tiling_on_cpu(small_bands):

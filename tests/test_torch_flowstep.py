@@ -140,6 +140,68 @@ def test_kernel_launch_raises_on_cpu_tensor(reverse):
         tfs._launch(tfs.pack_weights(step, True, reverse), z, True, reverse)
 
 
+@pytest.mark.parametrize("mode", ["affine", "additive"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_padded_conv1_layout_matches_unpadded_and_jax_kernel(monkeypatch, f32_coupling, mode,
+                                                              reverse):
+    """The plain step reads conv1 as the GEMM core does: staged patches
+    and w1 with `padded` columns, the pad zero (c = 6: 27 columns padded to
+    32).  It agrees with the JAX kernel (`_make_kernel` in interpret mode)
+    at f32 coupling, atol 1e-5, and with no padding at all it gives the
+    same outputs, atol 1e-6."""
+    affine = mode == "affine"
+    sp, step = _pair(6, mode, seed=2)
+    z = _z((3, 5, 7, 6), seed=4)
+    weights = tfs.pack_weights(step, affine, reverse, coupling_dtype=f32_coupling)
+    assert tfs.padded_w1(weights[3]).shape == (32, 32)
+
+    def port():
+        with torch.no_grad():
+            if reverse:
+                return (tfs.step_reverse_ref(weights, torch.from_numpy(z), affine, f32_coupling),)
+            return tfs.step_forward_ref(weights, torch.from_numpy(z), affine, f32_coupling)
+
+    got = port()
+    if reverse:
+        want = (fsp.step_reverse(sp, jnp.asarray(z), "lu", affine),)
+    else:
+        want = fsp.step_forward(sp, jnp.asarray(z), "lu", affine)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-6)
+    monkeypatch.setattr(tfs, "padded", lambda n: n)
+    for a, b in zip(got, port()):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("c", [4, 6, 12, 16])
+def test_padded_w1_zeros_its_pad(c):
+    """9 * ch = 18, 27, 54, 72 columns: padded to 24, 32, 56 with a zero
+    pad, and 72 taken as it is; the kernels' operand list swaps in that
+    copy and nothing else."""
+    _, step = _pair(c, "affine")
+    weights = tfs.pack_weights(step, True, False)
+    w1, n = weights[3], 9 * (c // 2)
+    got = tfs.padded_w1(w1)
+    assert got.dtype == w1.dtype and got.shape == (w1.shape[0], tfs.padded(n))
+    assert got.shape[1] % 8 == 0 and got.is_contiguous()
+    assert torch.equal(got[:, :n], w1) and not got[:, n:].any()
+    assert (got is w1) == (n % 8 == 0)
+    kernel = tfs._kernel_weights(weights)
+    assert torch.equal(kernel[3], got)
+    assert all(a is b for i, (a, b) in enumerate(zip(kernel, weights)) if i != 3)
+
+
+@pytest.mark.parametrize("hidden", [4, 12, 20, 510])
+def test_supported_refuses_hidden_not_a_multiple_of_8(hidden):
+    """The GEMM core reads h1 and h2 rows through TMA, a multiple of 16
+    bytes apart: such a shape fails at the chooser, not inside a launch."""
+    assert tfs.supported(32, 32, 12, hidden - hidden % 8 or 8, True, b=64)
+    assert not tfs.supported(32, 32, 12, hidden, True, b=64)
+    for direction in ("forward", "reverse", "backward"):
+        with pytest.raises(NotImplementedError, match="no flow-step kernel tiling"):
+            tfs.tiling(direction, 64, 32, 32, 12, hidden)
+
+
 def test_supported_shapes():
     for h, w, c in [(32, 32, 12), (16, 16, 24), (8, 8, 48), (4, 4, 96), (5, 7, 6)]:
         assert tfs.supported(h, w, c, 512, True, b=64)

@@ -1,10 +1,11 @@
-"""The layouts around the backward chain's wgmma/TMA GEMM core
+"""The layouts around the flow-step chains' wgmma/TMA GEMM core
 (`csrc/gemm_sm90.cuh`), on the CPU: the plain version of the conv1 patch
 staging against the patches the coupling net's plain version reads (whole
 images and row bands), the padded operand layout against the unpadded one
-in `step_backward_ref`, and the core's plain version.  The kernels
-themselves run only on the card (chip_smoke.py phase 17 and the backward
-phases); the `cuda`-marked test here holds them when a card is present."""
+in `step_backward_ref`, and the core's plain version, with and without the
+coupling net's actnorm-ReLU epilogue.  The kernels themselves run only on
+the card (chip_smoke.py phase 17 and the kernel phases); the `cuda`-marked
+tests here hold them when a card is present."""
 
 import numpy as np
 import pytest
@@ -107,3 +108,46 @@ def test_gemm_core_matches_plain_version_on_the_card(trans):
     got = tfs.gemm_core(a, b, bool(trans), m, n, k)
     want = tfs.gemm_core_ref(a, b, bool(trans), m, n, k)
     assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+def _epilogue_operands(m, n, k, seed, device="cpu"):
+    """bf16 a (m, padded(k)) and b (n, padded(k)) with a pad the core must
+    not read, and f32 (n,) bias and logs about the coupling net's."""
+    gen = torch.Generator().manual_seed(seed)
+    a, b = (torch.full((rows, tfs.padded(k)), 3.0).to(torch.bfloat16) for rows in (m, n))
+    a[:, :k] = torch.randn(m, k, generator=gen)
+    b[:, :k] = torch.randn(n, k, generator=gen) / k ** 0.5
+    bias, logs = 0.5 * torch.randn(n, generator=gen), 0.2 * torch.randn(n, generator=gen)
+    return (t.to(device) for t in (a, b, bias, logs))
+
+
+@pytest.mark.parametrize("m,n,k", [(70, 32, 27), (9, 16, 512)])
+def test_gemm_core_actnorm_relu_plain_version(m, n, k):
+    """The conv epilogue's plain version: bf16(relu((a b^T + bias) e^logs))
+    of the unpadded operands in f32, whatever the pad holds; a CPU tensor
+    never reaches the kernel."""
+    a, b, bias, logs = _epilogue_operands(m, n, k, seed=m)
+    got = tfs.gemm_core(a, b, False, m, n, k, (bias, logs))
+    prod = a[:, :k].float() @ b[:, :k].float().T
+    want = torch.relu((prod + bias) * torch.exp(logs)).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert torch.equal(got, want) and bool((got == 0).any()) and bool((got > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(300, 512, 54), (1000, 512, 512), (90, 32, 72)])
+def test_gemm_core_actnorm_relu_matches_plain_version_on_the_card(m, n, k):
+    """The kernel's epilogue against its plain version: one bf16 rounding
+    (2^-8 of the value) plus twice the f32 sum-order bound (1e-5 of the
+    |a| |b| scale, times e^logs); a second launch bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the core on one")
+    a, b, bias, logs = _epilogue_operands(m, n, k, seed=7, device="cuda")
+    got = tfs.gemm_core(a, b, False, m, n, k, (bias, logs))
+    again = tfs.gemm_core(a, b, False, m, n, k, (bias, logs))
+    av, bv = a[:, :k].float(), b[:, :k].float()
+    want = torch.relu((av @ bv.T + bias) * torch.exp(logs))
+    scale = float((av.abs() @ bv.abs().T).max())
+    bound = 2.0 ** -8 * want.abs() + 2e-5 * scale * torch.exp(logs)
+    assert torch.equal(got, again)
+    assert bool(((got.float() - want).abs() <= bound).all())
