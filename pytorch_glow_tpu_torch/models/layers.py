@@ -129,12 +129,21 @@ def _random_lu(c: int, generator: torch.Generator | None):
 # (`ops/flowstep.pack_weights`) takes any of them through `matrix`.
 
 
+def _refresh_p_idx(module: "InvConv1x1LU", incompatible_keys) -> None:
+    with torch.no_grad():
+        module.p_idx.copy_(torch.argmax(module.p, dim=1))
+
+
 class InvConv1x1LU(nn.Module):
     """LU-parameterised invertible 1x1 conv; P is one-hot, P[i, p_idx[i]] = 1.
 
     With `impl="pallas"` the mix runs through `ops/invconv_fused.py` (the
     kernels K6a / K6b on a CUDA tensor); with "xla" through the plain f32
-    math of `ops/invconv.py`."""
+    math of `ops/invconv.py`.  Both read only the strict triangles of
+    `lower` / `upper`, so `lu_params` hands them over as they are (autograd
+    gives the other entries zero grads); `p_idx` is kept beside `p`, out of
+    the `state_dict` (whose names are the reference lineage's, `l_mask` and
+    `eye` included), and refreshed from `p` on every `load_state_dict`."""
 
     def __init__(self, c: int, generator: torch.Generator | None = None, impl: str = "xla"):
         super().__init__()
@@ -145,6 +154,8 @@ class InvConv1x1LU(nn.Module):
         p = torch.zeros(c, c)
         p[torch.arange(c), torch.from_numpy(p_idx)] = 1.0
         self.register_buffer("p", p)
+        self.register_buffer("p_idx", torch.from_numpy(p_idx), persistent=False)
+        self.register_load_state_dict_post_hook(_refresh_p_idx)
         self.register_buffer("sign_s", torch.tensor(sign_s, dtype=torch.float32))
         self.register_buffer("l_mask", torch.tril(torch.ones(c, c), -1))
         self.register_buffer("eye", torch.eye(c))
@@ -153,13 +164,7 @@ class InvConv1x1LU(nn.Module):
         self.upper = nn.Parameter(torch.tensor(upper, dtype=torch.float32))
 
     def lu_params(self) -> ic.LUParams:
-        return ic.LUParams(
-            p_idx=torch.argmax(self.p, dim=1),
-            l_raw=self.lower * self.l_mask,
-            u_raw=self.upper * self.l_mask.T,
-            log_s=self.log_s,
-            sign_s=self.sign_s,
-        )
+        return ic.LUParams(self.p_idx, self.lower, self.upper, self.log_s, self.sign_s)
 
     def matrix(self, reverse: bool = False) -> torch.Tensor:
         lu = self.lu_params()

@@ -68,9 +68,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glow_flowstep_band_bwd_workspace.restype = ctypes.c_size_t
     lib.glow_flowstep_band_bwd.argtypes = [i32] * 8 + [ptr] * 33
     lib.glow_flowstep_band_bwd.restype = i32
-    lib.glow_invconv_forward.argtypes = [i32] * 2 + [ptr] * 8 + [ptr]
+    lib.glow_invconv_forward.argtypes = [i32] * 3 + [ptr] * 8 + [ptr]
     lib.glow_invconv_forward.restype = i32
-    lib.glow_invconv_mix.argtypes = [i32] * 2 + [ptr] * 3 + [ptr]
+    lib.glow_invconv_mix.argtypes = [i32] * 3 + [ptr] * 3 + [ptr]
     lib.glow_invconv_mix.restype = i32
     lib.glow_anatomy_forward.argtypes = [i32] * 6 + [ptr] * 20 + [ptr]
     lib.glow_anatomy_forward.restype = i32

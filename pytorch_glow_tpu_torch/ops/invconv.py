@@ -52,7 +52,7 @@ class LUParams(NamedTuple):
     sign_s: torch.Tensor  # (C,) f32, +-1
 
 
-def _factors(p: LUParams) -> tuple[torch.Tensor, torch.Tensor]:
+def lu_factors(p: LUParams) -> tuple[torch.Tensor, torch.Tensor]:
     c = p.log_s.shape[0]
     eye = torch.eye(c, dtype=torch.float32, device=p.log_s.device)
     lower = torch.tril(p.l_raw.float(), -1) + eye
@@ -62,7 +62,7 @@ def _factors(p: LUParams) -> tuple[torch.Tensor, torch.Tensor]:
 
 def lu_assemble(p: LUParams) -> torch.Tensor:
     """W (C, C) f32 from the LU factors."""
-    lower, upper = _factors(p)
+    lower, upper = lu_factors(p)
     return (lower @ upper)[p.p_idx.long()]
 
 
@@ -73,7 +73,7 @@ def lu_logdet(p: LUParams) -> torch.Tensor:
 
 def lu_inverse(p: LUParams) -> torch.Tensor:
     """W^{-1} (C, C) f32 via two triangular solves and a column permutation."""
-    lower, upper = _factors(p)
+    lower, upper = lu_factors(p)
     eye = torch.eye(lower.shape[0], dtype=torch.float32, device=lower.device)
     l_inv = torch.linalg.solve_triangular(lower, eye, upper=False, unitriangular=True)
     w_inv_pt = torch.linalg.solve_triangular(upper, l_inv, upper=True)

@@ -107,25 +107,35 @@ def two_n_ms(fn, n1: int, n2: int) -> float:
     return (t2 - t1) / (n2 - n1)
 
 
-def chain_split(fn, chain: list[tuple[str, str, int]], reps: int = 5) -> dict[str, float]:
+def chain_split(fn, chain: list[tuple[str, str, int]],
+                reps: int = 5) -> dict[str, float] | None:
     """Device ms per call of each labelled part of a chain (torch.profiler):
     `chain` lists the chain's launches in order as (kernel function name,
     label, bf16 operations per pixel); parts with one label are summed.  A
     trace can miss the kernels of its first milliseconds, so it spans
-    2 * reps calls and the last `reps` are read; raises unless they are the
-    chain's launches in order."""
+    2 * reps calls and the last `reps` are read, and one that holds fewer
+    launches than that is taken again, up to three traces; None (not
+    measured) if the third holds fewer too; raises unless the launches read
+    are the chain's in order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    want = [name for name, _, _ in chain] * reps
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(2 * reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    want = [name for name, _, _ in chain] * reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2 * reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        if len(kernels) >= len(want):
+            break
+    else:
+        print(f"the per-kernel split is not measured: three profiler traces held {len(kernels)} "
+              f"of the {len(want)} launches read", flush=True)
+        return None
     kernels = kernels[-len(want):]
     names = [e.name for e in kernels]
     if len(kernels) != len(want) or not all(w in n for w, n in zip(want, names)):
@@ -150,7 +160,8 @@ def report(title: str, direction: str, b: int, n1: int, n2: int, operands: dict,
     """Time each variant of `direction` on `operands` (the keyword
     arguments of `anatomy.<direction>_variant` but the variant and the
     buffers), print one row each, the bound and `full`'s per-kernel split
-    (with each GEMM's bf16 rate).  Returns {"rows": [...], "split": {...},
+    (with each GEMM's bf16 rate).  Returns {"rows": [...], "split": {...}
+    or None where the traces dropped launches,
     "bound_ms": ..., "outputs": {variant: what one more launch returned,
     copied}, "operands": operands}, so that a caller can hold each timed
     variant against its plain version."""
@@ -181,14 +192,15 @@ def report(title: str, direction: str, b: int, n1: int, n2: int, operands: dict,
         print(f"bound (bf16 {fs.PEAK_BF16:.3g} FLOP/s, f32 {fs.PEAK_F32:.3g}, "
               f"{fs.PEAK_BYTES:.3g} B/s): {bound * 1e3:9.2f} us", flush=True)
         split = chain_split(lambda: launch("full"), chain)
-    total = sum(split.values())
-    print(f"full, device time by kernel (torch.profiler, {total * 1e3:.2f} us per call):",
-          flush=True)
-    ops = {label: n * b * HH * WW for _, label, n in chain if n}
-    for label, ms in split.items():
-        rate = (f"  {ops[label] / ms / 1e9:6.1f} TFLOP/s, "
-                f"{1e3 * ops[label] / ms / fs.PEAK_BF16:4.1%} of the bf16 peak"
-                if label in ops else "")
-        print(f"  {label:44s} {ms * 1e3:9.2f} us  {100 * ms / total:5.1f}%{rate}", flush=True)
+    if split is not None:
+        total = sum(split.values())
+        print(f"full, device time by kernel (torch.profiler, {total * 1e3:.2f} us per call):",
+              flush=True)
+        ops = {label: n * b * HH * WW for _, label, n in chain if n}
+        for label, ms in split.items():
+            rate = (f"  {ops[label] / ms / 1e9:6.1f} TFLOP/s, "
+                    f"{1e3 * ops[label] / ms / fs.PEAK_BF16:4.1%} of the bf16 peak"
+                    if label in ops else "")
+            print(f"  {label:44s} {ms * 1e3:9.2f} us  {100 * ms / total:5.1f}%{rate}", flush=True)
     return {"rows": rows, "split": split, "bound_ms": bound, "outputs": outputs,
             "operands": operands}
