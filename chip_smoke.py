@@ -46,7 +46,22 @@
    unfused bf16 grad's distance plus 1e-3; then 3 steps from one state on
    both paths, grad_norm within rtol 2e-2 at each step and losses within
    rtol 2e-2 after the third; and the train step's time, images/s and
-   peak memory on both paths.
+   peak memory on both paths, and the peak memory of train steps without
+   and with the trainer's eval copy of the model.
+18. Runs after 7: celeba64 trained at full width (b=128, steps_per_call=5,
+   synthetic textured data) through the train CLI in-process for 10 steps,
+   with a plot and an eval at steps 5 and 10 (2 test batches each), an
+   SWD of 64 images at 10, snapshots every 5 and the profiler over steps
+   5-10: each boundary's time (SWD's host numpy apart) and flow-step
+   launches from the trainer's metrics.csv, the launches against their
+   count, and the run's K1/K2/K3 launches against the sum of its steps and
+   boundaries (K*L = 128 per pass); the step-5 eval_nll
+   against an Inferer on the step-5 snapshot's EMA weights and the same
+   test batches (rtol 1e-6) and against the unfused path (rtol 2e-2); the
+   step-5 sample PNG against the same samples drawn again; swd_x1e3 finite
+   and above 0; best.json at the lowest eval_nll, `build(restore="best")`
+   giving it again (rtol 1e-6), `cli.infer nll --best` with no fallback;
+   the profiler's trace and its kernel events.
 
 8. Holds K1/K2 at celebahq256's levels 1-5 and K3 at its levels 2-5, the
    shapes they run at on its path (b=64, additive, the preset's coupling),
@@ -94,7 +109,9 @@
    K6a), a T=0.7 sample (96 K6b), reconstruct (96 + 96, exact to 2e-4),
    every K6 call on the narrow path (`path_launches`); nll against
    invconv_impl="xla" within rtol 1e-4, also with perturbed zero-convs;
-   times and peak memory.
+   times and peak memory.  Then the true-f32 pin: one cifar10 log_prob at
+   f32 coupling on the unfused path with PyTorch's TF32 defaults switched
+   on, bitwise equal to the same call under this script's pins.
 14. DDIs celeba64 (the fused preset) with invconv_impl="pallas" (128 K6a
    calls: levels 0-2 on the narrow path, one kernel each, level 3 on the
    tiled pair, two) against the "xla" DDI (rtol 1e-3, atol 1e-5; the bf16 coupling nets'
@@ -111,6 +128,10 @@
    snapshot: nll, sample -n 16 (its PNG decoded and held to the same
    samples drawn again), recon, and --exact with no K6 launch.  Every K6
    call of the train and infer CLIs and of the loss_fn on the narrow path.
+   Then a SIGTERM from a `threading.Timer` during a call to step 30: it
+   returns `preempted: true` with its snapshot on disk, and a rerun resumes
+   to 30; and `--retries 1` with a train that fails once finishes at 40
+   from the newest snapshot.
 16. The anatomy studies S1-S3 (`csrc/anatomy.cu`, `ops/anatomy.py`), at
    the anatomy path's shape, b=128, 32x32x12, hidden 512: (a) with a flow
    step far from the identity, each variant of K1, K2 and K3 against its
@@ -148,23 +169,26 @@ celeba64 and celebahq256, and one cifar10 unfused step with and without
 the K6 kernels.
 
 Prints a JSON line of per-kernel results (each kernel's launches from the
-main-path run that drives it: K1/K2 from 4, K3 from 7, K4 from 10, K5 from
-11, K6a/K6b from 13, S1-S3 from 16c), the card line, and last
+main-path run that drives it: K1/K2/K3 from 18, K4 from 10, K5 from 11,
+K6a/K6b from 13, S1-S3 from 16c), the card line, and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, with no result line,
 without a CUDA device or when any check fails.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -198,6 +222,10 @@ INVCONV_SOURCE = "pytorch_glow_tpu_torch/csrc/invconv.cu"
 INVCONV_TPU_KERNELS = {"invconv_forward": "pytorch_glow_tpu/ops/invconv_pallas.py:52",
                        "invconv_reverse": "pytorch_glow_tpu/ops/invconv_pallas.py:158"}
 CIFAR_BATCH = 256
+# Phase 15's preemption check: seconds into a train call before the SIGTERM.
+PREEMPT_AFTER_S = 1.0
+
+
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
@@ -762,11 +790,13 @@ def expected_launches(fs, cfg, b: int, directions, times: int = 1) -> dict:
 def check_training(torch, fs, card: str, out_dir: str, profiling: bool = False,
                    preset: str = "celeba64", batch: int = TRAIN_BATCH,
                    num_steps: int | None = None, time_steps: int = 3,
-                   want: dict | None = None) -> dict:
+                   want: dict | None = None, eval_copy_memory: bool = False) -> dict:
     """The training path of a preset at full width and its own batch, with
     snapshots under `out_dir`: one `train` call of `num_steps` steps
     (default: steps_per_call), whose launches must be `want` (default: each
-    level's chain, K per step)."""
+    level's chain, K per step).  With `eval_copy_memory`, the peak memory
+    of that call beside that of as many more steps with the trainer's eval
+    copy of the model allocated."""
     from pytorch_glow_tpu_torch import PRESETS, build, init_glow, train
     from pytorch_glow_tpu_torch.train import step as steplib
 
@@ -785,10 +815,12 @@ def check_training(torch, fs, card: str, out_dir: str, profiling: bool = False,
 
     # -- the main path: one train call --------------------------------------
     fs.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = train(built, num_steps=num_steps, quiet=True)
     torch.cuda.synchronize()
     launches = dict(fs.launches)
+    peak_alone = torch.cuda.max_memory_allocated()
     per_step = expected_launches(fs, cfg, batch, ("forward", "backward"))
     print(f"train ({preset}, {num_steps} steps, {time.perf_counter() - t0:.2f} s): {result}; "
           f"launches {launches} (per step {per_step})")
@@ -798,6 +830,22 @@ def check_training(torch, fs, card: str, out_dir: str, profiling: bool = False,
             f"train launches {launches}")
     if want is not None:
         require(per_step == want, f"{preset} launches per train step {per_step}, want {want}")
+    if eval_copy_memory:
+        # The boundaries' eval copy of the model (`Built.serving`), made at
+        # the first boundary, stays allocated through the later train steps.
+        require(built.eval_model is None, "an eval copy before any boundary")
+        before = torch.cuda.memory_allocated()
+        built.serving(steplib.ema_params(built.state))
+        copy_bytes = torch.cuda.memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        train(built, num_steps=2 * num_steps, quiet=True)
+        torch.cuda.synchronize()
+        peak_with = torch.cuda.max_memory_allocated()
+        print(f"peak memory of {num_steps} train steps {preset} b={batch}: without the eval "
+              f"copy {peak_alone / 2**30:.3f} GiB, with it {peak_with / 2**30:.3f} GiB (the copy "
+              f"holds {copy_bytes / 2**30:.3f} GiB); card: {card}")
+        built.eval_model = None
+        torch.cuda.empty_cache()
 
     # -- fault 1: every coupling net gets gradients through the kernels, and
     # every parameter's grad is as close to the f32 grad as the unfused
@@ -888,6 +936,182 @@ def check_training(torch, fs, card: str, out_dir: str, profiling: bool = False,
     if profiling:
         profile_step(fused_step, state_f, batches[0], torch, f"{preset} fused")
         profile_step(plain_step, clone_state(state_f, plain), batches[0], torch, f"{preset} unfused")
+    return launches
+
+
+def add_counts(*dicts) -> dict:
+    return {k: sum(d[k] for d in dicts) for k in dicts[0]}
+
+
+def check_boundaries(torch, fs, card: str, out_root: str) -> dict:
+    """Phase 18: celeba64 at full width (K=32, L=4, hidden 512, b=128,
+    steps_per_call=5) trained through the train CLI in-process for 10 steps
+    with every boundary at step 5 or 10: a plot and an eval at both, an SWD
+    at 10, snapshots every 5, the profiler over steps 5-10.  Each
+    boundary's time and flow-step launches as the trainer logs them to
+    metrics.csv, the launches against their count, and the run's K1/K2/K3
+    launches against the sum of its steps and boundaries (K*L = 128 per
+    pass: a plot is a sample of 16 and a reconstruct of 16; an eval is
+    2 x 2 batches forward and a reconstruct of 16; an SWD a sample of 64; a
+    train step a forward and a backward at b=128).  Then: the
+    step-5 eval_nll against an Inferer's nll on the EMA weights of the
+    step-5 snapshot and the same test batches (rtol 1e-6) and against the
+    unfused path (rtol 2e-2); the step-5 sample PNG against the same
+    samples drawn again; swd_x1e3 finite and above 0; best.json at the
+    lowest eval_nll, `build(restore="best")` at that step giving that
+    eval_nll again (rtol 1e-6), and `cli.infer nll --best` loading it with
+    no fallback; the profiler's trace.  Returns the run's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from pytorch_glow_tpu_torch import Inferer, build, init_glow
+    from pytorch_glow_tpu_torch.cli import infer as infer_cli
+    from pytorch_glow_tpu_torch.cli import train as train_cli
+    from pytorch_glow_tpu_torch.data.synthetic import make_dataset
+    from pytorch_glow_tpu_torch.train import step as steplib
+    from pytorch_glow_tpu_torch.utils.checkpoint import CheckpointManager
+    from pytorch_glow_tpu_torch.utils.image import make_grid
+
+    argv = ["celeba64", "--synthetic", "textured", "--quiet", "--out-dir", out_root,
+            "--steps", "10", "--set", "train.plot_gap=5", "--set", "train.eval_gap=5",
+            "--set", "train.swd_gap=10", "--set", "train.checkpoint_gap=5",
+            "--set", "train.eval_batches=2", "--set", "train.swd_images=64",
+            "--set", "train.profile_step=5", "--set", "train.profile_num_steps=5"]
+    prof = train_cli.resolve_profile(train_cli.parse_args(argv))
+    cfg, t = prof.glow, prof.train
+    run = os.path.join(out_root, prof.name)
+    n_img, n_swd, b = t.num_sample_images, min(t.swd_images, t.batch_size), t.batch_size
+
+    # -- the main path: the train CLI through every boundary; the trainer logs
+    # each boundary's wall time and launches, and SWD's host numpy part -----
+    fs.reset_launches()
+    t0 = time.perf_counter()
+    result, _ = run_cli(train_cli.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fs.launches)
+    print(f"train CLI celeba64 through the boundaries (K={cfg.K}, L={cfg.L}, hidden "
+          f"{cfg.hidden_channels}, b={b}, steps_per_call={t.steps_per_call}), 10 steps: "
+          f"{wall:.2f} s; launches {launches}")
+    require(result["final_step"] == 10 and math.isfinite(result["loss"])
+            and "preempted" not in result, f"train {result}")
+
+    recon = expected_launches(fs, cfg, n_img, ("forward", "reverse"))
+    want = {"plot": add_counts(expected_launches(fs, cfg, n_img, ("reverse",)), recon),
+            "eval": add_counts(expected_launches(fs, cfg, b, ("forward",), 2 * t.eval_batches),
+                               recon),
+            "swd": expected_launches(fs, cfg, n_swd, ("reverse",))}
+    with open(os.path.join(run, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    boundaries = [{"kind": kind, "step": int(r["step"]), "ms": float(r[f"{kind}_ms"]),
+                   "launches": int(float(r[f"{kind}_launches"])), "row": r}
+                  for r in rows for kind in ("plot", "eval", "swd") if r.get(f"{kind}_ms")]
+    order = [(r["kind"], r["step"]) for r in boundaries]
+    require(order == [("plot", 5), ("eval", 5), ("plot", 10), ("eval", 10), ("swd", 10)],
+            f"boundaries {order}")
+    # Each boundary's launches (the trainer logs their sum), and the run's
+    # launches of each chain: ten train steps and these boundaries.
+    for r in boundaries:
+        print(f"boundary {r['kind']} at step {r['step']}: {r['ms']:.3f} ms, "
+              f"{r['launches']} launches")
+        require(r["launches"] == sum(want[r["kind"]].values()),
+                f"{r['kind']} at step {r['step']}: launches {r['launches']}, "
+                f"want {want[r['kind']]}")
+    steps = expected_launches(fs, cfg, b, ("forward", "backward"), 10)
+    require(launches == add_counts(steps, *(want[r["kind"]] for r in boundaries)),
+            f"run launches {launches}")
+    require(want["plot"]["reverse"] == 2 * cfg.K * cfg.L and want["swd"]["reverse"] == 128
+            and want["eval"]["forward"] == (2 * t.eval_batches + 1) * 128, f"counts {want}")
+    for kind in ("plot", "eval", "swd"):
+        rs = [r for r in boundaries if r["kind"] == kind]
+        part = {"swd": ("the host SWD", "swd_host_ms"),
+                "eval": ("the best snapshot's check and write", "best_save_ms")}.get(kind)
+        print(f"time boundary {kind} celeba64 b={b}: " + ", ".join(f"{r['ms']:.3f}" for r in rs)
+              + " ms" + (f" (of which {part[0]} "
+                         + ", ".join(f"{float(r['row'][part[1]]):.3f}" for r in rs) + " ms)"
+                         if part else ""))
+    print(f"card for these times: {card}")
+    evals = {int(r["step"]): r for r in rows if r.get("eval_nll")}
+    swds = [float(r["swd_x1e3"]) for r in rows if r.get("swd_x1e3")]
+    print("eval rows: " + "; ".join(
+        f"step {s}: " + ", ".join(f"{k} {r[k]}" for k in r if r[k] and k != "step")
+        for s, r in evals.items()) + f"; swd_x1e3 {swds}")
+    require(sorted(evals) == [5, 10] and all(r.get("eval_nll_raw") for r in evals.values()),
+            f"eval rows {evals}")
+    require(len(swds) == 1 and math.isfinite(swds[0]) and swds[0] > 0, f"swd_x1e3 {swds}")
+
+    # -- eval_nll against an Inferer on the step-5 snapshot's EMA weights ----
+    test = make_dataset(prof.data, cfg, t, split="test")
+    test_batches = {s: [next(test)["image"] for _ in range(t.eval_batches)] for s in (5, 10)}
+
+    def ema_model(snapshot, config=cfg):
+        m = init_glow(config, device="cuda")
+        m.load_state_dict(snapshot["model"])
+        m.load_state_dict(steplib.ema_params({"model": m, "ema": snapshot["ema"]}))
+        return m
+
+    def eval_nll(m, step):
+        inf = Inferer(m)
+        return float(np.mean([float(inf.nll(x).mean()) for x in test_batches[step]]))
+
+    snap5 = torch.load(os.path.join(run, "checkpoints", "5.pt"), map_location="cuda",
+                       weights_only=True)
+    model5 = ema_model(snap5)
+    logged5, again5 = float(evals[5]["eval_nll"]), eval_nll(model5, 5)
+    plain5 = ema_model(snap5, dataclasses.replace(cfg, flowstep_impl="xla"))
+    print(f"step-5 eval_nll: logged {logged5:.7f}, Inferer on the snapshot's EMA weights "
+          f"{again5:.7f} (rel {abs(logged5 - again5) / abs(again5):.2e})")
+    require(abs(logged5 - again5) <= 1e-6 * abs(again5), f"eval_nll {logged5} vs {again5}")
+    compare_nll(Inferer(model5), Inferer(plain5), test_batches[5][0], "step-5 EMA weights")
+    del plain5
+
+    # -- the step-5 sample grid, drawn again ---------------------------------
+    with open(os.path.join(run, "samples", "step_00000005.png"), "rb") as f:
+        grid = decode_png(f.read())
+    temp = t.sample_temperature * min(1.0, 5 / t.temperature_anneal_steps)
+    redraw = make_grid(steplib.make_sample_fn(cfg, n_img, t.sample_temperature)(
+        model5, steplib.step_generator(t.seed + 2, 5, "cuda"), temp).cpu().numpy())
+    diff = int(np.abs(grid.astype(np.int16) - redraw.astype(np.int16)).max())
+    print(f"step-5 sample PNG {grid.shape} at T={temp}: against the same samples drawn again, "
+          f"max uint8 diff {diff}")
+    require(grid.shape == redraw.shape and diff == 0, f"sample PNG diff {diff}")
+    require(os.path.isfile(os.path.join(run, "recon", "step_00000010.png")), "recon PNG")
+    del model5, snap5
+
+    # -- the best snapshot -----------------------------------------------------
+    info = CheckpointManager(os.path.join(run, "checkpoints")).best_info()
+    lowest = min(evals, key=lambda s: float(evals[s]["eval_nll"]))
+    print(f"best.json {info}; lowest logged eval_nll at step {lowest}")
+    require(info is not None and info["step"] == lowest
+            and info["metric"] == float(evals[lowest]["eval_nll"]), f"best {info}")
+    best = build(prof, restore="best")
+    require(best.restored == "best" and best.start_step == lowest,
+            f"build(restore='best') {best.restored} at {best.start_step}")
+    best_model = init_glow(cfg, device="cuda")
+    best_model.load_state_dict(steplib.ema_params(best.state))
+    again = eval_nll(best_model, lowest)
+    print(f"build(restore='best'): step {best.start_step}, eval_nll on its EMA weights {again:.7f} "
+          f"(rel {abs(again - info['metric']) / abs(info['metric']):.2e})")
+    require(abs(again - info["metric"]) <= 1e-6 * abs(info["metric"]), f"best eval_nll {again}")
+    del best, best_model
+    torch.cuda.empty_cache()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        _, text = run_cli(infer_cli.main, ["nll", "celeba64", "--synthetic", "textured",
+                                           "--out-dir", out_root, "--batches", "1", "--best"])
+    require(f"loaded the best snapshot, step {lowest}" in text and "warning" not in err.getvalue(),
+            f"infer --best: {text!r} {err.getvalue()!r}")
+
+    # -- the profiler's trace --------------------------------------------------
+    trace = os.path.join(run, "profile", "trace_step_00000005.json")
+    require(os.path.isfile(trace), "no profiler trace")
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if str(e.get("cat", "")).lower() == "kernel")
+    print(f"profiler trace of steps 5-10: {os.path.getsize(trace)} bytes, {len(events)} events, "
+          + (f"{kernels} kernel events" if kernels else "kernel events not measured (none recorded)"))
     return launches
 
 
@@ -1559,7 +1783,118 @@ def check_invconv_training(torch, icf, card: str, out_root: str,
           f"--exact {exact:.4f} (f32, no K6: launches {dict(icf.launches)})")
     require(not any(icf.launches.values()), f"--exact launched K6: {icf.launches}")
     require(abs(exact - nll) <= 2e-2 * abs(exact), f"--exact nll {exact} vs {nll}")
+    check_preemption_and_retries(run_dir, common)
     return launches
+
+
+def check_preemption_and_retries(run_dir: str, common: list[str]) -> None:
+    """On the cifar10 CLI run (at step 15): a `threading.Timer` sends SIGTERM
+    to this process PREEMPT_AFTER_S into a call to 30, which must return
+    `preempted: true` with its snapshot on disk, and a rerun must resume
+    from it to step 30.  Then `--retries 1` with a `train` that fails once
+    after a call to 35: the run finishes at 40 from the step-35 snapshot."""
+    from pytorch_glow_tpu_torch.cli import train as train_cli
+    from pytorch_glow_tpu_torch.train import trainer as trainer_mod
+    from pytorch_glow_tpu_torch.utils.checkpoint import CheckpointManager
+
+    args = [*common, "--out-dir", run_dir, "--set", "train.checkpoint_gap=5"]
+    real_train = trainer_mod.train
+    stray = []
+    timers = []
+
+    def train_then_sigterm(built, **kw):
+        timer = threading.Timer(PREEMPT_AFTER_S, os.kill, (os.getpid(), signal.SIGTERM))
+        timers.append(timer)
+        timer.start()
+        return real_train(built, **kw)
+
+    # A SIGTERM outside the train loop lands here instead of ending the script.
+    prev = signal.signal(signal.SIGTERM, lambda signum, frame: stray.append(signum))
+    trainer_mod.train = train_then_sigterm
+    t0 = time.perf_counter()
+    try:
+        stopped, _ = run_cli(train_cli.main, [*args, "--steps", "30"])
+    finally:
+        trainer_mod.train = real_train
+        for timer in timers:
+            timer.cancel()
+            timer.join()
+        signal.signal(signal.SIGTERM, prev)
+    step = stopped["final_step"]
+    ckpt = CheckpointManager(os.path.join(run_dir, "cifar10", "checkpoints"))
+    print(f"SIGTERM {PREEMPT_AFTER_S} s into a train call to 30 (from 15): stopped at {step} "
+          f"after {time.perf_counter() - t0:.2f} s, preempted {stopped.get('preempted')}, "
+          f"snapshots {ckpt.steps()}")
+    require(not stray and stopped.get("preempted") is True and 15 < step < 30
+            and ckpt.latest_step() == step, f"preemption: {stopped}, stray {stray}")
+    resumed, text = run_cli(train_cli.main, [*args, "--steps", "30"])
+    require(f"resumed from step {step}" in text and resumed["final_step"] == 30
+            and "preempted" not in resumed, f"rerun after preemption: {resumed}")
+
+    def fails_once(built, num_steps=None, quiet=False):
+        calls.append(built.start_step)
+        if len(calls) == 1:
+            real_train(built, num_steps=built.start_step + 5, quiet=quiet)
+            raise RuntimeError("injected failure")
+        return real_train(built, num_steps=num_steps, quiet=quiet)
+
+    calls: list[int] = []
+    trainer_mod.train = fails_once
+    try:
+        retried, text = run_cli(train_cli.main, [*args, "--steps", "40", "--retries", "1"])
+    finally:
+        trainer_mod.train = real_train
+    print(f"--retries 1 with one injected failure: attempts from steps {calls}, "
+          f"final step {retried['final_step']}")
+    require(calls == [30, 35] and "resumed from step 35" in text
+            and retried["final_step"] == 40, f"--retries: {calls}, {retried}")
+
+
+def check_true_f32(torch, card: str) -> None:
+    """Section 0's pin: one cifar10 log_prob at f32 coupling on the unfused
+    path (invconv_impl="xla", so the 1x1 mix is a cuBLAS product), with
+    the zero-convs perturbed, is bitwise equal with PyTorch's TF32 defaults
+    switched on (cuDNN and matmul) to the same call under this script's
+    pins.  Beside it, a bare f32 conv at a coupling-net shape under both
+    settings, to show TF32 is live on this card.  The pins come back."""
+    import torch.nn.functional as F
+
+    from pytorch_glow_tpu_torch import init_glow
+
+    cfg = dataclasses.replace(cifar_cfg("xla"), compute_dtype="float32")
+    model = init_glow(cfg, torch.Generator().manual_seed(SEED), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    images = torch.randint(0, 256, (64, *cfg.image_shape), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    x = model.preprocess(images)
+    model.ddi_init(model.dequantize(x, gen))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".f.4." in name or ".conv." in name or name.startswith("learn_top"):
+                p.add_(0.003 * torch.randn(p.shape, generator=gen, device="cuda"))
+        pinned = model.log_prob(x)
+        a = torch.randn(64, 512, 16, 16, generator=gen, device="cuda")
+        w = torch.randn(512, 512, 3, 3, generator=gen, device="cuda") / 48
+        conv_pinned = F.conv2d(a, w, padding=1)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            loose = model.log_prob(x)
+            conv_loose = F.conv2d(a, w, padding=1)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+    same_nll = torch.equal(pinned["nll"], loose["nll"]) and torch.equal(pinned["z"], loose["z"])
+    tf32_diff = float((conv_pinned - conv_loose).abs().max())
+    print(f"true f32 (cifar10 log_prob, f32 coupling, unfused, b=64): with TF32 allowed "
+          f"bitwise equal to the pinned call: {same_nll} (mean nll "
+          f"{float(pinned['nll'].mean()):.6f}); a bare f32 conv 64x512x16x16 3x3 moves by "
+          f"{tf32_diff:.3e} under TF32; card: {card}")
+    require(same_nll, "log_prob at f32 changed with TF32 allowed")
+    require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+            "pins not restored")
+    del model
+    torch.cuda.empty_cache()
 
 
 def same(torch, a, b) -> bool:
@@ -1760,7 +2095,10 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     # -- the training path ----------------------------------------------------
     check_backward(torch, fs, results)
     train_launches = check_training(torch, fs, card, os.path.join(out_root, "celeba64"),
-                                    "--profile" in sys.argv[1:])
+                                    "--profile" in sys.argv[1:], eval_copy_memory=True)
+    t0 = time.perf_counter()
+    boundary_launches = check_boundaries(torch, fs, card, os.path.join(out_root, "boundaries"))
+    print(f"phase 18 (the trainer's boundaries): {time.perf_counter() - t0:.2f} s")
 
     # -- the 256x256 path: celebahq256 ---------------------------------------
     # K1-K3 at the level shapes they run at, in the preset's (additive) coupling.
@@ -1780,6 +2118,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     # -- the unfused cifar10 path: the LU 1x1 conv kernels K6a / K6b ---------
     check_invconv(torch, icf, results, card)
     invconv_launches = check_invconv_serving(torch, icf, fs, card)
+    check_true_f32(torch, card)
     check_invconv_ddi(torch, icf, card)
     check_fused_permutations(torch, fs)
     cli_launches = check_invconv_training(torch, icf, card, os.path.join(out_root, "cifar10"),
@@ -1789,12 +2128,14 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     anatomy_launches = check_anatomy(torch, fs, results)
 
     # Launches: each kernel's count from the main-path run that drives it:
-    # K1/K2 from the celeba64 serving run, K3 from the celeba64 training
-    # run, K4 from the celebahq256 serving run, K5 from the celebahq256
+    # K1/K2/K3 from the celeba64 train CLI run through the boundaries (18),
+    # K4 from the celebahq256 serving run, K5 from the celebahq256
     # training run, K6a/K6b from the cifar10 serving run, S1-S3 from the
     # anatomy scripts' run (their other launches are checked and printed
     # above).
-    launches["backward"] = train_launches["backward"]
+    print(f"serving-run launches: celeba64 {launches}")
+    for d in ("forward", "reverse", "backward"):
+        launches[d] = boundary_launches[d]
     for d in ("band_forward", "band_reverse"):
         launches[d] = hq_launches[d]
     launches["band_backward"] = hq_train_launches["band_backward"]

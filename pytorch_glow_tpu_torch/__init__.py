@@ -3,7 +3,9 @@
 Multi-scale Glow in PyTorch for one NVIDIA H100: the serving path (forward
 NLL, temperature sampling, exact reconstruction, data-dependent actnorm
 init) and the training path (`build(profile)` -> `train(built)`: loss,
-optimizer chain, train step, synthetic data, snapshots and resume), with
+optimizer chain, train step, synthetic data, snapshots and resume, and at
+the trainer's boundaries held-out eval, best snapshots, sample grids and
+SWD), with
 each flow step in hand-written CUDA kernels for sm_90a (`csrc/flowstep*.cu`)
 and, with `invconv_impl="pallas"` on the unfused path, the LU 1x1 conv too
 (`csrc/invconv.cu`), beside their plain PyTorch versions on CPU tensors.

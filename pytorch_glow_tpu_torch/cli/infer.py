@@ -8,13 +8,14 @@ card unless `--cpu` is given:
   python -m pytorch_glow_tpu_torch.cli.infer nll    <profile> --synthetic --batches 8
 
 The profile (JSON path or preset, with the same `--set` overrides as the
-train CLI) locates the newest snapshot under <out_dir>/<name>/checkpoints.
-`--exact` runs the f32 unfused path (no fused flow step, no 1x1 conv
-kernels) on the same parameters.
+train CLI) locates the newest snapshot under <out_dir>/<name>/checkpoints;
+`--best` loads the best-eval one instead (through `build(restore="best")`:
+with no best recorded, the newest, with a warning; with no snapshot at
+all, an error).  `--exact` runs the f32 unfused path (no fused flow step,
+no 1x1 conv kernels) on the same parameters.
 
 Not ported yet, each exiting with an error: delta, manipulate,
-interpolate, report, export and serve; `nll --dequant-samples`; `--best`
-(best-checkpoint tracking waits for held-out eval).
+interpolate, report, export and serve; `nll --dequant-samples`.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def parse_args(argv=None):
     p.add_argument("--ema", action="store_true",
                    help="use the snapshot's EMA parameters if it has them")
     p.add_argument("--best", action="store_true",
-                   help="load the best-eval snapshot (not ported yet)")
+                   help="load the best-eval snapshot (lowest held-out bits/dim)")
     p.add_argument("--out-dir", default=None, help="training out-dir (to locate snapshots)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     p.add_argument("-o", "--output", default="infer_out.png")
@@ -84,6 +85,7 @@ def main(argv=None) -> None:
     from pytorch_glow_tpu_torch.data.synthetic import make_dataset
     from pytorch_glow_tpu_torch.inference import Inferer
     from pytorch_glow_tpu_torch.models.glow import init_glow
+    from pytorch_glow_tpu_torch.train.builder import build
     from pytorch_glow_tpu_torch.train.step import ema_params
     from pytorch_glow_tpu_torch.utils.checkpoint import CheckpointManager
     from pytorch_glow_tpu_torch.utils.image import save_image_grid
@@ -107,26 +109,34 @@ def main(argv=None) -> None:
     run_dir = os.path.join(prof.out_dir, prof.name)
     ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
     if args.best:
-        # A fresh init is never anyone's best snapshot; and with snapshots
-        # there is still no record of which one scored best.
-        if ckpt.latest_step() is None:
+        # A fresh init is never anyone's best snapshot.
+        if ckpt.best_info() is None and ckpt.latest_step() is None:
             sys.exit(f"error: --best requested but no checkpoint found under {run_dir}")
-        sys.exit("error: --best needs best-checkpoint tracking, which waits for held-out "
-                 "eval: not ported yet (drop --best to use the latest snapshot)")
-
-    model = init_glow(prof.glow, torch.Generator().manual_seed(prof.train.seed), device)
-    snapshot = ckpt.restore(device)
-    if snapshot is None:
+        built = build(prof, device, restore="best")
+        if built.restored is None:
+            sys.exit(f"error: --best requested but no checkpoint found under {run_dir}")
+        if built.restored != "best":
+            print(f"[infer] warning: --best: no best snapshot recorded under {run_dir}; "
+                  f"using the latest (step {built.start_step})", file=sys.stderr)
+        print(f"[infer] loaded the {built.restored} snapshot, step {built.start_step}")
+        model, ema, restored = built.state["model"], built.state.get("ema"), True
+        del built
+    else:
+        model = init_glow(prof.glow, torch.Generator().manual_seed(prof.train.seed), device)
+        snapshot = ckpt.restore(device)
+        restored = snapshot is not None
+        if restored:
+            model.load_state_dict(snapshot["model"])
+            ema = snapshot["ema"]
+    if not restored:
         print("[infer] warning: no checkpoint found — using fresh (DDI-less) params",
               file=sys.stderr)
-    else:
-        model.load_state_dict(snapshot["model"])
-        if args.ema:
-            if snapshot["ema"] is not None:
-                model.load_state_dict(ema_params({"model": model, "ema": snapshot["ema"]}))
-            else:
-                print("[infer] warning: --ema requested but snapshot has no EMA state",
-                      file=sys.stderr)
+    elif args.ema:
+        if ema is not None:
+            model.load_state_dict(ema_params({"model": model, "ema": ema}))
+        else:
+            print("[infer] warning: --ema requested but snapshot has no EMA state",
+                  file=sys.stderr)
     inferer = Inferer(model)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 

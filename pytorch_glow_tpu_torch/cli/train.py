@@ -3,16 +3,18 @@
 Counterpart of the repository's `train.py`: a profile (JSON path or preset
 name) plus data, directory and field overrides.  Runs on the card unless
 `--cpu` is given.  A run resumes from the newest snapshot under
-<out_dir>/<name>/checkpoints when there is one.
+<out_dir>/<name>/checkpoints when there is one; with `--retries N`, a run
+that fails rebuilds from the newest snapshot and goes on, up to N times
+(N is also the step-liveness watchdog's re-exec budget).  A SIGTERM stops
+the run at the next step boundary with a snapshot written and
+`"preempted": true` in the printed result.
 
 Usage:
   python -m pytorch_glow_tpu_torch.cli.train cifar10 --synthetic textured --steps 100
   python -m pytorch_glow_tpu_torch.cli.train profiles/celeba64.json --out-dir results
   python -m pytorch_glow_tpu_torch.cli.train tiny-cifar10 --cpu --synthetic \\
       --set glow.invconv_impl=pallas --set train.checkpoint_gap=10 --steps 20
-
-Not ported yet: `--retries` (automatic resume after a crash waits for the
-step-liveness watchdog); rerun the same command to resume by hand.
+  python -m pytorch_glow_tpu_torch.cli.train celeba64 --synthetic textured --retries 2
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ def parse_args(argv=None):
                         "(repeatable; value parsed as JSON when possible)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--retries", type=int, default=0,
+                   help="after a failure, resume from the newest snapshot, up to N times")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     return p.parse_args(argv)
 
@@ -93,12 +97,26 @@ def main(argv=None) -> dict:
     from pytorch_glow_tpu_torch.train.builder import build
     from pytorch_glow_tpu_torch.train.trainer import train
 
-    built = build(prof, device="cpu" if args.cpu else "cuda")
-    if built.resumed:
-        print(f"[train] resumed from step {built.start_step}")
-    result = train(built, quiet=args.quiet)
-    print(json.dumps(result))
-    return result
+    # The step-liveness watchdog re-execs a wedged run within this budget;
+    # setdefault, so a re-exec'd run keeps its decremented budget.
+    os.environ.setdefault("GLOW_WEDGE_RESTART_BUDGET", str(args.retries))
+    attempts = args.retries + 1
+    for attempt in range(attempts):
+        built = build(prof, device="cpu" if args.cpu else "cuda")
+        if built.resumed:
+            print(f"[train] resumed from step {built.start_step}")
+        try:
+            result = train(built, quiet=args.quiet)
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:  # a failed run -> rebuild from the newest snapshot
+            if attempt + 1 == attempts:
+                raise
+            print(f"[train] attempt {attempt + 1} failed ({type(e).__name__}: {e}); "
+                  f"resuming from the newest snapshot", file=sys.stderr)
+            continue
+        print(json.dumps(result))
+        return result
 
 
 if __name__ == "__main__":

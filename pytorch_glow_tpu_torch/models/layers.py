@@ -9,6 +9,13 @@ Public tensors are NHWC.  Convolutions permute to NCHW around `F.conv2d`;
 lineage conv weights are (out, in, kh, kw), cross-correlation like JAX's
 HWIO convs, so nothing is flipped.
 
+Precision: an f32 conv runs in true f32 whatever the process's TF32 flags
+say (`ops/math.true_f32`, per op, so a library caller gets it too; PyTorch
+lets cuDNN use TF32 by default), as the JAX package runs its f32 convs at
+HIGHEST: the split priors and the whole coupling net at
+`compute_dtype="float32"`.  The f32 channel mixes of `ops/invconv.py` are
+pinned the same way.  bf16 convs take cuDNN's bf16 path.
+
 ActNorm's data-dependent init: while `ActNorm.ddi` is True, a forward call
 sets the module's parameters from the batch statistics of its input and then
 applies them (`Glow.ddi_init` switches it on for one encode).
@@ -23,7 +30,7 @@ from torch import nn
 
 from pytorch_glow_tpu_torch.ops import invconv as ic
 from pytorch_glow_tpu_torch.ops import invconv_fused as icf
-from pytorch_glow_tpu_torch.ops.math import gaussian_logp, gaussian_sample
+from pytorch_glow_tpu_torch.ops.math import gaussian_logp, gaussian_sample, true_f32
 from pytorch_glow_tpu_torch.ops.reshape import cat_channel, split_channel, squeeze2d, unsqueeze2d
 
 ACTNORM_EPS = 1e-6
@@ -31,8 +38,14 @@ LOGSCALE_FACTOR = 3.0
 
 
 def _conv_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """SAME-padded stride-1 conv of NHWC `x` with an (out, in, kh, kw) weight."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), padding=w.shape[-1] // 2)
+    """SAME-padded stride-1 conv of NHWC `x` with an (out, in, kh, kw) weight;
+    true f32 for an f32 `x`."""
+    xt, w = x.permute(0, 3, 1, 2), w.to(x.dtype)
+    if x.dtype == torch.float32:
+        with true_f32():
+            y = F.conv2d(xt, w, padding=w.shape[-1] // 2)
+    else:
+        y = F.conv2d(xt, w, padding=w.shape[-1] // 2)
     return y.permute(0, 2, 3, 1)
 
 

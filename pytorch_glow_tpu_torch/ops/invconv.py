@@ -14,9 +14,9 @@ in `pytorch_glow_tpu/models/layers.py` (`permutation_forward` /
 * a plain W starts as a random rotation, its log|det| is slogdet's and
   its inverse `torch.linalg.inv`'s.
 
-Callers keep f32 matmuls free of TF32 (`torch.backends.cuda.matmul.
-allow_tf32 = False`, PyTorch's default): the logdet and the exact
-round-trip depend on the mix's accuracy.
+Every product and solve here runs in true f32 whatever the process's TF32
+flags say (`ops/math.true_f32`): the logdet and the exact round-trip depend
+on the mix's accuracy.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from pytorch_glow_tpu_torch.ops.math import true_f32
 
 
 def random_rotation(c: int, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -35,11 +37,13 @@ def random_rotation(c: int, generator: torch.Generator | None = None) -> torch.T
     return (q * torch.sign(torch.diagonal(r))[None, :]).contiguous()
 
 
+@true_f32()
 def plain_logdet(w: torch.Tensor) -> torch.Tensor:
     """log|det W| of a plain weight."""
     return torch.linalg.slogdet(w.float())[1]
 
 
+@true_f32()
 def plain_inverse(w: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv(w.float())
 
@@ -60,6 +64,7 @@ def lu_factors(p: LUParams) -> tuple[torch.Tensor, torch.Tensor]:
     return lower, upper
 
 
+@true_f32()
 def lu_assemble(p: LUParams) -> torch.Tensor:
     """W (C, C) f32 from the LU factors."""
     lower, upper = lu_factors(p)
@@ -71,6 +76,7 @@ def lu_logdet(p: LUParams) -> torch.Tensor:
     return p.log_s.float().sum()
 
 
+@true_f32()
 def lu_inverse(p: LUParams) -> torch.Tensor:
     """W^{-1} (C, C) f32 via two triangular solves and a column permutation."""
     lower, upper = lu_factors(p)
@@ -80,6 +86,7 @@ def lu_inverse(p: LUParams) -> torch.Tensor:
     return w_inv_pt[:, p.p_idx.long()]
 
 
+@true_f32()
 def mix_channels(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """y[..., j] = sum_i x[..., i] * w[j, i], in f32."""
     return x.float() @ w.float().T

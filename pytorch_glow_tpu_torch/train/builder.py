@@ -1,29 +1,40 @@
-"""Builder: profile -> model, optimizer, train/eval steps, data stream and
-checkpoints.
+"""Builder: profile -> model, optimizer, train/eval steps, data streams,
+the serving functions and checkpoints.
 
 Counterpart of `pytorch_glow_tpu/train/builder.py` `build` for one device:
 the model from the profile's seed, the optimizer chain, the train step
-(`steps_per_call` steps per call), the eval step, the host batch stream and
-the rolling snapshots under out_dir/name/checkpoints.  With a snapshot
-there (`restore="latest"`), the model, optimizer state, EMA, step and the
-stream's position come from the newest one and DDI is skipped; otherwise
-the data-dependent actnorm init runs on the first batch with
-dequantization noise seeded from seed + 1, and the EMA is seeded from the
-post-DDI parameters.  Not ported yet: device meshes, the best snapshot
-(`restore="best"` raises), the sample / reconstruct / SWD functions.
+(`steps_per_call` steps per call), the eval steps, the sample /
+reconstruct / SWD functions, the host batch stream (and the test split's
+when `eval_gap` is set) and the rolling snapshots under
+out_dir/name/checkpoints.  With a snapshot there, the model, optimizer
+state, EMA, step and the stream's position come from it and DDI is
+skipped: the newest (`restore="latest"`), or the best-eval one
+(`restore="best"`; with none recorded, the newest, and a printed line
+says so).  Otherwise the data-dependent actnorm init runs on the first
+batch with dequantization noise seeded from seed + 1, and the EMA is
+seeded from the post-DDI parameters.
+
+Eval, sampling and reconstruction run on the serving config: on the card,
+a profile on the unfused flow step at bf16 serves through the fused
+kernels, as the JAX builder switches to its Pallas kernel on the TPU.  They
+run on one eval copy of the model (`Built.serving`, made at first use on
+the same device), into which the trainer loads the EMA or the live
+weights, so the live model is never swapped.  Not ported yet: device
+meshes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Callable, Iterator
 
 import torch
 
-from pytorch_glow_tpu_torch.config import Profile
+from pytorch_glow_tpu_torch.config import GlowConfig, Profile
 from pytorch_glow_tpu_torch.data.synthetic import make_dataset
-from pytorch_glow_tpu_torch.models.glow import init_glow
+from pytorch_glow_tpu_torch.models.glow import Glow, init_glow
 from pytorch_glow_tpu_torch.train import step as steplib
 from pytorch_glow_tpu_torch.train.optim import Optimizer, make_optimizer, make_schedule
 from pytorch_glow_tpu_torch.utils.checkpoint import CheckpointManager
@@ -35,23 +46,49 @@ class Built:
     tx: Optimizer
     state: dict
     train_step: Callable
-    eval_step: Callable
     data: Iterator
     device: torch.device
     schedule: Callable
     ckpt: CheckpointManager
+    serve_cfg: GlowConfig
+    eval_step_n: Callable
+    sample_fn: Callable
+    reconstruct_fn: Callable
+    swd_sample_fn: Callable | None = None
+    eval_data: Iterator | None = None
     start_step: int = 0
     resumed: bool = False
+    restored: str | None = None  # "best" | "latest" | None
+    eval_model: Glow | None = None
+
+    def serving(self, state_dict: dict) -> Glow:
+        """The eval copy on `serve_cfg` (made at first use), holding
+        `state_dict`."""
+        if self.eval_model is None:
+            gen = torch.Generator().manual_seed(self.profile.train.seed)
+            self.eval_model = init_glow(self.serve_cfg, gen, self.device)
+        self.eval_model.load_state_dict(state_dict)
+        return self.eval_model
+
+
+def serving_config(g: GlowConfig, device: torch.device) -> GlowConfig:
+    """The config eval, sampling and reconstruction run on: the fused flow
+    step on the card for a bf16 profile on the unfused one."""
+    if g.flowstep_impl == "xla" and g.compute_dtype == "bfloat16" and device.type == "cuda":
+        return dataclasses.replace(g, flowstep_impl="pallas")
+    return g
 
 
 def build(profile: Profile, device: torch.device | str = "cuda",
           restore: str = "latest") -> Built:
     """Everything `train` needs, on `device`: the card unless the caller
     passes "cpu".  `restore`: "latest" resumes from the newest snapshot
-    when there is one; "best" raises (best-checkpoint tracking is not
-    ported)."""
+    when there is one; "best" loads the best-eval snapshot, or the newest
+    when no best was recorded (printed, and `Built.restored` says which)."""
     g, t = profile.glow, profile.train
     device = torch.device(device)
+    if restore not in ("latest", "best"):
+        raise ValueError(f"unknown restore: {restore!r} (latest | best)")
     tx = make_optimizer(profile.optim, t)
     model = init_glow(g, torch.Generator().manual_seed(t.seed), device)
     state = steplib.init_state(model, tx, t.ema_decay, t.seed)
@@ -69,14 +106,16 @@ def build(profile: Profile, device: torch.device | str = "cuda",
 
     ckpt = CheckpointManager(os.path.join(profile.out_dir, profile.name, "checkpoints"),
                              t.keep_checkpoints)
-    if restore == "best":
-        raise NotImplementedError(
-            "restoring the best snapshot needs best-checkpoint tracking, which waits for "
-            "held-out eval (eval_gap): not ported yet; restore the latest snapshot instead")
-    if restore != "latest":
-        raise ValueError(f"unknown restore: {restore!r} (latest | best)")
     data = make_dataset(profile.data, g, t)
-    snapshot = ckpt.restore(device)
+    eval_data = make_dataset(profile.data, g, t, split="test") if t.eval_gap else None
+    snapshot, restored = None, None
+    if restore == "best":
+        snapshot, restored = ckpt.restore_best(device), "best"
+        if snapshot is None:
+            print(f"[build] no best snapshot recorded under {ckpt.best_directory}; "
+                  f"restoring the latest instead", flush=True)
+    if snapshot is None:
+        snapshot, restored = ckpt.restore(device), "latest"
     if snapshot is not None:
         model.load_state_dict(snapshot["model"])
         state.update(step=snapshot["step"], seed=snapshot["seed"],
@@ -89,12 +128,22 @@ def build(profile: Profile, device: torch.device | str = "cuda",
             state["ema"] = ema if ema is not None else [
                 p.detach().clone() for _, p in steplib.trainable(model)]
     else:
+        restored = None
         first = torch.from_numpy(next(data)["image"]).to(device)
         noise = torch.Generator(device=device).manual_seed(t.seed + 1)
         model.ddi_init(model.dequantize(model.preprocess(first), noise))
         if "ema" in state:
             state["ema"] = [p.detach().clone() for _, p in steplib.trainable(model)]
-    return Built(profile=profile, tx=tx, state=state, train_step=train_step,
-                 eval_step=steplib.make_eval_step(g), data=data, device=device,
-                 schedule=schedule, ckpt=ckpt, start_step=state["step"],
-                 resumed=snapshot is not None)
+    serve_g = serving_config(g, device)
+    # T=1.0 is the density-matched temperature: SWD scores whether samples
+    # match the data's per-scale patch statistics.
+    swd_sample_fn = (steplib.make_sample_fn(serve_g, min(t.swd_images, t.batch_size), 1.0)
+                     if t.swd_gap else None)
+    return Built(profile=profile, tx=tx, state=state, train_step=train_step, data=data,
+                 device=device, schedule=schedule, ckpt=ckpt, serve_cfg=serve_g,
+                 eval_step_n=steplib.make_eval_step_n(serve_g),
+                 sample_fn=steplib.make_sample_fn(serve_g, t.num_sample_images,
+                                                  t.sample_temperature),
+                 reconstruct_fn=steplib.make_reconstruct_fn(serve_g),
+                 swd_sample_fn=swd_sample_fn, eval_data=eval_data, start_step=state["step"],
+                 resumed=snapshot is not None, restored=restored)

@@ -1,10 +1,14 @@
 """Train and eval steps over a state dict.
 
 Counterpart of `pytorch_glow_tpu/train/step.py` (`init_state`,
-`ema_params`, `make_train_step`, `make_train_step_n`, `make_eval_step`).
-The state is {"step": int, "model": Glow, "opt_state": dict, "seed": int,
-and "ema": list of tensors when ema_decay > 0}; the model holds the
-parameters and is updated in place.
+`ema_params`, `make_train_step`, `make_train_step_n`, `make_eval_step_n`,
+`make_sample_fn`, `make_reconstruct_fn`; the one eval step is
+`make_eval_step_n`, N = 1 for a single batch).  The state is {"step": int,
+"model": Glow, "opt_state": dict, "seed": int, and "ema": list of tensors
+when ema_decay > 0}; the model holds the parameters and is updated in
+place.  The eval, sample and reconstruct functions take the model to run
+(the JAX ones take a params tree); the trainer hands them its eval copy
+holding the EMA or the live weights.
 
 Per-step randomness comes from a `torch.Generator` seeded from (seed, step)
 alone, so a resumed run draws the same noise; the flips use a separate
@@ -21,6 +25,7 @@ import torch
 
 from pytorch_glow_tpu_torch.config import GlowConfig
 from pytorch_glow_tpu_torch.models.glow import Glow
+from pytorch_glow_tpu_torch.ops.math import true_f32
 from pytorch_glow_tpu_torch.train.optim import Optimizer
 
 State = dict[str, Any]
@@ -70,6 +75,11 @@ def _check_model(model: Glow, cfg: GlowConfig) -> None:
         raise ValueError("the state's model was built from another GlowConfig than this step's")
 
 
+def _prep(model: Glow, batch: torch.Tensor) -> torch.Tensor:
+    batch = batch.to(model.device)
+    return model.preprocess(batch) if batch.dtype == torch.uint8 else batch.float()
+
+
 def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
                         schedule=None, augment_flip: bool = False):
     def train_step(state: State, batch: torch.Tensor):
@@ -77,8 +87,7 @@ def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
         _check_model(model, cfg)
         step = state["step"]
         dev = model.device
-        batch = batch.to(dev)
-        x = model.preprocess(batch) if batch.dtype == torch.uint8 else batch.float()
+        x = _prep(model, batch)
         gen = step_generator(state["seed"], step, dev)
         if augment_flip:
             flip_gen = step_generator(state["seed"], step, dev, FLIP_STREAM)
@@ -87,7 +96,9 @@ def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
         names_params = trainable(model)
         params = [p for _, p in names_params]
         loss, metrics = model.loss_fn(x, gen)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        # The backward's f32 convs run after their forward's pin has ended.
+        with true_f32():
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         flat = tx.flatten(params, grads)
         updates, opt_state = tx.update(flat, state["opt_state"])
         tx.apply(params, updates)
@@ -130,14 +141,44 @@ def make_train_step_n(cfg: GlowConfig, tx: Optimizer, n: int, ema_decay: float =
     return train_step_n
 
 
-def make_eval_step(cfg: GlowConfig) -> Callable:
-    """(model, batch) -> {"nll": mean bits/dim}, without dequantization noise."""
+def make_eval_step_n(cfg: GlowConfig) -> Callable:
+    """(model, (N, B, H, W, C) batches) -> {"nll": the mean over the N
+    batches of each batch's mean bits/dim}, without dequantization noise,
+    summed in f32 in batch order as the JAX fori_loop sums."""
 
     @torch.no_grad()
-    def eval_step(model: Glow, batch: torch.Tensor):
+    def eval_step_n(model: Glow, batches: torch.Tensor):
         _check_model(model, cfg)
-        batch = batch.to(model.device)
-        x = model.preprocess(batch) if batch.dtype == torch.uint8 else batch.float()
-        return {"nll": model.log_prob(x)["nll"].mean()}
+        total = torch.zeros((), dtype=torch.float32, device=model.device)
+        for batch in batches:
+            total = total + model.log_prob(_prep(model, batch))["nll"].mean()
+        return {"nll": total / batches.shape[0]}
 
-    return eval_step
+    return eval_step_n
+
+
+def make_sample_fn(cfg: GlowConfig, n: int, temperature: float) -> Callable:
+    """(model, generator, temperature=None) -> n uint8 samples;
+    `temperature` overrides the default given here (the trainer's annealed
+    plot temperature)."""
+
+    default = temperature
+
+    @torch.no_grad()
+    def sample_fn(model: Glow, generator: torch.Generator, temperature: float | None = None):
+        _check_model(model, cfg)
+        t = default if temperature is None else temperature
+        return model.postprocess(model.sample(n, float(t), generator))
+
+    return sample_fn
+
+
+def make_reconstruct_fn(cfg: GlowConfig) -> Callable:
+    """(model, uint8 or [0,1) batch) -> uint8 decode(encode(batch))."""
+
+    @torch.no_grad()
+    def reconstruct_fn(model: Glow, batch: torch.Tensor):
+        _check_model(model, cfg)
+        return model.postprocess(model.reconstruct(_prep(model, batch)))
+
+    return reconstruct_fn

@@ -1,26 +1,50 @@
-"""Trainer: the step loop with scalar logs, snapshots and the
-non-finite-loss guard.
+"""Trainer: the step loop with scalar logs, snapshots, the boundaries'
+eval, grids and SWD, and the non-finite-loss guard.
 
 Counterpart of `pytorch_glow_tpu/train/trainer.py` `train`: calls of
 `steps_per_call` steps from the state's step (a second call on the same
 `Built`, or a build that resumed from a snapshot, continues where the last
 stopped), the images/sec window restarted after the first call, scalars
-every `scalar_log_gap` steps (CSV under out_dir/name and stdout), a
-rolling snapshot every `checkpoint_gap` steps and a final one when the
-call ends without a failure (`utils/checkpoint.py`; none after a failure,
-so a bad state never rotates out the last good snapshot), the guard
-that stops on persistent non-finite losses, and the step-liveness
+every `scalar_log_gap` steps (CSV and TensorBoard under out_dir/name, and
+stdout), a rolling snapshot every `checkpoint_gap` steps and a final one
+when the call ends without a failure (`utils/checkpoint.py`; none after a
+failure, so a bad state never rotates out the last good snapshot), the
+guard that stops on persistent non-finite losses, and the step-liveness
 watchdog (`_StepWatchdog`, armed by `step_timeout_s`).  The device syncs
-only after the first call, at log boundaries and at snapshots.
+only after the first call, at log boundaries, snapshots and the
+boundaries below.
 
-Not ported yet, each raising NotImplementedError when first reached (not
-at build time, so a few steps of any preset run): sample/recon grids
-(`plot_gap`), held-out eval (`eval_gap`), SWD (`swd_gap`), the profiler
-(`profile_step`) and graceful preemption (SIGTERM).
+After the rolling snapshot of a step, in the JAX order, each on the eval
+copy of the model (`Built.serving`):
+
+* `plot_gap`: `num_sample_images` samples from the EMA weights at
+  `sample_temperature` (annealed over `temperature_anneal_steps`) to
+  samples/step_%08d.png, and the reconstruction of the last batch's first
+  images with the live weights to recon/step_%08d.png;
+* `eval_gap`: `eval_batches` test batches, `eval_nll` with the EMA weights
+  and, with an EMA, `eval_nll_raw` with the live ones; `recon_err_max_u8`
+  over the first eval batch's first images; a new best snapshot when
+  `eval_nll` improves (`best_eval_nll` logged);
+* `swd_gap`: `swd_x1e3`, the sliced Wasserstein distance between the
+  training batch and T=1.0 samples from the EMA weights (numpy, on the
+  host).
+
+Each boundary logs its wall time, `plot_ms` / `eval_ms` / `swd_ms` (the
+device synced before it; each ends on a host read), and the flow-step
+kernel launches it made, `plot_launches` / `eval_launches` /
+`swd_launches` (0 on the CPU, where no kernel runs); the host parts apart
+as `swd_host_ms` (the numpy SWD) and `best_save_ms` (the eval's
+best-snapshot check and write).
+
+`profile_step` traces `profile_num_steps` steps with `torch.profiler` (CPU,
+and CUDA on the card) into out_dir/name/profile/.  A SIGTERM stops the loop
+at the next step boundary; the final snapshot is written and the result
+says `"preempted": True` (rerun the same command to resume).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import signal
@@ -28,19 +52,17 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
+from pytorch_glow_tpu_torch.ops import flowstep
+from pytorch_glow_tpu_torch.train import step as steplib
 from pytorch_glow_tpu_torch.train.builder import Built
+from pytorch_glow_tpu_torch.utils.image import save_image_grid
 from pytorch_glow_tpu_torch.utils.metrics import MetricLogger
 from pytorch_glow_tpu_torch.utils.profiles import profile_to_dict
-
-
-def _not_ported(what: str, step: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (reached at step {step})")
-
-
-def _on_sigterm(signum, frame):
-    raise NotImplementedError("graceful preemption on SIGTERM is not ported yet")
+from pytorch_glow_tpu_torch.utils.summary import summarize
+from pytorch_glow_tpu_torch.utils.swd import sliced_wasserstein
 
 
 WEDGE_EXIT_CODE = 17  # distinct from crash codes, so a supervisor can tell
@@ -113,28 +135,141 @@ def _save(built: Built, state: dict, step: int) -> None:
     built.ckpt.save(step, state, built.data.get_state(), profile_to_dict(built.profile))
 
 
+class _Profiler:
+    """torch.profiler from `start(step)` to `stop()`, a Chrome trace of it
+    written to `out_dir` at the stop.  It writes whatever it recorded: an
+    empty trace never fails the run."""
+
+    def __init__(self, out_dir: str, device: torch.device):
+        self.out_dir, self.device = out_dir, device
+        self._prof = None
+        self.path: str | None = None
+
+    @property
+    def active(self) -> bool:
+        return self._prof is not None
+
+    def start(self, step: int) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+        self.path = os.path.join(self.out_dir, f"trace_step_{step:08d}.json")
+
+    def stop(self) -> None:
+        prof, self._prof = self._prof, None
+        try:
+            _sync(self.device)
+        finally:
+            prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        prof.export_chrome_trace(self.path)
+
+
+def _boundary(kind: str, fn, built: Built, *args) -> dict:
+    """`fn(built, *args)`'s metrics with the boundary's wall ms and its
+    flow-step kernel launches."""
+    _sync(built.device)
+    before = sum(flowstep.launches.values())
+    t0 = time.perf_counter()
+    out = fn(built, *args)
+    return {**out, f"{kind}_ms": 1e3 * (time.perf_counter() - t0),
+            f"{kind}_launches": sum(flowstep.launches.values()) - before}
+
+
+def _plot(built: Built, state: dict, step: int, images: np.ndarray, out_dir: str) -> dict:
+    t = built.profile.train
+    temp = t.sample_temperature
+    if t.temperature_anneal_steps:
+        temp *= min(1.0, step / t.temperature_anneal_steps)
+    gen = steplib.step_generator(t.seed + 2, step, built.device)
+    samples = built.sample_fn(built.serving(steplib.ema_params(state)), gen, temp)
+    save_image_grid(os.path.join(out_dir, "samples", f"step_{step:08d}.png"),
+                    samples.cpu().numpy())
+    live = built.serving(state["model"].state_dict())
+    recon = built.reconstruct_fn(live, torch.from_numpy(images[: t.num_sample_images]))
+    save_image_grid(os.path.join(out_dir, "recon", f"step_{step:08d}.png"), recon.cpu().numpy())
+    return {}
+
+
+def _eval(built: Built, state: dict, step: int) -> dict:
+    t = built.profile.train
+    batches = [b["image"] for b in itertools.islice(built.eval_data, t.eval_batches)]
+    if not batches:
+        return {}
+    stacked = torch.from_numpy(np.stack(batches)).to(built.device)
+    ev = {"eval_nll": float(built.eval_step_n(built.serving(steplib.ema_params(state)),
+                                              stacked)["nll"])}
+    live = built.serving(state["model"].state_dict())
+    if "ema" in state:
+        # The live weights on the same batches: every EMA run carries its
+        # own control.
+        ev["eval_nll_raw"] = float(built.eval_step_n(live, stacked)["nll"])
+    # Round-trip drift: decode(encode(x)) against x in uint8.
+    xb = batches[0][: t.num_sample_images]
+    rec = built.reconstruct_fn(live, torch.from_numpy(xb)).cpu().numpy()
+    ev["recon_err_max_u8"] = float(np.abs(xb.astype(np.int16) - rec.astype(np.int16)).max())
+    t0 = time.perf_counter()
+    if math.isfinite(ev["eval_nll"]) and built.ckpt.maybe_save_best(
+            step, state, ev["eval_nll"], built.data.get_state(), profile_to_dict(built.profile)):
+        ev["best_eval_nll"] = ev["eval_nll"]
+    ev["best_save_ms"] = 1e3 * (time.perf_counter() - t0)
+    return ev
+
+
+def _swd(built: Built, state: dict, step: int, images: np.ndarray) -> dict:
+    t = built.profile.train
+    n = min(t.swd_images, t.batch_size)
+    gen = steplib.step_generator(t.seed + 3, step, built.device)
+    fake = built.swd_sample_fn(built.serving(steplib.ema_params(state)), gen).cpu().numpy()
+    t0 = time.perf_counter()
+    swd = sliced_wasserstein(images[:n], fake, seed=t.seed)["swd_avg"]
+    return {"swd_x1e3": swd, "swd_host_ms": 1e3 * (time.perf_counter() - t0)}
+
+
 def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> dict:
     p = built.profile
     t = p.train
     num_steps = num_steps if num_steps is not None else t.num_steps
-    logger = MetricLogger(os.path.join(p.out_dir, p.name), t.batch_size, quiet=quiet)
+    out_dir = os.path.join(p.out_dir, p.name)
+    logger = MetricLogger(out_dir, t.batch_size, quiet=quiet)
     state = built.state
+    if not quiet:
+        print(f"[train] {summarize(state['model'], p.glow)}", flush=True)
     step = first_step = state["step"]
     spc = t.steps_per_call
     last_metrics: dict = {}
     nonfinite_logs = 0
     t_start = time.perf_counter()
+    profiler = _Profiler(os.path.join(out_dir, "profile"), built.device)
 
+    # Graceful preemption: a SIGTERM sets the flag, and the loop stops at
+    # the next step boundary.  Handlers can only be installed from the main
+    # thread; elsewhere preemption stays off.
+    preempt: dict = {"sig": None}
+    stopped_early = False
     in_main = threading.current_thread() is threading.main_thread()
-    prev_handler = signal.signal(signal.SIGTERM, _on_sigterm) if in_main else None
+    prev_handler = (signal.signal(signal.SIGTERM,
+                                  lambda signum, frame: preempt.__setitem__("sig", signum))
+                    if in_main else None)
     watchdog = _StepWatchdog(t.step_timeout_s) if t.step_timeout_s else None
     try:
         while step < num_steps:
             if watchdog is not None:
                 watchdog.beat()
-            if t.profile_step and step == t.profile_step:
-                raise _not_ported("the profiler (profile_step)", step)
-            images = [torch.from_numpy(next(built.data)["image"]) for _ in range(spc)]
+            if preempt["sig"] is not None:
+                stopped_early = True
+                if not quiet:
+                    print(f"[train] SIGTERM: stopping at step {step} (snapshot will be written)",
+                          flush=True)
+                break
+            if t.profile_step and step == t.profile_step and not profiler.active:
+                profiler.start(step)
+            host_images = [next(built.data)["image"] for _ in range(spc)]
+            images = [torch.from_numpy(x) for x in host_images]
             batch = torch.stack(images) if spc > 1 else images[0]
             state, metrics = built.train_step(state, batch.to(built.device))
             step += spc
@@ -145,6 +280,8 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
                 logger.throughput.reset_clock()
             else:
                 logger.throughput.update(spc)
+            if profiler.active and step >= t.profile_step + t.profile_num_steps:
+                profiler.stop()
 
             if step % t.scalar_log_gap == 0 or step == num_steps:
                 host = {k: float(v) for k, v in metrics.items()}
@@ -166,19 +303,35 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
             # failure there keeps it.
             if t.checkpoint_gap and step % t.checkpoint_gap == 0:
                 _save(built, state, step)
-            for gap_name, what in (("plot_gap", "sample/recon grids"),
-                                   ("eval_gap", "held-out eval"), ("swd_gap", "SWD")):
-                gap = getattr(t, gap_name)
-                if gap and step % gap == 0:
-                    raise _not_ported(f"{what} ({gap_name}={gap})", step)
+            # The last micro-batch feeds the grids and SWD.
+            last = host_images[-1]
+            if t.plot_gap and step % t.plot_gap == 0:
+                logger.scalars(step, _boundary("plot", _plot, built, state, step, last, out_dir))
+            if t.eval_gap and step % t.eval_gap == 0 and built.eval_data is not None:
+                logger.scalars(step, _boundary("eval", _eval, built, state, step))
+            if t.swd_gap and step % t.swd_gap == 0:
+                logger.scalars(step, _boundary("swd", _swd, built, state, step, last))
     except BaseException:
         if watchdog is not None:
             watchdog.stop()  # no snapshot follows a failure
+        if profiler.active:
+            # After a device error the profiler's sync raises again: report
+            # that, and let the original failure propagate.
+            try:
+                profiler.stop()
+            except Exception as e:
+                print(f"[train] profiler stop after a failure also failed: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr, flush=True)
         raise
     finally:
         built.state = state  # the model was updated in place either way
         if in_main:
             signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
+        try:
+            if profiler.active:
+                profiler.stop()
+        finally:
+            logger.close()
     if watchdog is not None:
         # The final snapshot may block on the device, so the thread keeps
         # watching it; one last beat first, so that a clean exit does not
@@ -190,5 +343,8 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
         if watchdog is not None:
             watchdog.stop()  # teardown done; do not police the caller
 
-    return {"final_step": step, "wall_s": time.perf_counter() - t_start,
-            "checkpoint_saved": True, **last_metrics}
+    result = {"final_step": step, "wall_s": time.perf_counter() - t_start,
+              "checkpoint_saved": True, **last_metrics}
+    if stopped_early:
+        result["preempted"] = True
+    return result

@@ -18,12 +18,22 @@ noise.  Each snapshot is written to a temporary file in the same directory
 and moved into place with `os.replace`, so a crash mid-write never leaves a
 broken `<step>.pt`; then all but the newest `keep` are deleted.
 
-Best-checkpoint tracking (the snapshot of lowest held-out eval bits/dim)
-waits for held-out eval.
+Best-snapshot tracking (the snapshot of lowest held-out eval bits/dim, as
+the JAX package's `maybe_save_best` / `restore_best`): a sibling directory
+`<directory>-best/` holds one `<step>.pt`, the same dict as a rolling
+snapshot, and `best.json` of {"step", "metric"}.  A new best is written in
+the order that leaves a consistent pair after a crash at any point: its
+`<step>.pt` (temporary file, `os.replace`), then `best.json` (the same),
+then the older `.pt` files are deleted.  Where `best.json` names a step
+that is not on disk, `restore_best` loads the newest best file there and
+prints a warning.  The port saves synchronously, so the JAX package's
+bookkeeping of asynchronous best saves (`_best_pending`, commit threads)
+has no counterpart here.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import tempfile
@@ -34,17 +44,39 @@ import torch
 _NAME = re.compile(r"^(\d+)\.pt$")
 
 
+def _steps(directory: str) -> list[int]:
+    """Steps with a `<step>.pt` in `directory`, ascending."""
+    if not os.path.isdir(directory):
+        return []
+    found = (_NAME.match(name) for name in os.listdir(directory))
+    return sorted(int(m.group(1)) for m in found if m)
+
+
+def _write_atomic(path: str, write) -> None:
+    """`write(file)` into a temporary file beside `path`, then move it there."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write(f)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def _load(path: str, device: torch.device | str) -> dict:
+    return torch.load(path, map_location=device, weights_only=True)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.directory = os.path.abspath(directory)
+        self.best_directory = self.directory + "-best"
         self._keep = max(1, keep)
 
     def steps(self) -> list[int]:
         """Steps with a snapshot on disk, ascending."""
-        if not os.path.isdir(self.directory):
-            return []
-        found = (_NAME.match(name) for name in os.listdir(self.directory))
-        return sorted(int(m.group(1)) for m in found if m)
+        return _steps(self.directory)
 
     def latest_step(self) -> int | None:
         steps = self.steps()
@@ -53,8 +85,8 @@ class CheckpointManager:
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
 
-    def save(self, step: int, state: dict, data_state: dict | None, profile: dict) -> str:
-        """Write the snapshot of `state` at `step`; keep the newest `keep`."""
+    def _write(self, directory: str, step: int, state: dict, data_state: dict | None,
+               profile: dict) -> None:
         snapshot: dict[str, Any] = {
             "step": int(step),
             "seed": int(state["seed"]),
@@ -64,15 +96,12 @@ class CheckpointManager:
             "data_state": data_state,
             "profile": profile,
         }
-        os.makedirs(self.directory, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                torch.save(snapshot, f)
-            os.replace(tmp, self.path(step))
-        except BaseException:
-            os.unlink(tmp)
-            raise
+        os.makedirs(directory, exist_ok=True)
+        _write_atomic(os.path.join(directory, f"{step}.pt"), lambda f: torch.save(snapshot, f))
+
+    def save(self, step: int, state: dict, data_state: dict | None, profile: dict) -> str:
+        """Write the snapshot of `state` at `step`; keep the newest `keep`."""
+        self._write(self.directory, step, state, data_state, profile)
         for old in self.steps()[:-self._keep]:
             os.remove(self.path(old))
         return self.path(step)
@@ -83,4 +112,47 @@ class CheckpointManager:
         step = self.latest_step()
         if step is None:
             return None
-        return torch.load(self.path(step), map_location=device, weights_only=True)
+        return _load(self.path(step), device)
+
+    # -- the best snapshot ----------------------------------------------------
+
+    def _best_json(self) -> str:
+        return os.path.join(self.best_directory, "best.json")
+
+    def best_info(self) -> dict | None:
+        """{"step": int, "metric": float} of the best snapshot, or None."""
+        if not os.path.isfile(self._best_json()):
+            return None
+        with open(self._best_json()) as f:
+            return json.load(f)
+
+    def maybe_save_best(self, step: int, state: dict, metric: float,
+                        data_state: dict | None, profile: dict) -> bool:
+        """Save `state` as the best snapshot iff `metric` (lower is better,
+        e.g. eval bits/dim) improves on the stored best; True when it did."""
+        prev = self.best_info()
+        if prev is not None and not float(metric) < float(prev["metric"]):
+            return False
+        self._write(self.best_directory, step, state, data_state, profile)
+        info = json.dumps({"step": int(step), "metric": float(metric)}).encode()
+        _write_atomic(self._best_json(), lambda f: f.write(info))
+        for old in _steps(self.best_directory):
+            if old != step:
+                os.remove(os.path.join(self.best_directory, f"{old}.pt"))
+        return True
+
+    def restore_best(self, device: torch.device | str) -> dict | None:
+        """The best snapshot with its tensors on `device`, or None when no
+        best was recorded (or none of its files is on disk)."""
+        info = self.best_info()
+        if info is None:
+            return None
+        on_disk = _steps(self.best_directory)
+        step = int(info["step"])
+        if step not in on_disk:
+            if not on_disk:
+                return None
+            print(f"[checkpoint] warning: best.json names step {step}, which is not on disk; "
+                  f"restoring the newest best snapshot there, step {on_disk[-1]}", flush=True)
+            step = on_disk[-1]
+        return _load(os.path.join(self.best_directory, f"{step}.pt"), device)

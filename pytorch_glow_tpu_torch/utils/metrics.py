@@ -1,8 +1,11 @@
-"""Metrics: CSV scalars, an images/sec meter, and the logger over both.
+"""Metrics: CSV scalars, TensorBoard, an images/sec meter, and the logger
+over them.
 
-A copy of the numpy-only parts of `pytorch_glow_tpu/utils/metrics.py`
-(`CsvWriter`, `Throughput`, `MetricLogger`).  The TensorBoard writer is not
-ported yet.
+Counterpart of `pytorch_glow_tpu/utils/metrics.py` (`CsvWriter`,
+`TBWriter`, `Throughput`, `MetricLogger`).  The TensorBoard writer is
+`torch.utils.tensorboard.SummaryWriter` (the JAX package's goes through
+`tf.summary`), under <out_dir>/<name>/tb; where `tensorboard` is not
+importable it is disabled, as there, with one printed line that says so.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ import csv
 import os
 import time
 from typing import Any
+
+import numpy as np
 
 
 class CsvWriter:
@@ -50,6 +55,32 @@ class CsvWriter:
                 csv.DictWriter(f, fieldnames=self._fields, restval="").writerow(row)
 
 
+class TBWriter:
+    def __init__(self, logdir: str):
+        self._writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            print(f"[metrics] TensorBoard logging disabled: {e}", flush=True)
+            return
+        self._writer = SummaryWriter(logdir)
+
+    def scalars(self, step: int, values: dict[str, float]) -> None:
+        if self._writer is None:
+            return
+        for k, v in values.items():
+            self._writer.add_scalar(k, float(v), global_step=step)
+
+    def image(self, step: int, tag: str, image: np.ndarray) -> None:
+        """One (H, W, C) uint8 image."""
+        if self._writer is not None:
+            self._writer.add_image(tag, image, global_step=step, dataformats="HWC")
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+
+
 class Throughput:
     """images/sec meter over a window of steps."""
 
@@ -76,12 +107,20 @@ class Throughput:
 class MetricLogger:
     def __init__(self, out_dir: str, batch_size: int, quiet: bool = False):
         self.csv = CsvWriter(os.path.join(out_dir, "metrics.csv"))
+        self.tb = TBWriter(os.path.join(out_dir, "tb"))
         self.throughput = Throughput(batch_size)
         self.quiet = quiet
 
     def scalars(self, step: int, values: dict[str, Any]) -> None:
         vals = {k: float(v) for k, v in values.items()}
         self.csv.scalars(step, vals)
+        self.tb.scalars(step, vals)
         if not self.quiet:
             msg = " ".join(f"{k}={v:.4g}" for k, v in vals.items())
             print(f"[step {step}] {msg}", flush=True)
+
+    def image(self, step: int, tag: str, image: np.ndarray) -> None:
+        self.tb.image(step, tag, image)
+
+    def close(self) -> None:
+        self.tb.close()

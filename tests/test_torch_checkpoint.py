@@ -1,7 +1,7 @@
 """Snapshots (`utils/checkpoint.py`) and resume through `build` / `train` on
 the CPU: the round-trip, the rolling window, a bitwise resume (as the JAX
 package's `test_resume_is_bitwise_deterministic`), no save after a failure,
-and no silent fallback for the best snapshot."""
+and an unknown `restore` refused."""
 
 import dataclasses
 import os
@@ -77,7 +77,12 @@ def test_no_save_after_a_failure(tmp_path):
     built = build(_profile(tmp_path, checkpoint_gap=2), device="cpu")
     built = dataclasses.replace(built, profile=built.profile.replace(
         train=dataclasses.replace(built.profile.train, plot_gap=4)))
-    with pytest.raises(NotImplementedError, match="grids"):
+
+    def failing_sample(*args):
+        raise RuntimeError("sample failed")
+
+    built.sample_fn = failing_sample
+    with pytest.raises(RuntimeError, match="sample failed"):
         train(built, num_steps=6, quiet=True)
     # The rolling snapshots up to the failing boundary, which saves before
     # it fails, and no final one.
@@ -85,8 +90,7 @@ def test_no_save_after_a_failure(tmp_path):
     assert built.state["step"] == 4
 
 
-def test_restore_best_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="held-out eval"):
-        build(_profile(tmp_path), device="cpu", restore="best")
+def test_unknown_restore_raises(tmp_path):
     with pytest.raises(ValueError, match="restore"):
         build(_profile(tmp_path), device="cpu", restore="newest")
+    assert not os.path.exists(_ckpt_dir(tmp_path))

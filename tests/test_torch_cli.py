@@ -83,13 +83,14 @@ def test_errors_exit_non_zero(tmp_path):
     with pytest.raises(SystemExit) as e:
         _infer(str(tmp_path), "sample", "--best")
     assert "no checkpoint found" in str(e.value.code)
-    # With a snapshot there (only its name is read), still no best one.
-    snap = tmp_path / "run" / "cifar10" / "checkpoints" / "1.pt"
-    snap.parent.mkdir(parents=True)
-    snap.touch()
+    # A best.json whose snapshot is gone, and no rolling snapshot: nothing
+    # to load either.
+    best = tmp_path / "run" / "cifar10" / "checkpoints-best" / "best.json"
+    best.parent.mkdir(parents=True)
+    best.write_text('{"step": 4, "metric": 3.0}')
     with pytest.raises(SystemExit) as e:
         _infer(str(tmp_path / "run"), "sample", "--best")
-    assert "held-out eval" in str(e.value.code)
+    assert "no checkpoint found" in str(e.value.code)
     with pytest.raises(SystemExit) as e:
         train_cli.main(["no-such-profile", "--cpu"])
     assert "neither a file nor a preset" in str(e.value.code)

@@ -5,7 +5,6 @@ and `build` -> `train` on the CPU.
 Weights go JAX -> port through `state_dict_from_jax`, gradients the same
 way (the conversion is linear); images and noise are numpy."""
 
-import dataclasses
 import os
 import sys
 import threading
@@ -18,6 +17,8 @@ import optax
 import pytest
 import torch
 
+from pytorch_glow_tpu.config import DataConfig as JaxDataConfig
+from pytorch_glow_tpu.config import GlowConfig as JaxGlowConfig
 from pytorch_glow_tpu.config import OptimConfig as JaxOptimConfig
 from pytorch_glow_tpu.config import TrainConfig as JaxTrainConfig
 from pytorch_glow_tpu.data import pipeline
@@ -186,6 +187,9 @@ def test_three_train_steps_match_jax():
 
 @pytest.mark.parametrize("family", ["synthetic", "synthetic_smooth", "synthetic_textured"])
 def test_synthetic_batches_equal_jax_pipeline(family):
+    """Each family's batches, and `make_dataset`'s train and test splits
+    (the test split on its own seed offset), byte for byte the JAX
+    pipeline's."""
     kind = pipeline.SYNTHETIC_NAMES[family]
     assert synthetic.SYNTHETIC_NAMES[family] == kind
     for seed in (0, 7):
@@ -197,6 +201,18 @@ def test_synthetic_batches_equal_jax_pipeline(family):
             a, b = next(ours)["image"], next(theirs)["image"]
             assert a.dtype == b.dtype == np.uint8
             np.testing.assert_array_equal(a, b, err_msg=f"seed {seed} index {index}")
+    glow = dict(image_shape=(8, 8, 3), hidden_channels=16, K=2, L=2)
+    firsts = {}
+    for split in ("train", "test"):
+        ours = synthetic.make_dataset(DataConfig(name=family), GlowConfig(**glow),
+                                      TrainConfig(batch_size=4, seed=3), split=split)
+        theirs = pipeline.make_dataset(JaxDataConfig(name=family), JaxGlowConfig(**glow),
+                                       JaxTrainConfig(batch_size=4, seed=3), split=split)
+        for index in range(2):
+            a, b = next(ours)["image"], next(theirs)["image"]
+            np.testing.assert_array_equal(a, b, err_msg=f"{split} batch {index}")
+            firsts.setdefault(split, a)
+    assert not np.array_equal(firsts["train"], firsts["test"])
 
 
 def _profile(tmp_path, data="celeba", **train):
@@ -243,19 +259,6 @@ def test_flips_are_deterministic_per_step(tmp_path):
         runs.append(built.state["model"].state_dict())
     assert all(torch.equal(v, runs[1][k]) for k, v in runs[0].items())
     assert not all(torch.equal(v, runs[2][k]) for k, v in runs[0].items())
-
-
-def test_unported_gap_raises_when_reached(tmp_path):
-    built = build(_profile(tmp_path, data="synthetic", eval_gap=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="held-out eval"):
-        train(built, num_steps=6, quiet=True)
-    assert built.state["step"] == 4
-    built = build(dataclasses.replace(_profile(tmp_path, data="synthetic"), name="p"),
-                  device="cpu")
-    built = dataclasses.replace(built, profile=built.profile.replace(
-        train=dataclasses.replace(built.profile.train, plot_gap=2)))
-    with pytest.raises(NotImplementedError, match="grids"):
-        train(built, num_steps=4, quiet=True)
 
 
 # ---------------------------------------------------------------------------
