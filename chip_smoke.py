@@ -62,6 +62,33 @@
    and above 0; best.json at the lowest eval_nll, `build(restore="best")`
    giving it again (rtol 1e-6), `cli.infer nll --best` with no fallback;
    the profiler's trace and its kernel events.
+19. Runs after 18: the data layer.  Every `build` above reads its batches
+   through `data/pipeline.make_dataset` and the prefetcher.  (a) Writes a
+   full-size CIFAR-10 python-pickle set (data_batch_1..5 of 10000 and
+   test_batch of 10000, textured images from seed 0) and trains the
+   cifar10 preset from it at full width (K=32, L=3, hidden 512, b=256,
+   fused, bf16 coupling) through the train CLI in-process for 20 steps
+   with an eval at 10 and 20; the same profile fed the same 20 steps on
+   the launch thread with no prefetcher ends with bitwise-equal
+   parameters; a run stopped at step 10 with the prefetch queue full
+   (the prefetcher at least `prefetch` batches ahead) and resumed through
+   the CLI ends at 20 with the same parameters and stream position.
+   (b) 50 batches of the files through the prefetcher to the card, the
+   consumer's stream sleeping (`torch.cuda._sleep`) and writing a fresh
+   allocation between them: each device batch, read before and after the
+   sleep, byte-equal to its host batch.  (c) A CelebA folder of 1500
+   178x218 PNGs (`utils/image.encode_png`), `list_attr_celeba.txt` and
+   `list_eval_partition.txt`: the first celeba64 train batch within 1 of
+   the numpy crop-and-bilinear plain version of the decoder in use (the
+   native decoder's half-pixel bilinear, or Pillow's antialiased one),
+   then celeba64 (b=128) trained 10 steps through the train CLI with an
+   eval at 10, its device batches carrying "attr" (128, 40) in ±1.
+   (d) The host ms of a batch of each source (textured at cifar10 and
+   celeba64, the CIFAR gather, the celeba decode), the cifar10 preset's
+   median step through the trainer from the files with the batches built
+   on the prefetcher's thread and in 4 worker processes, and the device's
+   idle share over trainer steps 10-15 (the trainer's torch.profiler
+   trace, in a run of its own).
 
 8. Holds K1/K2 at celebahq256's levels 1-5 and K3 at its levels 2-5, the
    shapes they run at on its path (b=64, additive, the preset's coupling),
@@ -224,6 +251,11 @@ INVCONV_TPU_KERNELS = {"invconv_forward": "pytorch_glow_tpu/ops/invconv_pallas.p
 CIFAR_BATCH = 256
 # Phase 15's preemption check: seconds into a train call before the SIGTERM.
 PREEMPT_AFTER_S = 1.0
+# Phase 19: the CelebA folder's images and test split, the timed cifar10
+# runs' steps and the worker loader's processes.
+CELEBA_IMAGES, CELEBA_TEST = 1500, 160
+TIMED_STEPS = 30
+DATA_WORKERS = 4
 
 
 def require(ok: bool, what: str) -> None:
@@ -854,7 +886,7 @@ def check_training(torch, fs, card: str, out_dir: str, profiling: bool = False,
     plain_cfg = dataclasses.replace(cfg, flowstep_impl="xla")
     plain = init_glow(plain_cfg)
     plain.load_state_dict(model.state_dict())
-    x = model.preprocess(torch.from_numpy(next(built.data)["image"]).cuda())
+    x = model.preprocess(next(built.data)["image"])
 
     def param_grads(m):
         params = list(m.parameters())
@@ -910,7 +942,7 @@ def check_training(torch, fs, card: str, out_dir: str, profiling: bool = False,
     # and the raw grads' global norm within rtol 2e-2 at every step.
     print(f"fused vs unfused, 3 steps from one state on the same batches, b={t.batch_size}")
     for _ in range(3):
-        batch = torch.from_numpy(next(built.data)["image"]).cuda()
+        batch = next(built.data)["image"]
         state_f, mf = fused_step(state_f, batch)
         state_p, mp = plain_step(state_p, batch)
         lf, lp = float(mf["loss"]), float(mp["loss"])
@@ -924,7 +956,7 @@ def check_training(torch, fs, card: str, out_dir: str, profiling: bool = False,
             f"fused vs unfused loss after 3 steps: {lf} vs {lp}")
 
     # -- times: train step, fused and unfused -------------------------------
-    batches = [torch.from_numpy(next(built.data)["image"]).cuda() for _ in range(time_steps + 1)]
+    batches = [next(built.data)["image"] for _ in range(time_steps + 1)]
     del state_p
     fused_ms, fused_mem = train_step_ms(fused_step, state_f, batches, torch)
     plain_ms, plain_mem = train_step_ms(plain_step, clone_state(state_f, plain), batches, torch)
@@ -969,7 +1001,7 @@ def check_boundaries(torch, fs, card: str, out_root: str) -> dict:
     from pytorch_glow_tpu_torch import Inferer, build, init_glow
     from pytorch_glow_tpu_torch.cli import infer as infer_cli
     from pytorch_glow_tpu_torch.cli import train as train_cli
-    from pytorch_glow_tpu_torch.data.synthetic import make_dataset
+    from pytorch_glow_tpu_torch.data.pipeline import make_dataset
     from pytorch_glow_tpu_torch.train import step as steplib
     from pytorch_glow_tpu_torch.utils.checkpoint import CheckpointManager
     from pytorch_glow_tpu_torch.utils.image import make_grid
@@ -1647,7 +1679,7 @@ def check_invconv_training(torch, icf, card: str, out_root: str,
         [*common, "--out-dir", run_dir, "--set", "train.checkpoint_gap=5"])))
     require(built.resumed and built.start_step == 15, "build did not restore step 15")
     model, t = built.state["model"], built.profile.train
-    x = model.preprocess(torch.from_numpy(next(built.data)["image"]).cuda())
+    x = model.preprocess(next(built.data)["image"])
 
     def param_grads(impl: str):
         m = init_glow(dataclasses.replace(cifar_cfg(impl), compute_dtype="float32"))
@@ -1700,7 +1732,7 @@ def check_invconv_training(torch, icf, card: str, out_root: str,
     step_x = steplib.make_train_step(cifar_cfg("xla"), built.tx, t.ema_decay, built.schedule)
     state_p, state_x = built.state, clone_state(built.state, plain)
     for _ in range(3):
-        batch = torch.from_numpy(next(built.data)["image"]).cuda()
+        batch = next(built.data)["image"]
         state_p, mp = step_p(state_p, batch)
         state_x, mx = step_x(state_x, batch)
         lp, lx = float(mp["loss"]), float(mx["loss"])
@@ -1709,7 +1741,7 @@ def check_invconv_training(torch, icf, card: str, out_root: str,
               f"{gp:.6f} vs {gx:.6f} (rel {abs(gp - gx) / abs(gx):.2e})")
         require(math.isfinite(gp) and abs(gp - gx) <= 2e-2 * abs(gx), f"grad_norm {gp} vs {gx}")
     require(abs(lp - lx) <= 2e-2 * abs(lx), f"loss after 3 steps {lp} vs {lx}")
-    batches = [torch.from_numpy(next(built.data)["image"]).cuda() for _ in range(4)]
+    batches = [next(built.data)["image"] for _ in range(4)]
     del state_x
     # Three rounds in turns: this step is host-bound, and the host's speed
     # drifts within a call by more than the two paths differ.  The peak
@@ -2041,6 +2073,276 @@ def check_anatomy(torch, fs, results: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the data layer
+# ---------------------------------------------------------------------------
+
+
+def crop_resize_plain(img, size: int, antialias: bool):
+    """The plain version of a folder decoder's centre crop and bilinear
+    resize, in numpy: half-pixel centres with no antialias (the native
+    decoder), or Pillow's BILINEAR, a triangle filter widened by the
+    downscale factor, horizontal pass first, each pass rounded to uint8."""
+    import numpy as np
+
+    h, w, _ = img.shape
+    s = min(h, w)
+    y0, x0 = (h - s) // 2, (w - s) // 2
+    crop = img[y0:y0 + s, x0:x0 + s].astype(np.float64)
+    scale = s / size
+    weights = np.zeros((size, s))
+    for o in range(size):
+        if antialias:
+            width = max(scale, 1.0)
+            center = (o + 0.5) * scale
+            lo, hi = max(int(center - width + 0.5), 0), min(int(center + width + 0.5), s)
+            x = np.arange(lo, hi)
+            k = np.maximum(0.0, 1.0 - np.abs((x - center + 0.5) / width))
+            weights[o, lo:hi] = k / k.sum()
+        else:
+            f = (o + 0.5) * scale - 0.5
+            i = int(np.floor(f))
+            weights[o, min(max(i, 0), s - 1)] += 1 - (f - i)
+            weights[o, min(max(i + 1, 0), s - 1)] += f - i
+    rows = np.einsum("ox,yxc->yoc", weights, crop)
+    if antialias:
+        rows = np.clip(np.round(rows), 0, 255)
+    out = np.einsum("oy,yxc->oxc", weights, rows)
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+
+class DirectBatches:
+    """The host stream handed to the trainer on the launch thread, each
+    batch copied to the card as it is asked for: the trainer's input
+    without the prefetcher."""
+
+    def __init__(self, host, torch):
+        self.host, self.torch = host, torch
+
+    def __next__(self):
+        return {k: self.torch.from_numpy(v).cuda() for k, v in next(self.host).items()}
+
+    def get_state(self):
+        return self.host.get_state()
+
+    def close(self):
+        pass
+
+
+def same_params(torch, a: dict, b: dict) -> tuple[int, float]:
+    """(tensors that differ, their largest |diff|) between two state dicts."""
+    diff = [float((a[k].float() - b[k].float()).abs().max())
+            for k in a if not torch.equal(a[k], b[k])]
+    return len(diff), max(diff, default=0.0)
+
+
+def median_step(run: str, batch: int, gap: int) -> float:
+    from pytorch_glow_tpu_torch.scripts.run_summary import summarize_run
+
+    with open(os.path.join(run, "metrics.csv")) as f:
+        return summarize_run(list(csv.DictReader(f)), batch, gap)["median_step_ms"]
+
+
+def check_data(torch, fs, card: str, out_root: str) -> None:
+    """Phase 19: the data layer.  (a) A full-size CIFAR-10 pickle set
+    (textured images from a seed) trains the cifar10 preset at full width
+    (K=32, L=3, hidden 512, b=256, fused, bf16 coupling) through the train
+    CLI for 20 steps with an eval at 10 and 20; the same 20 steps fed on
+    the launch thread with no prefetcher end with bitwise-equal
+    parameters, as does a run stopped at step 10 with a full prefetch queue
+    and resumed.  (b) 50 batches through the prefetcher to the card, the
+    consumer's stream sleeping and allocating between them: each device
+    batch, read before and after the sleep, equal to its host batch.  (c)
+    A CelebA folder of 178x218 PNGs: the decoder's first train batch within
+    1 of its plain version, and celeba64 (b=128) trained 10 steps through
+    the train CLI with "attr" (128, 40) in its device batches.  (d) The host
+    ms of a batch of each source, the cifar10 preset's median step through
+    the trainer from the files with batches built on the prefetcher's
+    thread and in worker processes, and the device's idle share over
+    trainer steps."""
+    import numpy as np
+
+    from pytorch_glow_tpu_torch import build, train
+    from pytorch_glow_tpu_torch.cli import train as train_cli
+    from pytorch_glow_tpu_torch.data import native_loader
+    from pytorch_glow_tpu_torch.data.celeba import CelebAFolder
+    from pytorch_glow_tpu_torch.data.pipeline import DevicePrefetch, epoch_permutation, make_dataset
+    from pytorch_glow_tpu_torch.scripts import perf_data
+
+    t0 = time.perf_counter()
+    cifar = perf_data.write_cifar10(os.path.join(out_root, "cifar10-data"), seed=SEED)
+    print(f"CIFAR-10 pickles written (5 x 10000 + 10000 textured images): "
+          f"{time.perf_counter() - t0:.2f} s")
+    argv = ["cifar10", "--data-root", cifar, "--quiet", "--set", "train.eval_gap=10",
+            "--set", "train.eval_batches=2", "--set", "train.checkpoint_gap=10"]
+
+    def profile_of(out_dir: str, *extra: str):
+        return train_cli.resolve_profile(train_cli.parse_args([*argv, "--out-dir", out_dir,
+                                                               *extra]))
+
+    # -- (a) the main path: cifar10 from the files through the train CLI ------
+    fs.reset_launches()
+    t0 = time.perf_counter()
+    result, _ = run_cli(train_cli.main, [*argv, "--out-dir", os.path.join(out_root, "a"),
+                                         "--steps", "20"])
+    torch.cuda.synchronize()
+    prof = profile_of(os.path.join(out_root, "a"))
+    cfg, t = prof.glow, prof.train
+    print(f"train CLI cifar10 from the CIFAR-10 files (K={cfg.K}, L={cfg.L}, hidden "
+          f"{cfg.hidden_channels}, b={t.batch_size}, {cfg.flowstep_impl}, {cfg.compute_dtype} "
+          f"coupling, steps_per_call={t.steps_per_call}, prefetch {prof.data.prefetch}), "
+          f"20 steps: {time.perf_counter() - t0:.2f} s; launches {dict(fs.launches)}")
+    require(result["final_step"] == 20 and math.isfinite(result["loss"]), f"train {result}")
+    steps20 = expected_launches(fs, cfg, t.batch_size, ("backward",), 20)
+    require(fs.launches["forward"] > 0 and fs.launches["backward"] == steps20["backward"],
+            f"launches {fs.launches}, want {steps20['backward']} backward")
+    with open(os.path.join(out_root, "a", prof.name, "metrics.csv")) as f:
+        evals = [r for r in csv.DictReader(f) if r.get("eval_nll")]
+    require([int(r["step"]) for r in evals] == [10, 20]
+            and all(math.isfinite(float(r["eval_nll"])) for r in evals), f"evals {evals}")
+    want = torch.load(os.path.join(out_root, "a", prof.name, "checkpoints", "20.pt"),
+                      map_location="cuda", weights_only=True)
+    require(want["data_state"] == {"next_index": 21}, f"data state {want['data_state']}")
+
+    # The same 20 steps on batches built and copied on the launch thread.
+    built = build(profile_of(os.path.join(out_root, "direct")))
+    host = make_dataset(built.profile.data, cfg, t)
+    host.set_state(built.data.get_state())
+    built.data.close()
+    built.data = DirectBatches(host, torch)
+    train(built, num_steps=20, quiet=True)
+    n, worst = same_params(torch, built.state["model"].state_dict(), want["model"])
+    print(f"cifar10 20 steps, prefetched (train CLI) vs on the launch thread: {n} parameter "
+          f"tensors differ, max |diff| {worst:.3e}")
+    require(n == 0, f"prefetched vs direct: {n} tensors differ by up to {worst}")
+
+    # Stopped at step 10 with a full prefetch queue, then resumed to 20.
+    stop = build(profile_of(os.path.join(out_root, "resume")))
+    train(stop, num_steps=10, quiet=True)
+    built_ahead = stop.data._inner.get_state()["next_index"]
+    print(f"stopped at step 10: consumed {stop.data.get_state()}, the prefetcher had built up "
+          f"to batch {built_ahead}")
+    require(stop.data.get_state() == {"next_index": 11}
+            and built_ahead >= 11 + prof.data.prefetch, f"stop {stop.data.get_state()} "
+            f"{built_ahead}")
+    del stop
+    resumed, text = run_cli(train_cli.main, [*argv, "--out-dir", os.path.join(out_root, "resume"),
+                                             "--steps", "20"])
+    require("resumed from step 10" in text and resumed["final_step"] == 20, f"resume {resumed}")
+    got = torch.load(os.path.join(out_root, "resume", prof.name, "checkpoints", "20.pt"),
+                     map_location="cuda", weights_only=True)
+    n, worst = same_params(torch, got["model"], want["model"])
+    print(f"cifar10 resumed at 10 through a full prefetch queue vs 20 straight: {n} parameter "
+          f"tensors differ, max |diff| {worst:.3e}")
+    require(n == 0 and got["data_state"] == want["data_state"], f"resume: {n} differ by {worst}")
+    del built, want, got
+    torch.cuda.empty_cache()
+
+    # -- (b) the prefetcher under load ----------------------------------------
+    stream = DevicePrefetch(make_dataset(prof.data, cfg, t), "cuda", prof.data.prefetch)
+    host = make_dataset(prof.data, cfg, t)
+    expected, early, late = [], [], []
+    try:
+        for _ in range(50):
+            expected.append(next(host)["image"])
+            batch = next(stream)["image"]
+            early.append(batch.clone())
+            torch.cuda._sleep(5_000_000)
+            late.append(batch.clone())
+            del batch
+            torch.empty(t.batch_size * 32 * 32 * 3, dtype=torch.uint8, device="cuda").fill_(7)
+        torch.cuda.synchronize()
+    finally:
+        stream.close()
+    bad = [i for i in range(50) for x in (early[i], late[i])
+           if not np.array_equal(x.cpu().numpy(), expected[i])]
+    print(f"50 prefetched batches (b={t.batch_size}) under a sleeping, allocating consumer: "
+          f"{len(bad)} differ from their host batches")
+    require(not bad, f"prefetched batches differ: {bad[:5]}")
+    del expected, early, late
+
+    # -- (c) CelebA at celeba64 -------------------------------------------------
+    decoder = "native" if native_loader.available() else "pillow"
+    t0 = time.perf_counter()
+    celeba = perf_data.write_celeba(os.path.join(out_root, "celeba-data"), CELEBA_IMAGES,
+                                    CELEBA_TEST, seed=SEED)
+    print(f"CelebA folder written ({CELEBA_IMAGES} 178x218 PNGs): "
+          f"{time.perf_counter() - t0:.2f} s; decoder: {decoder}")
+    cargv = ["celeba64", "--data-root", celeba, "--quiet", "--out-dir",
+             os.path.join(out_root, "c"), "--set", "train.eval_gap=10",
+             "--set", "train.eval_batches=1"]
+    cprof = train_cli.resolve_profile(train_cli.parse_args(cargv))
+    size, b = cprof.data.image_size, cprof.train.batch_size
+    files = CelebAFolder(celeba, size, "train")
+    order = epoch_permutation(cprof.train.seed, 0, len(files), True)[:b]
+    first = next(make_dataset(cprof.data, cprof.glow, cprof.train))
+    plain = []
+    for j in order:
+        with open(files.path(int(j)), "rb") as f:
+            plain.append(crop_resize_plain(decode_png(f.read()), size, decoder == "pillow"))
+    plain = np.stack(plain)
+    err = int(np.abs(first["image"].astype(np.int16) - plain.astype(np.int16)).max())
+    print(f"celeba64 first train batch ({decoder} decoder, b={b}) against the numpy crop and "
+          f"bilinear plain version: max |diff| {err} (bound 1)")
+    require(first["image"].shape == (b, size, size, 3) and err <= 1, f"decode err {err}")
+    require(first["attr"].shape == (b, 40), f"attr {first['attr'].shape}")
+    t0 = time.perf_counter()
+    cres, _ = run_cli(train_cli.main, [*cargv, "--steps", "10"])
+    print(f"train CLI celeba64 from the CelebA folder (b={b}), 10 steps: "
+          f"{time.perf_counter() - t0:.2f} s; {cres}")
+    require(cres["final_step"] == 10 and math.isfinite(cres["loss"]), f"celeba64 {cres}")
+    again = build(cprof)
+    require(again.resumed and again.start_step == 10, "celeba64 did not resume")
+    dev = next(again.data)
+    again.data.close()
+    require(dev["image"].is_cuda and dev["attr"].is_cuda and tuple(dev["attr"].shape) == (b, 40)
+            and set(dev["attr"].unique().tolist()) <= {-1, 1}, f"device attr {dev['attr']}")
+    print(f"celeba64 device batch: image {tuple(dev['image'].shape)} {dev['image'].dtype}, "
+          f"attr {tuple(dev['attr'].shape)} {dev['attr'].dtype}")
+    del again, dev
+
+    # -- (d) timing ---------------------------------------------------------------
+    host_ms = perf_data.source_host_ms(cifar)
+    host_ms[f"celeba64_decode_b128_{decoder}"] = perf_data.host_ms(
+        make_dataset(cprof.data, cprof.glow, cprof.train), batches=5)
+    print(f"host ms per batch: {json.dumps(host_ms)}; card: {card}")
+    steps = {}
+    for arm, workers in (("thread", 0), ("workers", DATA_WORKERS)):
+        out = os.path.join(out_root, f"d-{arm}")
+        run_cli(train_cli.main, ["cifar10", "--data-root", cifar, "--quiet", "--out-dir", out,
+                                 "--steps", str(TIMED_STEPS), "--set", "train.scalar_log_gap=10",
+                                 "--set", f"data.grain_workers={workers}"])
+        steps[arm] = median_step(os.path.join(out, "cifar10"), 256, 10)
+    print(f"cifar10 from the files, median train step ms through the trainer ({TIMED_STEPS} "
+          f"steps, windows of 10 after the first; thread: the prefetcher's thread builds the "
+          f"batches, workers: {DATA_WORKERS} worker processes do; scripts/perf_data.py times "
+          f"more runs in turns): {json.dumps(steps)}; card: {card}")
+    # The device's idle share over steps 10-15 from the files, in a run of
+    # its own (the profiler slows the host): the trainer's profiler trace,
+    # the union of its kernel and copy intervals against the trace's span.
+    out = os.path.join(out_root, "d-profiled")
+    run_cli(train_cli.main, ["cifar10", "--data-root", cifar, "--quiet", "--out-dir", out,
+                             "--steps", "15", "--set", "train.profile_step=10",
+                             "--set", "train.profile_num_steps=5"])
+    with open(os.path.join(out, "cifar10", "profile", "trace_step_00000010.json")) as f:
+        events = [e for e in json.load(f).get("traceEvents", []) if "ts" in e and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if str(e.get("cat", "")).lower() in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if device:
+        busy, end = 0.0, -math.inf
+        for lo, hi in device:
+            busy += max(0.0, hi - max(lo, end))
+            end = max(end, hi)
+        span = max(float(e["ts"]) + float(e["dur"]) for e in events) - min(
+            float(e["ts"]) for e in events)
+        print(f"cifar10 trainer steps 10-15 from the CIFAR files (torch.profiler trace, "
+              f"profiler on): span {span / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms in "
+              f"{len(device)} kernels and copies, idle share {max(0.0, 1 - busy / span):.3f}; "
+              f"card: {card}")
+    else:
+        print("cifar10 trainer idle share: not measured (the trace held no kernel)")
+
+
 def compare_nll(inf, plain_inf, images, what: str) -> None:
     """Fused-kernel nll against the unfused PyTorch layers, the repo's rtol 2e-2."""
     nll, nll_plain = inf.nll(images), plain_inf.nll(images)
@@ -2099,6 +2401,9 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     t0 = time.perf_counter()
     boundary_launches = check_boundaries(torch, fs, card, os.path.join(out_root, "boundaries"))
     print(f"phase 18 (the trainer's boundaries): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    check_data(torch, fs, card, os.path.join(out_root, "data"))
+    print(f"phase 19 (the data layer): {time.perf_counter() - t0:.2f} s")
 
     # -- the 256x256 path: celebahq256 ---------------------------------------
     # K1-K3 at the level shapes they run at, in the preset's (additive) coupling.

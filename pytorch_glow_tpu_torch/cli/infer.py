@@ -82,7 +82,7 @@ def main(argv=None) -> None:
     import torch
 
     from pytorch_glow_tpu_torch.cli import train as train_cli
-    from pytorch_glow_tpu_torch.data.synthetic import make_dataset
+    from pytorch_glow_tpu_torch.data.pipeline import make_dataset
     from pytorch_glow_tpu_torch.inference import Inferer
     from pytorch_glow_tpu_torch.models.glow import init_glow
     from pytorch_glow_tpu_torch.train.builder import build

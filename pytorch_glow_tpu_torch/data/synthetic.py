@@ -1,29 +1,22 @@
-"""Deterministic synthetic image batches and the dataset dispatch.
+"""Deterministic synthetic image batches.
 
 A numpy copy of `pytorch_glow_tpu/data/pipeline.py`'s synthetic source
-(`_textured_images`, `_synthetic_batch`, `synthetic_batches`,
-`IndexedBatches`) and of `make_dataset`'s fallback: for the same seed and
-index the batches are byte for byte the JAX pipeline's.  Batches are uint8
-NHWC numpy; the train step moves them to the device.
-
-The loaders of real datasets (CIFAR-10, CelebA, ImageNet, image folders,
-TFRecord, Grain) are not ported yet.  As in the JAX package, a named data
-set that is not on disk falls back to uniform synthetic data with a
-warning; one whose root does exist raises, since the port cannot read it.
+(`_textured_images`, `_synthetic_batch`, `synthetic_batches`): for the same
+seed and index the batches are byte for byte the JAX pipeline's.  The
+`attr` family (data/synth_attrs.py) carries "attr" (B, 3) in ±1.  The
+dataset dispatch is `data/pipeline.make_dataset`.
 """
 
 from __future__ import annotations
 
-import os
-from typing import Callable
-
 import numpy as np
 
-from pytorch_glow_tpu_torch.config import DataConfig, GlowConfig, TrainConfig
-
-Batch = dict[str, np.ndarray]
-
-TEST_SEED_OFFSET = 0x7E57
+from pytorch_glow_tpu_torch.data.pipeline import (
+    Batch,
+    IndexedBatches,
+    _proc_slice,
+    _process_rows,
+)
 
 SYNTHETIC_NAMES = {
     "synthetic": "uniform",
@@ -31,29 +24,6 @@ SYNTHETIC_NAMES = {
     "synthetic_textured": "textured",
     "synthetic_attr": "attr",
 }
-
-
-class IndexedBatches:
-    """Infinite iterator over an O(1) index-addressable batch function; its
-    state is the single integer `next_index`."""
-
-    def __init__(self, batch_at: Callable[[int], Batch]):
-        self._batch_at = batch_at
-        self._i = 0
-
-    def __iter__(self):
-        return self
-
-    def __next__(self) -> Batch:
-        b = self._batch_at(self._i)
-        self._i += 1
-        return b
-
-    def get_state(self) -> dict:
-        return {"next_index": self._i}
-
-    def set_state(self, state: dict) -> None:
-        self._i = int(state["next_index"])
 
 
 def _textured_images(rng, batch_size: int, h: int, w: int, c: int) -> np.ndarray:
@@ -116,10 +86,13 @@ def _synthetic_batch(i: int, batch_size: int, image_shape: tuple[int, int, int],
         image = np.clip(img, 0, 255).astype(np.uint8)
     elif kind == "textured":
         image = _textured_images(rng, batch_size, h, w, c)
-    elif kind == "uniform":
-        image = rng.integers(0, 256, size=(batch_size, h, w, c), dtype=np.uint8)
+    elif kind == "attr":
+        from pytorch_glow_tpu_torch.data.synth_attrs import attr_images
+
+        image, attrs = attr_images(rng, batch_size, h, w, c)
+        return {"image": image, "attr": attrs}
     else:
-        raise NotImplementedError(f"the synthetic family {kind!r} is not ported yet")
+        image = rng.integers(0, 256, size=(batch_size, h, w, c), dtype=np.uint8)
     batch: Batch = {"image": image}
     if y_classes:
         batch["label"] = rng.integers(0, y_classes, size=(batch_size,))
@@ -130,24 +103,14 @@ def synthetic_batches(batch_size: int, image_shape: tuple[int, int, int],
                       y_classes: int | None = None, seed: int = 0,
                       kind: str = "uniform") -> IndexedBatches:
     """Deterministic uint8 batches; infinite, O(1)-resumable.  kind
-    "uniform" (noise, 8 bits/dim floor), "smooth" (colour gradients) or
-    "textured" (multi-scale textures with occluding shapes)."""
-    return IndexedBatches(
-        lambda i: _synthetic_batch(i, batch_size, image_shape, y_classes, seed, kind))
+    "uniform" (noise, 8 bits/dim floor), "smooth" (colour gradients),
+    "textured" (multi-scale textures with occluding shapes) or "attr"
+    (three measurable binary attributes)."""
+    pidx, pcount = _proc_slice()
+    lo, hi = _process_rows(batch_size, pidx, pcount)
 
+    def batch_at(i: int) -> Batch:
+        b = _synthetic_batch(i, batch_size, image_shape, y_classes, seed, kind)
+        return {k: v[lo:hi] for k, v in b.items()} if pcount > 1 else b
 
-def make_dataset(data_cfg: DataConfig, glow_cfg: GlowConfig, train_cfg: TrainConfig,
-                 split: str = "train") -> IndexedBatches:
-    """The host batch iterator for a profile (see the module docstring)."""
-    seed = train_cfg.seed + (TEST_SEED_OFFSET if split != "train" else 0)
-    y_classes = glow_cfg.y_classes if glow_cfg.y_condition else None
-    if data_cfg.name in SYNTHETIC_NAMES:
-        return synthetic_batches(train_cfg.batch_size, glow_cfg.image_shape, y_classes,
-                                 seed=seed, kind=SYNTHETIC_NAMES[data_cfg.name])
-    if data_cfg.root and os.path.isdir(data_cfg.root):
-        raise NotImplementedError(
-            f"dataset '{data_cfg.name}' under root='{data_cfg.root}': the real data "
-            f"loaders are not ported yet")
-    print(f"[data] dataset '{data_cfg.name}' not found under root="
-          f"'{data_cfg.root}'; using synthetic data")
-    return synthetic_batches(train_cfg.batch_size, glow_cfg.image_shape, y_classes, seed=seed)
+    return IndexedBatches(batch_at)

@@ -4,15 +4,20 @@ the serving functions and checkpoints.
 Counterpart of `pytorch_glow_tpu/train/builder.py` `build` for one device:
 the model from the profile's seed, the optimizer chain, the train step
 (`steps_per_call` steps per call), the eval steps, the sample /
-reconstruct / SWD functions, the host batch stream (and the test split's
-when `eval_gap` is set) and the rolling snapshots under
-out_dir/name/checkpoints.  With a snapshot there, the model, optimizer
-state, EMA, step and the stream's position come from it and DDI is
-skipped: the newest (`restore="latest"`), or the best-eval one
-(`restore="best"`; with none recorded, the newest, and a printed line
-says so).  Otherwise the data-dependent actnorm init runs on the first
-batch with dequantization noise seeded from seed + 1, and the EMA is
-seeded from the post-DDI parameters.
+reconstruct / SWD functions, the train stream (`data/pipeline.py`'s host
+batches, built and moved to the device `profile.data.prefetch` batches
+ahead on a thread of their own by `DevicePrefetch`), the test split's
+host stream when `eval_gap` is set (not prefetched, as in the JAX
+package), and the rolling snapshots under out_dir/name/checkpoints.  With
+a snapshot there, the model, optimizer state, EMA, step and the stream's
+position come from it and DDI is skipped: the newest
+(`restore="latest"`), or the best-eval one (`restore="best"`; with none
+recorded, the newest, and a printed line says so).  A saved stream
+position the stream cannot take (a JAX snapshot's `{"grain": ...}`, or
+none) is replaced by replaying `start_step + 1` batches, with a printed
+line.  Otherwise the data-dependent actnorm init runs on the first batch
+with dequantization noise seeded from seed + 1, and the EMA is seeded
+from the post-DDI parameters.
 
 Eval, sampling and reconstruction run on the serving config: on the card,
 a profile on the unfused flow step at bf16 serves through the fused
@@ -33,7 +38,7 @@ from typing import Callable, Iterator
 import torch
 
 from pytorch_glow_tpu_torch.config import GlowConfig, Profile
-from pytorch_glow_tpu_torch.data.synthetic import make_dataset
+from pytorch_glow_tpu_torch.data.pipeline import DevicePrefetch, make_dataset
 from pytorch_glow_tpu_torch.models.glow import Glow, init_glow
 from pytorch_glow_tpu_torch.train import step as steplib
 from pytorch_glow_tpu_torch.train.optim import Optimizer, make_optimizer, make_schedule
@@ -46,7 +51,7 @@ class Built:
     tx: Optimizer
     state: dict
     train_step: Callable
-    data: Iterator
+    data: DevicePrefetch
     device: torch.device
     schedule: Callable
     ckpt: CheckpointManager
@@ -79,6 +84,25 @@ def serving_config(g: GlowConfig, device: torch.device) -> GlowConfig:
     return g
 
 
+def _resume_stream(host, saved, start_step: int) -> None:
+    """Put the host stream where the snapshot's run left it: its saved
+    state, or, where the stream cannot take that state, `start_step + 1`
+    batches replayed (DDI took the first)."""
+    if saved is not None:
+        try:
+            host.set_state(saved)
+            return
+        except (KeyError, TypeError, ValueError) as e:
+            print(f"[build] saved data state incompatible with the current loader "
+                  f"({type(e).__name__}: {e}); replaying {start_step + 1} batches instead",
+                  flush=True)
+    else:
+        print(f"[build] the snapshot has no data state; replaying {start_step + 1} batches",
+              flush=True)
+    for _ in range(start_step + 1):
+        next(host)
+
+
 def build(profile: Profile, device: torch.device | str = "cuda",
           restore: str = "latest") -> Built:
     """Everything `train` needs, on `device`: the card unless the caller
@@ -106,7 +130,7 @@ def build(profile: Profile, device: torch.device | str = "cuda",
 
     ckpt = CheckpointManager(os.path.join(profile.out_dir, profile.name, "checkpoints"),
                              t.keep_checkpoints)
-    data = make_dataset(profile.data, g, t)
+    host = make_dataset(profile.data, g, t)
     eval_data = make_dataset(profile.data, g, t, split="test") if t.eval_gap else None
     snapshot, restored = None, None
     if restore == "best":
@@ -120,16 +144,17 @@ def build(profile: Profile, device: torch.device | str = "cuda",
         model.load_state_dict(snapshot["model"])
         state.update(step=snapshot["step"], seed=snapshot["seed"],
                      opt_state=snapshot["opt_state"])
-        data.set_state(snapshot["data_state"])
+        _resume_stream(host, snapshot.get("data_state"), state["step"])
         if "ema" in state:
             # A snapshot of a run without an EMA seeds it from the restored
             # trainables, as a fresh EMA start at this step.
             ema = snapshot["ema"]
             state["ema"] = ema if ema is not None else [
                 p.detach().clone() for _, p in steplib.trainable(model)]
-    else:
+    data = DevicePrefetch(host, device, profile.data.prefetch)
+    if snapshot is None:
         restored = None
-        first = torch.from_numpy(next(data)["image"]).to(device)
+        first = next(data)["image"]
         noise = torch.Generator(device=device).manual_seed(t.seed + 1)
         model.ddi_init(model.dequantize(model.preprocess(first), noise))
         if "ema" in state:

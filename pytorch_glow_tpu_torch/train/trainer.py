@@ -4,9 +4,12 @@ eval, grids and SWD, and the non-finite-loss guard.
 Counterpart of `pytorch_glow_tpu/train/trainer.py` `train`: calls of
 `steps_per_call` steps from the state's step (a second call on the same
 `Built`, or a build that resumed from a snapshot, continues where the last
-stopped), the images/sec window restarted after the first call, scalars
-every `scalar_log_gap` steps (CSV and TensorBoard under out_dir/name, and
-stdout), a rolling snapshot every `checkpoint_gap` steps and a final one
+stopped), each on device batches from `build`'s prefetcher (stacked on
+the device for `steps_per_call > 1`), which every exit of the call closes
+(a later call starts it again where this one stopped), the images/sec
+window restarted after the first call, scalars every `scalar_log_gap`
+steps (CSV and TensorBoard under out_dir/name, and stdout), a rolling
+snapshot every `checkpoint_gap` steps and a final one
 when the call ends without a failure (`utils/checkpoint.py`; none after a
 failure, so a bad state never rotates out the last good snapshot), the
 guard that stops on persistent non-finite losses, and the step-liveness
@@ -83,8 +86,9 @@ class _StepWatchdog:
     WEDGE_EXIT_CODE.  The port trains in one process, so the re-exec is
     always allowed."""
 
-    def __init__(self, timeout_s: float, poll_s: float | None = None):
+    def __init__(self, timeout_s: float, poll_s: float | None = None, on_die=None):
         self.timeout_s = timeout_s
+        self.on_die = on_die  # called before the re-exec or exit
         self.poll_s = poll_s if poll_s is not None else min(10.0, max(0.5, timeout_s / 10))
         self._last = time.monotonic()
         self._beats = 0
@@ -116,6 +120,11 @@ class _StepWatchdog:
                 return
 
     def _die(self) -> None:
+        if self.on_die is not None:
+            try:
+                self.on_die()
+            except Exception as e:  # the re-exec must happen all the same
+                sys.stderr.write(f"[train] watchdog cleanup failed: {type(e).__name__}: {e}\n")
         budget = int(os.environ.get(_WEDGE_BUDGET_ENV, "0") or 0)
         if budget > 0:
             os.environ[_WEDGE_BUDGET_ENV] = str(budget - 1)
@@ -255,7 +264,10 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
     prev_handler = (signal.signal(signal.SIGTERM,
                                   lambda signum, frame: preempt.__setitem__("sig", signum))
                     if in_main else None)
-    watchdog = _StepWatchdog(t.step_timeout_s) if t.step_timeout_s else None
+    # The prefetcher's thread may be stuck behind a wedged device: wait for
+    # it a few seconds at most before the re-exec.
+    watchdog = (_StepWatchdog(t.step_timeout_s, on_die=lambda: built.data.close(timeout=5.0))
+                if t.step_timeout_s else None)
     try:
         while step < num_steps:
             if watchdog is not None:
@@ -268,10 +280,9 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
                 break
             if t.profile_step and step == t.profile_step and not profiler.active:
                 profiler.start(step)
-            host_images = [next(built.data)["image"] for _ in range(spc)]
-            images = [torch.from_numpy(x) for x in host_images]
+            images = [next(built.data)["image"] for _ in range(spc)]
             batch = torch.stack(images) if spc > 1 else images[0]
-            state, metrics = built.train_step(state, batch.to(built.device))
+            state, metrics = built.train_step(state, batch)
             step += spc
             if step == first_step + spc:
                 # The first call pays the kernel build and warm-up; its images
@@ -304,12 +315,14 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
             if t.checkpoint_gap and step % t.checkpoint_gap == 0:
                 _save(built, state, step)
             # The last micro-batch feeds the grids and SWD.
-            last = host_images[-1]
-            if t.plot_gap and step % t.plot_gap == 0:
+            plot = t.plot_gap and step % t.plot_gap == 0
+            swd = t.swd_gap and step % t.swd_gap == 0
+            last = images[-1].cpu().numpy() if plot or swd else None
+            if plot:
                 logger.scalars(step, _boundary("plot", _plot, built, state, step, last, out_dir))
             if t.eval_gap and step % t.eval_gap == 0 and built.eval_data is not None:
                 logger.scalars(step, _boundary("eval", _eval, built, state, step))
-            if t.swd_gap and step % t.swd_gap == 0:
+            if swd:
                 logger.scalars(step, _boundary("swd", _swd, built, state, step, last))
     except BaseException:
         if watchdog is not None:
@@ -325,6 +338,7 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
         raise
     finally:
         built.state = state  # the model was updated in place either way
+        built.data.close()
         if in_main:
             signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
         try:

@@ -313,7 +313,7 @@ def test_eval_logs_raw_and_ema_nll_and_swd(tmp_path):
 def test_eval_nll_is_the_ema_weights_on_the_test_split(tmp_path):
     """The first eval's eval_nll is the EMA weights' mean bits/dim on the
     first eval_batches test batches, outside the trainer."""
-    from pytorch_glow_tpu_torch.data.synthetic import make_dataset
+    from pytorch_glow_tpu_torch.data.pipeline import make_dataset
 
     p = _profile(tmp_path, eval_gap=2, eval_batches=2, checkpoint_gap=2)
     built = build(p, device="cpu")
@@ -618,7 +618,7 @@ def test_bf16_round_trip_drift_is_the_reference_s_too():
     from pytorch_glow_tpu.config import OptimConfig as JOptimConfig
     from pytorch_glow_tpu.config import TrainConfig as JTrainConfig
     from pytorch_glow_tpu.train import optim as joptim
-    from pytorch_glow_tpu_torch.data.synthetic import make_dataset
+    from pytorch_glow_tpu_torch.data.pipeline import make_dataset
     from pytorch_glow_tpu_torch.utils.convert import state_dict_from_jax
 
     glow = dict(image_shape=(16, 16, 3), hidden_channels=64, K=8, L=2,

@@ -41,6 +41,9 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, pytorch_glow_tpu_torch, pytorch_glow_tpu_torch.utils.convert\n"
         "import pytorch_glow_tpu_torch.ops.flowstep\n"
+        "import pytorch_glow_tpu_torch.train.builder, pytorch_glow_tpu_torch.cli.infer\n"
+        "from pytorch_glow_tpu_torch.data import (celeba, folder, native_loader, pipeline,\n"
+        "    synth_attrs, synthetic, tfrecord, workers)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pytorch_glow_tpu.'))"
         " or m == 'pytorch_glow_tpu']\n"
         "print(bad)\n"

@@ -37,6 +37,7 @@ from pytorch_glow_tpu_torch import (
     make_optimizer,
     train,
 )
+from pytorch_glow_tpu_torch.data import pipeline as tpipeline
 from pytorch_glow_tpu_torch.data import synthetic
 from pytorch_glow_tpu_torch.ops import flowstep as tfs
 from pytorch_glow_tpu_torch.train import step as tstep
@@ -204,7 +205,7 @@ def test_synthetic_batches_equal_jax_pipeline(family):
     glow = dict(image_shape=(8, 8, 3), hidden_channels=16, K=2, L=2)
     firsts = {}
     for split in ("train", "test"):
-        ours = synthetic.make_dataset(DataConfig(name=family), GlowConfig(**glow),
+        ours = tpipeline.make_dataset(DataConfig(name=family), GlowConfig(**glow),
                                       TrainConfig(batch_size=4, seed=3), split=split)
         theirs = pipeline.make_dataset(JaxDataConfig(name=family), JaxGlowConfig(**glow),
                                        JaxTrainConfig(batch_size=4, seed=3), split=split)
