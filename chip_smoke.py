@@ -89,6 +89,27 @@
    on the prefetcher's thread and in 4 worker processes, and the device's
    idle share over trainer steps 10-15 (the trainer's torch.profiler
    trace, in a run of its own).
+20. Runs after 19: the conditional model, the imagenet64-cond preset
+   (K=48, L=4, hidden 512, 1000 classes, b=128, fused, remat) at full
+   width.  (a) Writes an ImageNet-64 npz set from seed 0 (two train shards
+   and val_data of 10000 textured images each, 'data' (N, 12288) CHW
+   uint8, 1-based 'labels' over all 1000 classes).  (b) Trains the
+   unmodified preset from it through the train CLI in-process, 10 steps
+   with a plot and an eval at 5 and 10 and an SWD of 64 at 10: the run's
+   K1/K2/K3 launches against its steps and boundaries (192 a pass),
+   `loss_class` in metrics.csv with loss = nll + 0.01 * loss_class, the
+   step-5 sample PNG equal to the same samples drawn again with the same
+   labels.  (c) With the class heads perturbed, `loss_fn` (loss, nll,
+   loss_class) and 3 steps' grad_norm fused against unfused within rtol
+   2e-2.  (d) Serving at b=64 with labels: nll against the unfused path
+   (rtol 2e-2) and moved by other labels, a sample, `nll_bound` (elbo k=1
+   bitwise equal to `log_prob` on the same generator state, iwae k=4 at
+   most elbo k=4 per image), `cli.infer sample --class-id 7` and `nll
+   --dequant-samples 4 --bound iwae`, each request's launches.  (e) The
+   preset with `glow.dequant=variational`: `neg_log_q` exactly 0 at init,
+   5 steps, `vardeq_logq_bits` logged, every vardeq parameter's gradient
+   non-zero after them.  (f) The train step with and without vardeq
+   (ms, images/s, peak memory), nll, sample and nll_bound (k=4) images/s.
 
 8. Holds K1/K2 at celebahq256's levels 1-5 and K3 at its levels 2-5, the
    shapes they run at on its path (b=64, additive, the preset's coupling),
@@ -256,6 +277,8 @@ PREEMPT_AFTER_S = 1.0
 CELEBA_IMAGES, CELEBA_TEST = 1500, 160
 TIMED_STEPS = 30
 DATA_WORKERS = 4
+# Phase 20: images in each ImageNet-64 npz shard (the real widths, the count cut).
+IMAGENET_PER_FILE = 10000
 
 
 def require(ok: bool, what: str) -> None:
@@ -2343,6 +2366,341 @@ def check_data(torch, fs, card: str, out_root: str) -> None:
         print("cifar10 trainer idle share: not measured (the trace held no kernel)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the conditional model
+# ---------------------------------------------------------------------------
+
+
+def rel_diff(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def check_conditional(torch, fs, card: str, out_root: str) -> dict:
+    """Phase 20: the imagenet64-cond preset (K=48, L=4, hidden 512, 1000
+    classes, b=128, bf16 coupling, fused flow steps, remat) at full width.
+    (a) Writes an ImageNet-64 npz set from seed 0 (`train_data_batch_1..2`
+    and `val_data`, 'data' (N, 12288) CHW-flattened uint8, 1-based 'labels'
+    over all 1000 classes, textured images; the count cut to
+    IMAGENET_PER_FILE a shard).  (b) Trains the unmodified preset from it
+    through the train CLI in-process for 10 steps (steps_per_call=5), with a
+    plot and an eval (2 batches) at 5 and 10 and an SWD of 64 at 10: the
+    run's K1/K2/K3 launches against its steps and boundaries (K*L = 192 per
+    pass), `loss_class` in metrics.csv, finite, with loss = nll + 0.01 *
+    loss_class to f32 rounding, and the step-5 plot PNG equal to the same
+    samples drawn again from the step-5 snapshot's EMA weights, generator
+    and labels.  (c) From the step-10 snapshot with project_ycond and
+    project_class perturbed: `loss_fn` fused and unfused (loss, nll,
+    loss_class within rtol 2e-2), then 3 steps on both paths (grad_norm
+    within rtol 2e-2 at each).  (d) Serving at b=64 on those weights:
+    `Inferer.nll` with labels against the unfused path (rtol 2e-2) and
+    different under other labels; a sample; `nll_bound` elbo k=1 bitwise
+    equal to `log_prob` on the same generator state, iwae k=4 at most elbo
+    k=4 per image; `cli.infer sample --class-id 7` and `cli.infer nll
+    --dequant-samples 4 --bound iwae`; each request's launches.  (e) The
+    preset with `glow.dequant=variational`: `neg_log_q` exactly 0 at init,
+    5 steps through `train`, `vardeq_logq_bits` logged, every vardeq
+    parameter with a non-zero gradient after those updates.  (f) The train
+    step's median ms, images/s and peak memory at b=128 without and with
+    vardeq, nll / sample / nll_bound (k=4) images/s at b=64, the phase's
+    seconds.  Returns the train CLI run's launches."""
+    import numpy as np
+
+    from pytorch_glow_tpu_torch import PRESETS, Inferer, build, init_glow, train
+    from pytorch_glow_tpu_torch.cli import infer as infer_cli
+    from pytorch_glow_tpu_torch.cli import train as train_cli
+    from pytorch_glow_tpu_torch.data.pipeline import make_dataset
+    from pytorch_glow_tpu_torch.scripts.perf_data import write_imagenet64
+    from pytorch_glow_tpu_torch.train import step as steplib
+    from pytorch_glow_tpu_torch.train.builder import labels_to_onehot
+    from pytorch_glow_tpu_torch.utils.image import make_grid
+
+    t_phase = time.perf_counter()
+
+    # -- (a) the ImageNet-64 npz files -----------------------------------------
+    t0 = time.perf_counter()
+    root = write_imagenet64(os.path.join(out_root, "imagenet64"), IMAGENET_PER_FILE, seed=SEED)
+    print(f"ImageNet-64 npz set (train_data_batch_1..2 and val_data, {IMAGENET_PER_FILE} "
+          f"images each, 12288 CHW bytes an image, labels 1..1000): "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # -- (b) the main path: the train CLI through every boundary ---------------
+    argv = ["imagenet64-cond", "--data-root", root, "--quiet", "--out-dir", out_root,
+            "--steps", "10", "--set", "train.plot_gap=5", "--set", "train.eval_gap=5",
+            "--set", "train.swd_gap=10", "--set", "train.checkpoint_gap=5",
+            "--set", "train.eval_batches=2", "--set", "train.swd_images=64"]
+    prof = train_cli.resolve_profile(train_cli.parse_args(argv))
+    cfg, t = prof.glow, prof.train
+    require(cfg == PRESETS["imagenet64-cond"].glow and t.batch_size == TRAIN_BATCH
+            and t.steps_per_call == 5, f"imagenet64-cond profile {prof}")
+    run = os.path.join(out_root, prof.name)
+    b, n_img, n_swd = t.batch_size, t.num_sample_images, min(t.swd_images, t.batch_size)
+    fs.reset_launches()
+    t0 = time.perf_counter()
+    result, _ = run_cli(train_cli.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fs.launches)
+    print(f"train CLI imagenet64-cond (K={cfg.K}, L={cfg.L}, hidden {cfg.hidden_channels}, "
+          f"{cfg.y_classes} classes, b={b}, steps_per_call={t.steps_per_call}), 10 steps: "
+          f"{wall:.2f} s; launches {launches}")
+    require(result["final_step"] == 10 and math.isfinite(result["loss"])
+            and math.isfinite(result["loss_class"]), f"train {result}")
+    per_pass = expected_launches(fs, cfg, b, ("forward",))
+    require(per_pass == counts(fs, forward=cfg.K * cfg.L) and cfg.K * cfg.L == 192,
+            f"launches per pass {per_pass}")
+    recon = expected_launches(fs, cfg, n_img, ("forward", "reverse"))
+    plot = add_counts(expected_launches(fs, cfg, n_img, ("reverse",)), recon)
+    evals = add_counts(expected_launches(fs, cfg, b, ("forward",), 2 * t.eval_batches), recon)
+    want = add_counts(expected_launches(fs, cfg, b, ("forward", "backward"), 10), plot, plot,
+                      evals, evals, expected_launches(fs, cfg, n_swd, ("reverse",)))
+    require(launches == want, f"run launches {launches}, want {want}")
+    print(f"K1/K2/K3 launches of the run: forward {launches['forward']}, reverse "
+          f"{launches['reverse']}, backward {launches['backward']} (192 a pass: 10 train steps "
+          f"of one forward and one backward, 2 plots, 2 evals of 2 x {t.eval_batches} batches "
+          f"and a reconstruct, an SWD of {n_swd})")
+    with open(os.path.join(run, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    logged = [r for r in rows if r.get("loss")]
+    require(logged and all(r.get("loss_class") for r in logged), f"metrics rows {logged}")
+    for r in logged:
+        loss, nll, cls = (float(r[k]) for k in ("loss", "nll", "loss_class"))
+        require(all(map(math.isfinite, (loss, nll, cls)))
+                and rel_diff(loss, nll + cfg.weight_y * cls) <= 1e-6,
+                f"loss {loss} vs nll {nll} + {cfg.weight_y} * loss_class {cls}")
+        print(f"metrics.csv step {r['step']}: loss {loss}, nll {nll}, loss_class {cls}")
+    for r in rows:
+        for kind in ("plot", "eval", "swd"):
+            if r.get(f"{kind}_ms"):
+                print(f"boundary {kind} at step {r['step']}: {float(r[f'{kind}_ms']):.3f} ms, "
+                      f"{int(float(r[f'{kind}_launches']))} launches"
+                      + (f", eval_nll {r['eval_nll']}" if kind == "eval" else ""))
+
+    # The step-5 sample grid, drawn again: the step-5 snapshot's EMA weights,
+    # the plot's generator and the first labels of the step's last batch
+    # (the DDI batch first, then steps 1-5).
+    stream = make_dataset(prof.data, cfg, t)
+    batch5 = [next(stream) for _ in range(6)][5]
+    y5 = labels_to_onehot(batch5, prof)[:n_img]
+    require(bool((y5.sum(1) == 1).all()), "one-hot labels")
+    snap5 = torch.load(os.path.join(run, "checkpoints", "5.pt"), map_location="cuda",
+                       weights_only=True)
+    model5 = init_glow(cfg, device="cuda")
+    model5.load_state_dict(snap5["model"])
+    model5.load_state_dict(steplib.ema_params({"model": model5, "ema": snap5["ema"]}))
+    temp = t.sample_temperature * (min(1.0, 5 / t.temperature_anneal_steps)
+                                   if t.temperature_anneal_steps else 1.0)
+    redraw = make_grid(steplib.make_sample_fn(cfg, n_img, t.sample_temperature)(
+        model5, steplib.step_generator(t.seed + 2, 5, "cuda"), temp,
+        y_onehot=y5).cpu().numpy())
+    with open(os.path.join(run, "samples", "step_00000005.png"), "rb") as f:
+        grid = decode_png(f.read())
+    diff = int(np.abs(grid.astype(np.int16) - redraw.astype(np.int16)).max())
+    print(f"step-5 sample PNG {grid.shape} at T={temp}, classes {y5.argmax(1).tolist()}: against "
+          f"the same samples drawn again, max uint8 diff {diff}")
+    require(grid.shape == redraw.shape and diff == 0, f"sample PNG diff {diff}")
+    del model5, snap5, stream
+
+    # -- the repaired zero conv of the unfused bf16 path, on the card: the f32
+    # sum of the bf16 operands (tap-packed bf16 product with an f32 result)
+    # against the true-f32 conv of the same operands, within 1e-5 of the
+    # output's largest magnitude (a bf16-rounded output is off by up to
+    # 2^-9 of it), and its backward bitwise equal to the bf16 conv's --------
+    from pytorch_glow_tpu_torch.models import layers as tlayers
+
+    gen = torch.Generator().manual_seed(SEED + 39)
+    h0, w0, c0 = cfg.latent_shapes()[0]
+    zero_conv = tlayers.Conv2dZeros(cfg.hidden_channels, c0)
+    with torch.no_grad():
+        for p in zero_conv.parameters():
+            p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+    zero_conv = zero_conv.cuda()
+    h2 = torch.relu(torch.randn(b, h0, w0, cfg.hidden_channels, generator=gen)).bfloat16().cuda()
+    h2.requires_grad_()
+    gy = torch.randn(b, h0, w0, c0, generator=gen).cuda()
+    y = zero_conv(h2)
+    old = (tlayers._conv_nhwc(h2, zero_conv.weight).float() + zero_conv.bias) * torch.exp(
+        zero_conv.logs.view(-1) * 3.0)
+    with torch.no_grad():
+        f32 = (tlayers._conv_nhwc(h2.float(), zero_conv.weight.bfloat16().float())
+               + zero_conv.bias) * torch.exp(zero_conv.logs.view(-1) * 3.0)
+        scale = float(f32.abs().max())
+        err, err_old = float((y - f32).abs().max()), float((old - f32).abs().max())
+    got = torch.autograd.grad(y, (h2, zero_conv.weight), gy)
+    want = torch.autograd.grad(old, (h2, zero_conv.weight), gy)
+    same_grads = all(torch.equal(a, c) for a, c in zip(got, want))
+    print(f"zero conv {b}x{h0}x{w0}x{cfg.hidden_channels} -> {c0}: max |diff| from the f32 conv "
+          f"{err:.3e} (the bf16-rounded output's {err_old:.3e}, scale {scale:.3f}); backward "
+          f"bitwise equal to the bf16 conv's: {same_grads}")
+    require(y.dtype == torch.float32 and err <= 1e-5 * scale and same_grads,
+            f"zero conv: max |diff| {err} at scale {scale}, grads equal {same_grads}")
+    del zero_conv, h2, gy, y, old, f32, got, want
+
+    # -- (c) fused against unfused, on one state ------------------------------
+    built = build(prof)
+    require(built.resumed and built.start_step == 10, f"resume at {built.start_step}")
+    model = built.state["model"]
+    gen = torch.Generator().manual_seed(SEED + 40)
+    with torch.no_grad():
+        for head in (model.project_ycond, model.project_class):
+            for p in head.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen).cuda())
+    plain_cfg = dataclasses.replace(cfg, flowstep_impl="xla")
+    plain = init_glow(plain_cfg)
+    plain.load_state_dict(model.state_dict())
+    batch = next(built.data)
+    x, y = model.preprocess(batch["image"]), labels_to_onehot(batch, prof)
+    with torch.no_grad():
+        _, mf = model.loss_fn(x, torch.Generator(device="cuda").manual_seed(SEED), y)
+        _, mp = plain.loss_fn(x, torch.Generator(device="cuda").manual_seed(SEED), y)
+    print(f"loss_fn fused vs unfused, perturbed class heads, b={b}: " + ", ".join(
+        f"{k} {float(mf[k]):.6f} vs {float(mp[k]):.6f}" for k in ("loss", "nll", "loss_class")))
+    for k in ("loss", "nll", "loss_class"):
+        require(rel_diff(float(mf[k]), float(mp[k])) <= 2e-2, f"loss_fn {k}: {mf[k]} vs {mp[k]}")
+    fused_step = steplib.make_train_step(cfg, built.tx, t.ema_decay, built.schedule,
+                                         t.augment_flip)
+    plain_step = steplib.make_train_step(plain_cfg, built.tx, t.ema_decay, built.schedule,
+                                         t.augment_flip)
+    state_f = built.state
+    state_p = clone_state(state_f, plain)
+    for _ in range(3):
+        batch = next(built.data)
+        y = labels_to_onehot(batch, prof)
+        state_f, mf = fused_step(state_f, batch["image"], y)
+        state_p, mp = plain_step(state_p, batch["image"], y)
+        nf, np_ = float(mf["grad_norm"]), float(mp["grad_norm"])
+        print(f"train step {state_f['step']}: loss fused {float(mf['loss']):.6f} unfused "
+              f"{float(mp['loss']):.6f}, loss_class {float(mf['loss_class']):.6f} vs "
+              f"{float(mp['loss_class']):.6f}, grad_norm {nf:.6f} vs {np_:.6f} "
+              f"(rel {rel_diff(nf, np_):.2e})")
+        require(math.isfinite(nf) and rel_diff(nf, np_) <= 2e-2,
+                f"fused vs unfused grad_norm at step {state_f['step']}: {nf} vs {np_}")
+    del state_p
+
+    # -- (d) serving at b=64 on the perturbed weights --------------------------
+    plain.load_state_dict(model.state_dict())
+    tb = next(make_dataset(prof.data, cfg, dataclasses.replace(t, batch_size=BATCH),
+                           split="test"))
+    images = torch.from_numpy(tb["image"]).cuda()
+    y = labels_to_onehot(tb, prof).cuda()
+    y_other = labels_to_onehot({**tb, "label": (tb["label"] + 1) % cfg.y_classes}, prof).cuda()
+    inf, plain_inf = Inferer(model), Inferer(plain)
+    fs.reset_launches()
+    nll = inf.nll(images, y)
+    require(fs.launches == counts(fs, forward=192), f"nll launches {fs.launches}")
+    nll_plain, nll_other = plain_inf.nll(images, y), inf.nll(images, y_other)
+    rel = float(((nll - nll_plain).abs() / nll_plain.abs()).max())
+    moved = float((nll - nll_other).abs().max())
+    print(f"nll with labels b={BATCH}: fused {float(nll.mean()):.6f} vs unfused "
+          f"{float(nll_plain.mean()):.6f} bits/dim (max rel {rel:.3e}); under other labels "
+          f"{float(nll_other.mean()):.6f} (max |diff| {moved:.3e})")
+    require(rel <= 2e-2 and moved > 0, f"conditional nll rel {rel}, label effect {moved}")
+    del plain, plain_inf
+    torch.cuda.empty_cache()
+    fs.reset_launches()
+    samples = inf.sample(BATCH, 0.7, torch.Generator(device="cuda").manual_seed(SEED), y)
+    require(fs.launches == counts(fs, reverse=192) and samples.shape == images.shape
+            and samples.dtype == torch.uint8, f"sample launches {fs.launches}")
+
+    def clone_gen(g):
+        out = torch.Generator(device="cuda")
+        out.set_state(g.get_state())
+        return out
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    g2 = clone_gen(g)
+    elbo1 = inf.nll_bound(images, 1, "elbo", g, y)
+    with torch.no_grad():
+        lp = model.log_prob(model.preprocess(images), g2, y)["nll"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    g2 = clone_gen(g)
+    fs.reset_launches()
+    iwae4 = inf.nll_bound(images, 4, "iwae", g, y)
+    require(fs.launches == counts(fs, forward=4 * 192), f"nll_bound launches {fs.launches}")
+    elbo4 = inf.nll_bound(images, 4, "elbo", g2, y)
+    print(f"nll_bound b={BATCH}: elbo k=1 {float(elbo1.mean()):.6f} (log_prob on the same "
+          f"generator state {float(lp.mean()):.6f}, bitwise {torch.equal(elbo1, lp)}); k=4 iwae "
+          f"{float(iwae4.mean()):.6f} <= elbo {float(elbo4.mean()):.6f} per image: "
+          f"{bool((iwae4 <= elbo4).all())}; the bin-corner nll {float(nll.mean()):.6f}")
+    require(torch.equal(elbo1, lp) and bool((iwae4 <= elbo4).all()), "nll_bound")
+    png = os.path.join(out_root, "class7.png")
+    _, text = run_cli(infer_cli.main, ["sample", "imagenet64-cond", "--data-root", root,
+                                       "--out-dir", out_root, "--class-id", "7", "-n", "16",
+                                       "-o", png])
+    with open(png, "rb") as f:
+        grid7 = decode_png(f.read())
+    require("class 7" in text and grid7.shape == (4 * 66 + 2, 4 * 66 + 2, 3),
+            f"sample --class-id: {text!r} {grid7.shape}")
+    _, text = run_cli(infer_cli.main, ["nll", "imagenet64-cond", "--data-root", root,
+                                       "--out-dir", out_root, "--batches", "1",
+                                       "--dequant-samples", "4", "--bound", "iwae"])
+    require("(iwae bound, 4 noise draws)" in text
+            and math.isfinite(float(text.split("nll: ")[1].split()[0])), f"infer nll: {text!r}")
+
+    # -- (f) times: the train step without vardeq, serving ----------------------
+    def labelled(step_fn):
+        return lambda state, batch: step_fn(state, batch["image"], labels_to_onehot(batch, prof))
+
+    step_ms, step_mem = train_step_ms(labelled(fused_step), state_f,
+                                      [next(built.data) for _ in range(4)], torch)
+    built.data.close()
+    times = {"nll": median_ms(lambda: inf.nll(images, y), torch, reps=3, inner=2),
+             "sample": median_ms(lambda: inf.sample(BATCH, 0.7, g, y), torch, reps=3, inner=2),
+             "nll_bound k=4": median_ms(lambda: inf.nll_bound(images, 4, "iwae", g, y), torch,
+                                        reps=3, inner=1)}
+    del built, state_f, model, inf
+    torch.cuda.empty_cache()
+
+    # -- (e) variational dequantization ----------------------------------------
+    argv_vd = ["imagenet64-cond", "--data-root", root, "--quiet", "--steps", "5",
+               "--out-dir", os.path.join(out_root, "vardeq"), "--set", "glow.dequant=variational"]
+    prof_vd = train_cli.resolve_profile(train_cli.parse_args(argv_vd))
+    built_vd = build(prof_vd)
+    model_vd = built_vd.state["model"]
+    with torch.no_grad():
+        out = model_vd.log_prob(model_vd.preprocess(images),
+                                torch.Generator(device="cuda").manual_seed(SEED + 43), y)
+    zero = bool((out["neg_log_q"] == 0).all())
+    print(f"vardeq at init, b={BATCH}: neg_log_q exactly 0: {zero}")
+    require(zero, f"neg_log_q at init {out['neg_log_q']}")
+    fs.reset_launches()
+    result_vd = train(built_vd, num_steps=5, quiet=True)
+    require(fs.launches == counts(fs, forward=5 * 192, backward=5 * 192),
+            f"vardeq train launches {fs.launches}")
+    with open(os.path.join(prof_vd.out_dir, prof_vd.name, "metrics.csv")) as f:
+        rows_vd = [r for r in csv.DictReader(f) if r.get("loss")]
+    bits = [float(r["vardeq_logq_bits"]) for r in rows_vd if r.get("vardeq_logq_bits")]
+    print(f"vardeq train, 5 steps: {result_vd}; vardeq_logq_bits in metrics.csv {bits}")
+    require(result_vd["final_step"] == 5 and bits and all(map(math.isfinite, bits)),
+            f"vardeq run {result_vd} {bits}")
+    batch = next(built_vd.data)
+    names = [n for n, _ in model_vd.named_parameters() if n.startswith("vardeq.")]
+    params = dict(model_vd.named_parameters())
+    loss, _ = model_vd.loss_fn(model_vd.preprocess(batch["image"]),
+                               torch.Generator(device="cuda").manual_seed(SEED + 44),
+                               labels_to_onehot(batch, prof_vd))
+    grads = torch.autograd.grad(loss, [params[n] for n in names])
+    dead = [n for n, gr in zip(names, grads)
+            if not bool((gr != 0).any()) or not bool(torch.isfinite(gr).all())]
+    print(f"vardeq parameter grads after 5 updates: {len(names)} tensors, {len(dead)} all-zero "
+          f"or non-finite")
+    require(not dead and len(names) == 8 + 9 * prof_vd.glow.vardeq_steps, f"vardeq grads {dead}")
+    vd_step = steplib.make_train_step(prof_vd.glow, built_vd.tx, t.ema_decay, built_vd.schedule)
+    vd_ms, vd_mem = train_step_ms(labelled(vd_step), built_vd.state,
+                                  [next(built_vd.data) for _ in range(4)], torch)
+    built_vd.data.close()
+    del built_vd, model_vd, grads, loss
+    torch.cuda.empty_cache()
+
+    print(f"time train step imagenet64-cond b={b}: {step_ms:.3f} ms ({b * 1e3 / step_ms:.1f} "
+          f"img/s, peak {step_mem / 2**30:.2f} GiB); with vardeq {vd_ms:.3f} ms "
+          f"({b * 1e3 / vd_ms:.1f} img/s, peak {vd_mem / 2**30:.2f} GiB)")
+    print(f"time serving imagenet64-cond b={BATCH}: " + ", ".join(
+        f"{k} {ms:.3f} ms ({BATCH * 1e3 / ms:.1f} img/s)" for k, ms in times.items()))
+    print(f"card for these times: {card}")
+    print(f"phase 20 (the conditional model): {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def compare_nll(inf, plain_inf, images, what: str) -> None:
     """Fused-kernel nll against the unfused PyTorch layers, the repo's rtol 2e-2."""
     nll, nll_plain = inf.nll(images), plain_inf.nll(images)
@@ -2404,6 +2762,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     t0 = time.perf_counter()
     check_data(torch, fs, card, os.path.join(out_root, "data"))
     print(f"phase 19 (the data layer): {time.perf_counter() - t0:.2f} s")
+    cond_launches = check_conditional(torch, fs, card, os.path.join(out_root, "conditional"))
 
     # -- the 256x256 path: celebahq256 ---------------------------------------
     # K1-K3 at the level shapes they run at, in the preset's (additive) coupling.
@@ -2447,7 +2806,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     launches.update(invconv_launches)
     launches.update(anatomy_launches)
     print(f"training-run launches: celeba64 {train_launches}, celebahq256 {hq_train_launches}, "
-          f"cifar10 train CLI (K6) {cli_launches}")
+          f"cifar10 train CLI (K6) {cli_launches}, imagenet64-cond train CLI {cond_launches}")
     sources = {"forward": (KERNEL_SOURCE, TPU_KERNEL), "reverse": (KERNEL_SOURCE, TPU_KERNEL),
                "backward": (BWD_SOURCE, BWD_TPU_KERNEL),
                "band_forward": (BAND_SOURCE, BAND_TPU_KERNEL),

@@ -4,8 +4,10 @@ Counterpart of the repository's `infer.py` for three operations, run on the
 card unless `--cpu` is given:
 
   python -m pytorch_glow_tpu_torch.cli.infer sample <profile> -n 16 --temperature 0.7 -o s.png
+  python -m pytorch_glow_tpu_torch.cli.infer sample imagenet64-cond --class-id 7 -o s.png
   python -m pytorch_glow_tpu_torch.cli.infer recon  <profile> --synthetic -o recon.png
   python -m pytorch_glow_tpu_torch.cli.infer nll    <profile> --synthetic --batches 8
+  python -m pytorch_glow_tpu_torch.cli.infer nll    <profile> --dequant-samples 4 --bound iwae
 
 The profile (JSON path or preset, with the same `--set` overrides as the
 train CLI) locates the newest snapshot under <out_dir>/<name>/checkpoints;
@@ -14,8 +16,15 @@ with no best recorded, the newest, with a warning; with no snapshot at
 all, an error).  `--exact` runs the f32 unfused path (no fused flow step,
 no 1x1 conv kernels) on the same parameters.
 
+On a y-conditional profile, `sample --class-id N` draws class N (it
+needs one), and `nll` scores each batch under its own labels.
+`nll --dequant-samples N` reports the Monte-Carlo bound on the discrete
+NLL over N dequantization draws per image, the mean of the per-draw
+bounds (`--bound elbo`) or the importance bound (`iwae`); batch i draws
+from a generator seeded from (`--seed`, i).
+
 Not ported yet, each exiting with an error: delta, manipulate,
-interpolate, report, export and serve; `nll --dequant-samples`.
+interpolate, report, export and serve.
 """
 
 from __future__ import annotations
@@ -57,8 +66,14 @@ def parse_args(argv=None):
                    help="force synthetic data (same families as the train CLI)")
     p.add_argument("--batches", type=int, default=50, help="batches for nll")
     p.add_argument("--dequant-samples", type=int, default=0,
-                   help="op=nll: dequantization-noise draws (not ported yet; 0 = the "
-                        "noise-free eval at the bin corner)")
+                   help="op=nll: the valid discrete-NLL bound over N dequantization-noise "
+                        "draws (0 = the noise-free eval at the bin corner; 1 = the "
+                        "published protocol)")
+    p.add_argument("--bound", choices=["elbo", "iwae"], default="elbo",
+                   help="op=nll with --dequant-samples N: the mean of the per-draw bounds "
+                        "(elbo) or the tighter logsumexp importance bound (iwae)")
+    p.add_argument("--class-id", type=int, default=None,
+                   help="op=sample on a y-conditional profile: sample this class")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--exact", action="store_true",
                    help="f32 unfused inference whatever the profile's bf16 / kernel settings")
@@ -76,8 +91,6 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if args.op in NOT_PORTED:
         sys.exit(f"error: infer {args.op} ({NOT_PORTED[args.op]}) is not ported yet")
-    if args.dequant_samples:
-        sys.exit("error: nll --dequant-samples (the dequantized NLL bound) is not ported yet")
 
     import torch
 
@@ -85,8 +98,8 @@ def main(argv=None) -> None:
     from pytorch_glow_tpu_torch.data.pipeline import make_dataset
     from pytorch_glow_tpu_torch.inference import Inferer
     from pytorch_glow_tpu_torch.models.glow import init_glow
-    from pytorch_glow_tpu_torch.train.builder import build
-    from pytorch_glow_tpu_torch.train.step import ema_params
+    from pytorch_glow_tpu_torch.train.builder import build, labels_to_onehot
+    from pytorch_glow_tpu_torch.train.step import ema_params, step_generator
     from pytorch_glow_tpu_torch.utils.checkpoint import CheckpointManager
     from pytorch_glow_tpu_torch.utils.image import save_image_grid
 
@@ -105,6 +118,15 @@ def main(argv=None) -> None:
                             batch_size=None, out_dir=args.out_dir, synthetic=args.synthetic,
                             seed=None, overrides=overrides)
     prof = train_cli.resolve_profile(ns)
+    g = prof.glow
+    if args.op == "sample" and g.y_condition and args.class_id is None:
+        # The JAX CLI stops too, at the model's assertion.
+        sys.exit("error: sampling a y-conditional profile needs --class-id")
+    if args.op == "sample" and args.class_id is not None:
+        if not g.y_condition:
+            sys.exit("error: --class-id requires a y-conditional profile")
+        if not 0 <= args.class_id < g.y_classes:
+            sys.exit(f"error: --class-id {args.class_id} out of range [0, {g.y_classes})")
     device = torch.device("cpu" if args.cpu else "cuda")
     run_dir = os.path.join(prof.out_dir, prof.name)
     ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
@@ -141,9 +163,14 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     if args.op == "sample":
-        imgs = inferer.sample(args.num, args.temperature, gen).cpu().numpy()
+        y = None
+        if g.y_condition:
+            y = torch.zeros(args.num, g.y_classes)
+            y[:, args.class_id] = 1.0
+        imgs = inferer.sample(args.num, args.temperature, gen, y).cpu().numpy()
         save_image_grid(args.output, imgs)
-        print(f"wrote {args.output} ({args.num} samples @ T={args.temperature})")
+        cls = f", class {args.class_id}" if args.class_id is not None else ""
+        print(f"wrote {args.output} ({args.num} samples @ T={args.temperature}{cls})")
         return
 
     data = make_dataset(prof.data, prof.glow, prof.train)
@@ -157,11 +184,18 @@ def main(argv=None) -> None:
         return
 
     total, count = 0.0, 0
-    for batch in itertools.islice(data, args.batches):
-        nll = inferer.nll(batch["image"])
+    for bi, batch in enumerate(itertools.islice(data, args.batches)):
+        y = labels_to_onehot(batch, prof)  # the prior's shift on a y-conditional profile
+        if args.dequant_samples > 0:
+            nll = inferer.nll_bound(batch["image"], args.dequant_samples, args.bound,
+                                    step_generator(args.seed, bi, device), y)
+        else:
+            nll = inferer.nll(batch["image"], y)
         total += float(nll.sum())
         count += nll.shape[0]
-    print(f"nll: {total / count:.4f} bits/dim over {count} images (noise-free (bin corner))")
+    how = (f"{args.bound} bound, {args.dequant_samples} noise draws"
+           if args.dequant_samples > 0 else "noise-free (bin corner)")
+    print(f"nll: {total / count:.4f} bits/dim over {count} images ({how})")
 
 
 if __name__ == "__main__":

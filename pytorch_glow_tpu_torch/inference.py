@@ -8,7 +8,10 @@ Counterpart of `pytorch_glow_tpu/inference.py`.  Two latent views:
   round-trip behind `reconstruct`.
 
 Images are uint8 (or [0,1) float) NHWC tensors; they move to the model's
-device.  Results stay on that device.
+device, as do the labels `y_onehot` (B, y_classes) a y-conditional model
+takes.  Results stay on that device.  `nll` is the noise-free density at
+the bin corner; `nll_bound` the Monte-Carlo bound on the discrete NLL that
+flow papers report.
 """
 
 from __future__ import annotations
@@ -52,13 +55,30 @@ class Inferer:
         z, z_splits = self.encode_full(images)
         return self.decode_full(z, z_splits)
 
-    @torch.no_grad()
-    def sample(self, n: int, temperature: float = 0.7,
-               generator: torch.Generator | None = None) -> torch.Tensor:
-        return self.model.postprocess(self.model.sample(n, temperature, generator))
+    def _labels(self, y_onehot) -> torch.Tensor | None:
+        return None if y_onehot is None else torch.as_tensor(y_onehot).to(self.model.device)
 
     @torch.no_grad()
-    def nll(self, images) -> torch.Tensor:
+    def sample(self, n: int, temperature: float = 0.7,
+               generator: torch.Generator | None = None, y_onehot=None) -> torch.Tensor:
+        return self.model.postprocess(
+            self.model.sample(n, temperature, generator, self._labels(y_onehot)))
+
+    @torch.no_grad()
+    def nll(self, images, y_onehot=None) -> torch.Tensor:
         """Noise-free NLL in bits/dim at the bin corner (the reference
-        lineage's eval convention), one value per image."""
-        return self.model.log_prob(self._prep(images))["nll"]
+        lineage's eval convention; fine for relative comparisons, not a
+        bound on the discrete NLL), one value per image."""
+        return self.model.log_prob(self._prep(images), y_onehot=self._labels(y_onehot))["nll"]
+
+    @torch.no_grad()
+    def nll_bound(self, images, samples: int = 1, bound: str = "elbo",
+                  generator: torch.Generator | None = None, y_onehot=None) -> torch.Tensor:
+        """The Monte-Carlo bound on the discrete NLL in bits/dim per image
+        (`Glow.nll_bound`): samples=1 with "elbo" is the published protocol,
+        more samples with "iwae" tighten it toward log P(x).  Without a
+        generator the draws come from one seeded 0 on the model's device."""
+        if generator is None:
+            generator = torch.Generator(device=self.model.device).manual_seed(0)
+        return self.model.nll_bound(self._prep(images), generator, samples, bound,
+                                    self._labels(y_onehot))

@@ -31,20 +31,42 @@ kernels K6a / K6b (`ops/invconv_fused.py`).
 
 `ddi_init` always runs the unfused path, as the JAX package does, so DDI
 under `invconv_impl="pallas"` launches K6a whatever `flowstep_impl` says.
+It moves only the flow's actnorms: the top prior's, the class heads' and
+the variational dequantizer's parameters stay as they are.
 
-Not ported yet: y-conditioning, `nll_bound`, variational dequantization.
+y-conditioning (`cfg.y_condition`): the top prior's mean and log-scale are
+shifted by `project_ycond(y_onehot)` and `log_prob` returns the class
+logits `y_logits = project_class(mean of z over H, W)`; `loss_fn` adds
+`weight_y` times the class loss (softmax cross-entropy over one-hot
+labels, or per-attribute BCE-with-logits under `y_multi_class`).  Both
+heads are `LinearZeros` under the lineage's names.
+
+`dequant="variational"`: with a generator, `log_prob` dequantizes through
+the learned q(u|x) of `models/vardeq.py` (`self.vardeq`) and folds its
+-log q into the objective.  `nll_bound` is the Monte-Carlo bound on the
+discrete NLL (ELBO or IWAE) over k sequential draws.
 """
 
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pytorch_glow_tpu_torch.config import GlowConfig
-from pytorch_glow_tpu_torch.models.layers import ActNorm, Conv2dZeros, FlowStep, Split2d, Squeeze
+from pytorch_glow_tpu_torch.models.layers import (
+    ActNorm,
+    Conv2dZeros,
+    FlowStep,
+    LinearZeros,
+    Split2d,
+    Squeeze,
+)
+from pytorch_glow_tpu_torch.models.vardeq import VarDeq
 from pytorch_glow_tpu_torch.ops import flowstep as fs
 from pytorch_glow_tpu_torch.ops.math import (
     bits_per_dim,
@@ -67,8 +89,6 @@ class _FlowNet(nn.Module):
 class Glow(nn.Module):
     def __init__(self, cfg: GlowConfig, generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.y_condition:
-            raise NotImplementedError("y_condition is not ported yet")
         if cfg.flowstep_impl not in ("xla", "pallas"):
             raise ValueError(f"unknown flowstep_impl: {cfg.flowstep_impl}")
         self.cfg = cfg
@@ -93,6 +113,11 @@ class Glow(nn.Module):
         c_final = shapes[-1][2]
         if cfg.learn_top:
             self.learn_top = Conv2dZeros(2 * c_final, 2 * c_final)
+        if cfg.y_condition:
+            self.project_ycond = LinearZeros(cfg.y_classes, 2 * c_final)
+            self.project_class = LinearZeros(c_final, cfg.y_classes)
+        if cfg.dequant == "variational":
+            self.vardeq = VarDeq(cfg, generator)
         self._ddi = False
 
     @property
@@ -165,16 +190,22 @@ class Glow(nn.Module):
             z = unsqueeze2d(z, 2)
         return z
 
-    def top_prior(self, batch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    def top_prior(self, batch: int, y_onehot: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
         """(mean, logs) of the final-latent prior, shape (B, 1, 1, C_final).
 
         The learned prior convolves a zeros input, so its output is the
-        scaled bias b * exp(3 * logs) at every pixel."""
+        scaled bias b * exp(3 * logs) at every pixel; a y-conditional model
+        adds `project_ycond(y_onehot)` (B, 2 * C_final) to it."""
         c = self.cfg.final_latent_shape[-1]
         h = torch.zeros(batch, 1, 1, 2 * c, dtype=torch.float32, device=self.device)
         if self.cfg.learn_top:
             top = self.learn_top
             h = h + top.bias * torch.exp(top.logs.view(-1) * 3.0)
+        if self.cfg.y_condition:
+            if y_onehot is None:
+                raise ValueError("a y_condition model needs y_onehot")
+            h = h + self.project_ycond(y_onehot)[:, None, None, :]
         return split_channel(h, "simple")
 
     # -- public API ------------------------------------------------------------
@@ -192,7 +223,9 @@ class Glow(nn.Module):
         return torch.clamp(torch.floor(x * n_bins) * (256.0 / n_bins), 0, 255).to(torch.uint8)
 
     def dequantize(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        """Dequantization noise on [0,1)-scaled inputs (uniform by default)."""
+        """Dequantization noise on [0,1)-scaled inputs (uniform by default).
+        Parameter-free: under `dequant="variational"` it adds uniform noise
+        (DDI batches); the learned q(u|x) runs in `log_prob`."""
         dq = self.cfg.dequant
         if dq in ("uniform", "variational"):
             noise = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
@@ -202,33 +235,96 @@ class Glow(nn.Module):
             return x + noise / self.cfg.n_bins
         return x
 
-    def log_prob(self, x: torch.Tensor, generator: torch.Generator | None = None) -> dict:
-        """x in [0,1) -> {z, objective, nll (bits/dim)}; with a generator the
-        input is dequantized first."""
+    def log_prob(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                 y_onehot: torch.Tensor | None = None) -> dict:
+        """x in [0,1) -> {z, objective, nll (bits/dim)}, with "y_logits"
+        on a y-conditional model; with a generator the input is dequantized
+        first, and under variational dequantization "neg_log_q", -log q(u|x),
+        is returned and folded into the objective."""
         cfg = self.cfg
         dims = num_dims((x.shape[0], *cfg.image_shape))
+        neg_log_q = None
         if generator is not None:
             if cfg.dequant == "variational":
-                raise NotImplementedError("variational dequantization is not ported yet")
-            x = self.dequantize(x, generator)
+                x, neg_log_q = self.vardeq(x, generator)
+            else:
+                x = self.dequantize(x, generator)
         logdet = torch.full((x.shape[0],), discretization_correction(dims, cfg.n_bins),
                             dtype=torch.float32, device=x.device)
+        if neg_log_q is not None:
+            logdet = logdet + neg_log_q
         z, objective, _ = self.encode(x, logdet)
-        mean, logs = self.top_prior(x.shape[0])
+        mean, logs = self.top_prior(x.shape[0], y_onehot)
         objective = objective + gaussian_logp(mean, logs, z.float())
-        return {"z": z, "objective": objective, "nll": bits_per_dim(objective, dims)}
+        out = {"z": z, "objective": objective, "nll": bits_per_dim(objective, dims)}
+        if neg_log_q is not None:
+            out["neg_log_q"] = neg_log_q
+        if cfg.y_condition:
+            out["y_logits"] = self.project_class(z.float().mean(dim=(1, 2)))
+        return out
 
-    def loss_fn(self, x: torch.Tensor, generator: torch.Generator | None = None):
-        """Training loss on [0,1) images: mean nll in bits/dim ->
-        (loss, {"nll", "loss"}); with a generator the input is dequantized
-        first.  The class losses of y-conditioning are not ported."""
-        loss = self.log_prob(x, generator)["nll"].mean()
-        return loss, {"nll": loss, "loss": loss}
+    def nll_bound(self, x: torch.Tensor, generator: torch.Generator, samples: int = 1,
+                  bound: str = "elbo", y_onehot: torch.Tensor | None = None) -> torch.Tensor:
+        """Monte-Carlo bound on the discrete NLL in bits/dim, shape (B,).
+
+        `log_prob` without a generator evaluates the density at the bin
+        corner, which is not a bound on the discrete likelihood P(x).  This
+        is: each of `samples` draws, taken in turn from `generator` (one
+        pass's activations at a time), gives the objective of x dequantized
+        by that draw, whose -log q term is already folded in under both
+        uniform and variational q.  "elbo" is the mean of the per-draw
+        objectives (k=1 is the published protocol), "iwae" the importance
+        bound logsumexp - log k (Burda et al. 2016, arXiv:1509.00519)."""
+        if bound not in ("elbo", "iwae"):
+            raise ValueError(f"unknown bound: {bound!r} (elbo | iwae)")
+        if self.cfg.dequant not in ("uniform", "variational"):
+            # gaussian / none noise has no (or an unbounded-support) q-density
+            # folded into the objective.
+            raise ValueError(
+                f"nll_bound is only a valid discrete-NLL bound for "
+                f"dequant='uniform'/'variational', not {self.cfg.dequant!r}")
+        objs = torch.stack([self.log_prob(x, generator, y_onehot)["objective"]
+                            for _ in range(samples)])
+        if bound == "iwae":
+            obj = torch.logsumexp(objs, dim=0) - math.log(samples)
+        else:
+            obj = objs.mean(dim=0)
+        return bits_per_dim(obj, num_dims((x.shape[0], *self.cfg.image_shape)))
+
+    def loss_fn(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                y_onehot: torch.Tensor | None = None):
+        """Training loss on [0,1) images -> (loss, metrics): the mean nll in
+        bits/dim, plus `weight_y` times the class loss on a y-conditional
+        model; with a generator the input is dequantized first.  Metrics:
+        "nll", "loss", and "loss_class" and "vardeq_logq_bits" (the bits/dim
+        the learned q charges for its noise) where they apply."""
+        cfg = self.cfg
+        out = self.log_prob(x, generator, y_onehot)
+        loss = out["nll"].mean()
+        metrics = {"nll": loss}
+        if "neg_log_q" in out:
+            dims = num_dims((x.shape[0], *cfg.image_shape))
+            metrics["vardeq_logq_bits"] = -out["neg_log_q"].mean() / (math.log(2.0) * dims)
+        if cfg.y_condition:
+            logits = out["y_logits"]
+            if cfg.y_multi_class:
+                # BCE-with-logits per binary attribute, in its stable form.
+                labels = (y_onehot > 0).float()
+                cls = (torch.clamp_min(logits, 0) - logits * labels
+                       + torch.log1p(torch.exp(-logits.abs()))).mean()
+            else:
+                cls = -(F.log_softmax(logits, dim=-1) * y_onehot).sum(dim=-1).mean()
+            metrics["loss_class"] = cls
+            loss = loss + cfg.weight_y * cls
+        metrics["loss"] = loss
+        return loss, metrics
 
     def sample(self, n: int, temperature: float = 1.0,
-               generator: torch.Generator | None = None) -> torch.Tensor:
-        """Temperature sampling -> float images in [0,1)."""
-        mean, logs = self.top_prior(n)
+               generator: torch.Generator | None = None,
+               y_onehot: torch.Tensor | None = None) -> torch.Tensor:
+        """Temperature sampling -> float images in [0,1); a y-conditional
+        model draws from the prior of `y_onehot` (n, y_classes)."""
+        mean, logs = self.top_prior(n, y_onehot)
         hf, wf, cf = self.cfg.final_latent_shape
         z = gaussian_sample(mean, logs, temperature, generator, shape=(n, hf, wf, cf))
         return self.decode(z, generator, temperature)
@@ -240,7 +336,7 @@ class Glow(nn.Module):
 
     @contextmanager
     def _ddi_mode(self):
-        actnorms = [m for m in self.modules() if isinstance(m, ActNorm)]
+        actnorms = [m for m in self.flow.modules() if isinstance(m, ActNorm)]
         self._ddi = True
         for m in actnorms:
             m.ddi = True
@@ -254,8 +350,8 @@ class Glow(nn.Module):
     @torch.no_grad()
     def ddi_init(self, x: torch.Tensor) -> "Glow":
         """Data-dependent actnorm init from one preprocessed+dequantized batch:
-        one unfused encode in which every actnorm, in depth order, sets its
-        parameters from the batch statistics of its input."""
+        one unfused encode in which every actnorm of the flow, in depth
+        order, sets its parameters from the batch statistics of its input."""
         with self._ddi_mode():
             self.encode(x)
         return self
@@ -274,14 +370,22 @@ def ddi_init(model: Glow, x: torch.Tensor) -> Glow:
     return model.ddi_init(x)
 
 
-def log_prob(model: Glow, x: torch.Tensor, generator: torch.Generator | None = None) -> dict:
-    return model.log_prob(x, generator)
+def log_prob(model: Glow, x: torch.Tensor, generator: torch.Generator | None = None,
+             y_onehot: torch.Tensor | None = None) -> dict:
+    return model.log_prob(x, generator, y_onehot)
 
 
-def loss_fn(model: Glow, x: torch.Tensor, generator: torch.Generator | None = None):
-    return model.loss_fn(x, generator)
+def nll_bound(model: Glow, x: torch.Tensor, generator: torch.Generator, samples: int = 1,
+              bound: str = "elbo", y_onehot: torch.Tensor | None = None) -> torch.Tensor:
+    return model.nll_bound(x, generator, samples, bound, y_onehot)
+
+
+def loss_fn(model: Glow, x: torch.Tensor, generator: torch.Generator | None = None,
+            y_onehot: torch.Tensor | None = None):
+    return model.loss_fn(x, generator, y_onehot)
 
 
 def sample(model: Glow, n: int, temperature: float = 1.0,
-           generator: torch.Generator | None = None) -> torch.Tensor:
-    return model.sample(n, temperature, generator)
+           generator: torch.Generator | None = None,
+           y_onehot: torch.Tensor | None = None) -> torch.Tensor:
+    return model.sample(n, temperature, generator, y_onehot)

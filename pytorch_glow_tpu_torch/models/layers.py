@@ -13,8 +13,10 @@ Precision: an f32 conv runs in true f32 whatever the process's TF32 flags
 say (`ops/math.true_f32`, per op, so a library caller gets it too; PyTorch
 lets cuDNN use TF32 by default), as the JAX package runs its f32 convs at
 HIGHEST: the split priors and the whole coupling net at
-`compute_dtype="float32"`.  The f32 channel mixes of `ops/invconv.py` are
-pinned the same way.  bf16 convs take cuDNN's bf16 path.
+`compute_dtype="float32"`.  The f32 channel mixes of `ops/invconv.py` and
+`LinearZeros` are pinned the same way.  The bf16 coupling net's first two
+convs take cuDNN's bf16 path; its zero conv sums its bf16 operands in true
+f32 (`Conv2dZeros`).
 
 ActNorm's data-dependent init: while `ActNorm.ddi` is True, a forward call
 sets the module's parameters from the batch statistics of its input and then
@@ -100,11 +102,58 @@ class Conv2d(nn.Module):
         return y
 
 
+def _tap_sum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME-padded stride-1 conv of NHWC bf16 `x` with a bf16 (out, in, k,
+    k) weight on the card, as the f32 sum of the bf16 products: one bf16
+    product to k*k*out tap columns with an f32 result
+    (`torch.mm(..., out_dtype=float32)`), then each tap's columns added, in
+    f32, at its offset (the fused step's tap-packed zero conv)."""
+    b, h, wd, c_in = x.shape
+    c_out, k = w.shape[0], w.shape[-1]
+    p = k // 2
+    packed = w.permute(2, 3, 0, 1).reshape(k * k * c_out, c_in)
+    taps = torch.mm(x.reshape(-1, c_in), packed.T, out_dtype=torch.float32)
+    taps = F.pad(taps.view(b, h, wd, k * k * c_out), (0, 0, p, p, p, p))
+    out = taps[:, :h, :wd, :c_out]  # tap t = k * dy + dx reads rows i + dy - p
+    for t in range(1, k * k):
+        dy, dx = divmod(t, k)
+        out = out + taps[:, dy:dy + h, dx:dx + wd, t * c_out:(t + 1) * c_out]
+    return out
+
+
+class _ConvF32Sum(torch.autograd.Function):
+    """A SAME conv of low-precision NHWC `x` and weight `w` whose output is
+    the f32 sum of their products: on the card `_tap_sum`, on the CPU a
+    true-f32 conv of the same operands.  The backward is the low-precision
+    conv's, as the JAX package's autodiff of conv(bf16) -> astype(f32)
+    runs it: the f32 cotangent rounded to the operands' dtype, then the
+    conv's two transposes."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            return _tap_sum(x, w)
+        return _conv_nhwc(x.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        p = w.shape[-1] // 2
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            g.to(x.dtype).permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None, [1, 1], [p, p],
+            [1, 1], False, [0, 0], 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return None if gx is None else gx.permute(0, 2, 3, 1), gw
+
+
 class Conv2dZeros(nn.Module):
     """Zero-init 3x3 conv, output (conv + bias) * exp(3 * logs) in f32.
 
-    The conv runs in the input's dtype (the coupling net's compute dtype,
-    or f32 for the priors); accumulation and the scaled output are f32."""
+    The operands are rounded to the input's dtype (the coupling net's
+    compute dtype, or f32 for the priors).  A bf16 input gives the f32 sum
+    of the bf16 operands (`_ConvF32Sum`), never a bf16-rounded result, as
+    the jitted JAX conv (which folds its output's f32 cast into the conv)
+    and the fused flow step give; an f32 one the true-f32 conv."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 3):
         super().__init__()
@@ -113,8 +162,39 @@ class Conv2dZeros(nn.Module):
         self.logs = nn.Parameter(torch.zeros(c_out, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _conv_nhwc(x, self.weight).float() + self.bias
+        if x.dtype == torch.float32:
+            y = _conv_nhwc(x, self.weight)
+        else:
+            y = _ConvF32Sum.apply(x, self.weight.to(x.dtype))
+        y = y + self.bias
         return y * torch.exp(self.logs.view(-1) * LOGSCALE_FACTOR)
+
+
+class LinearZeros(nn.Module):
+    """Zero-init linear layer, y = (x W^T + bias) * exp(3 * logs), in true
+    f32; `weight` is (out, in), the lineage's layout."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(d_out, d_in))
+        self.bias = nn.Parameter(torch.zeros(d_out))
+        self.logs = nn.Parameter(torch.zeros(d_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with true_f32():
+            y = x.float() @ self.weight.T + self.bias
+        return y * torch.exp(self.logs * LOGSCALE_FACTOR)
+
+
+def coupling_net(c_in: int, hidden: int, c_out: int,
+                 generator: torch.Generator | None = None) -> nn.Sequential:
+    """The coupling net f: Conv(3x3) -> ReLU -> Conv(1x1) -> ReLU ->
+    Conv2dZeros(3x3), keys 0 / 2 / 4; it runs in its input's dtype."""
+    return nn.Sequential(
+        Conv2d(c_in, hidden, 3, generator), nn.ReLU(),
+        Conv2d(hidden, hidden, 1, generator), nn.ReLU(),
+        Conv2dZeros(hidden, c_out),
+    )
 
 
 def _random_lu(c: int, generator: torch.Generator | None):
@@ -297,11 +377,7 @@ class FlowStep(nn.Module):
         self._perm_name, perm = make_permutation(c, permutation, lu_decomposed, invconv_impl,
                                                  generator)
         self._modules[self._perm_name] = perm
-        self.f = nn.Sequential(
-            Conv2d(ch, hidden, 3, generator), nn.ReLU(),
-            Conv2d(hidden, hidden, 1, generator), nn.ReLU(),
-            Conv2dZeros(hidden, cout),
-        )
+        self.f = coupling_net(ch, hidden, cout, generator)
 
     @property
     def permutation(self) -> nn.Module:

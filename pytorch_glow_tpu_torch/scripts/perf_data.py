@@ -24,7 +24,8 @@ seed) into a temporary directory, and prints one JSON line each:
   preset's arms run in turns, parent first and last (P C C P).
 
 The card's name and power limit (nvidia-smi) come first.  The helpers
-`write_cifar10` and `write_celeba` also serve chip_smoke.py.
+`write_cifar10`, `write_celeba` and `write_imagenet64` also serve
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -64,6 +65,33 @@ def write_cifar10(root: str, seed: int = SEED, per_file: int = CIFAR_PER_FILE) -
                  b"labels": rng.integers(0, 10, per_file).tolist()}
         with open(os.path.join(root, name), "wb") as f:
             pickle.dump(entry, f, protocol=4)
+    return root
+
+
+def write_imagenet64(root: str, per_file: int, size: int = 64, classes: int = 1000,
+                     seed: int = SEED) -> str:
+    """Downsampled ImageNet's npz layout under `root`:
+    train_data_batch_1..2 and val_data.npz of `per_file` images each,
+    'data' (N, size*size*3) CHW-flattened uint8 and 1-based 'labels' over
+    all `classes` classes, the images textured ones from `seed` (one
+    thread per file, each file from its own seed)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pytorch_glow_tpu_torch.data.synthetic import _textured_images
+
+    os.makedirs(root, exist_ok=True)
+    names = ["train_data_batch_1.npz", "train_data_batch_2.npz", "val_data.npz"]
+
+    def write(k: int) -> None:
+        rng = np.random.default_rng(np.random.SeedSequence((seed, k)))
+        images = _textured_images(rng, per_file, size, size, 3)
+        labels = rng.permutation(np.arange(per_file) % classes) + 1
+        np.savez(os.path.join(root, names[k]),
+                 data=images.transpose(0, 3, 1, 2).reshape(per_file, 3 * size * size),
+                 labels=labels)
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(write, range(len(names))))
     return root
 
 

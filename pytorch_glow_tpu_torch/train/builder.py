@@ -76,6 +76,24 @@ class Built:
         return self.eval_model
 
 
+def labels_to_onehot(batch: dict, profile: Profile) -> torch.Tensor | None:
+    """A batch's class labels as the y-conditional model takes them, f32
+    (B, y_classes) on the batch's device: CelebA's +-1 "attr" as {0, 1},
+    an int "label" one-hot (all zeros where it lies outside [0,
+    y_classes), as `jax.nn.one_hot` gives), else zeros; None for an
+    unconditional profile."""
+    g = profile.glow
+    if not g.y_condition:
+        return None
+    if "attr" in batch:
+        return (torch.as_tensor(batch["attr"]) > 0).float()
+    if "label" in batch:
+        label = torch.as_tensor(batch["label"])
+        return (label[:, None] == torch.arange(g.y_classes, device=label.device)).float()
+    image = torch.as_tensor(batch["image"])
+    return torch.zeros(image.shape[0], g.y_classes, device=image.device)
+
+
 def serving_config(g: GlowConfig, device: torch.device) -> GlowConfig:
     """The config eval, sampling and reconstruction run on: the fused flow
     step on the card for a bf16 profile on the unfused one."""

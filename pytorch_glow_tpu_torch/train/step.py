@@ -8,7 +8,10 @@ Counterpart of `pytorch_glow_tpu/train/step.py` (`init_state`,
 when ema_decay > 0}; the model holds the parameters and is updated in
 place.  The eval, sample and reconstruct functions take the model to run
 (the JAX ones take a params tree); the trainer hands them its eval copy
-holding the EMA or the live weights.
+holding the EMA or the live weights.  A y-conditional model's train, eval
+and sample functions take the labels as the JAX ones do: `y_onehot`
+(B, y_classes), stacked (N, B, y_classes) for N steps or batches, on any
+device (they move to the model's); None on an unconditional model.
 
 Per-step randomness comes from a `torch.Generator` seeded from (seed, step)
 alone, so a resumed run draws the same noise; the flips use a separate
@@ -80,9 +83,13 @@ def _prep(model: Glow, batch: torch.Tensor) -> torch.Tensor:
     return model.preprocess(batch) if batch.dtype == torch.uint8 else batch.float()
 
 
+def _labels(model: Glow, y_onehot: torch.Tensor | None) -> torch.Tensor | None:
+    return None if y_onehot is None else y_onehot.to(model.device)
+
+
 def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
                         schedule=None, augment_flip: bool = False):
-    def train_step(state: State, batch: torch.Tensor):
+    def train_step(state: State, batch: torch.Tensor, y_onehot: torch.Tensor | None = None):
         model: Glow = state["model"]
         _check_model(model, cfg)
         step = state["step"]
@@ -95,7 +102,7 @@ def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
             x = torch.where(flip[:, None, None, None], x.flip(2), x)
         names_params = trainable(model)
         params = [p for _, p in names_params]
-        loss, metrics = model.loss_fn(x, gen)
+        loss, metrics = model.loss_fn(x, gen, _labels(model, y_onehot))
         # The backward's f32 convs run after their forward's pin has ended.
         with true_f32():
             grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -120,55 +127,60 @@ def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
 
 def make_train_step(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0, schedule=None,
                     augment_flip: bool = False) -> Callable:
-    """-> (state, image batch) -> (state, metrics); metrics stay on the device."""
+    """-> (state, image batch[, y_onehot]) -> (state, metrics); metrics stay
+    on the device."""
     return _make_train_step_fn(cfg, tx, ema_decay, schedule, augment_flip)
 
 
 def make_train_step_n(cfg: GlowConfig, tx: Optimizer, n: int, ema_decay: float = 0.0,
                       schedule=None, augment_flip: bool = False) -> Callable:
-    """n train steps per call over stacked (n, B, H, W, C) batches, with the
-    trajectory of n single calls; returns the last step's metrics."""
+    """n train steps per call over stacked (n, B, H, W, C) batches (and
+    (n, B, y_classes) labels), with the trajectory of n single calls;
+    returns the last step's metrics."""
     one = _make_train_step_fn(cfg, tx, ema_decay, schedule, augment_flip)
 
-    def train_step_n(state: State, batches: torch.Tensor):
+    def train_step_n(state: State, batches: torch.Tensor, y_onehot: torch.Tensor | None = None):
         if batches.shape[0] != n:
             raise ValueError(f"expected {n} stacked batches, got {batches.shape[0]}")
         metrics = {}
         for i in range(n):
-            state, metrics = one(state, batches[i])
+            state, metrics = one(state, batches[i], None if y_onehot is None else y_onehot[i])
         return state, metrics
 
     return train_step_n
 
 
 def make_eval_step_n(cfg: GlowConfig) -> Callable:
-    """(model, (N, B, H, W, C) batches) -> {"nll": the mean over the N
-    batches of each batch's mean bits/dim}, without dequantization noise,
-    summed in f32 in batch order as the JAX fori_loop sums."""
+    """(model, (N, B, H, W, C) batches[, (N, B, y_classes) labels]) ->
+    {"nll": the mean over the N batches of each batch's mean bits/dim},
+    without dequantization noise, summed in f32 in batch order as the JAX
+    fori_loop sums."""
 
     @torch.no_grad()
-    def eval_step_n(model: Glow, batches: torch.Tensor):
+    def eval_step_n(model: Glow, batches: torch.Tensor, y_onehot: torch.Tensor | None = None):
         _check_model(model, cfg)
         total = torch.zeros((), dtype=torch.float32, device=model.device)
-        for batch in batches:
-            total = total + model.log_prob(_prep(model, batch))["nll"].mean()
+        for i, batch in enumerate(batches):
+            y = None if y_onehot is None else _labels(model, y_onehot[i])
+            total = total + model.log_prob(_prep(model, batch), y_onehot=y)["nll"].mean()
         return {"nll": total / batches.shape[0]}
 
     return eval_step_n
 
 
 def make_sample_fn(cfg: GlowConfig, n: int, temperature: float) -> Callable:
-    """(model, generator, temperature=None) -> n uint8 samples;
-    `temperature` overrides the default given here (the trainer's annealed
-    plot temperature)."""
+    """(model, generator, temperature=None, y_onehot=None) -> n uint8
+    samples; `temperature` overrides the default given here (the trainer's
+    annealed plot temperature)."""
 
     default = temperature
 
     @torch.no_grad()
-    def sample_fn(model: Glow, generator: torch.Generator, temperature: float | None = None):
+    def sample_fn(model: Glow, generator: torch.Generator, temperature: float | None = None,
+                  y_onehot: torch.Tensor | None = None):
         _check_model(model, cfg)
         t = default if temperature is None else temperature
-        return model.postprocess(model.sample(n, float(t), generator))
+        return model.postprocess(model.sample(n, float(t), generator, _labels(model, y_onehot)))
 
     return sample_fn
 

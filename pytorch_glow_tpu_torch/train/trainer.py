@@ -32,6 +32,14 @@ copy of the model (`Built.serving`):
   training batch and T=1.0 samples from the EMA weights (numpy, on the
   host).
 
+A y-conditional profile's labels (`builder.labels_to_onehot`) go with
+their batches: into the train steps (stacked for `steps_per_call > 1`),
+the eval batches, and, from the last batch of the call, the plot's
+samples (its first `num_sample_images`) and the SWD's (its first
+`swd_images`), as the JAX trainer passes them.  The class loss
+`loss_class` and, under variational dequantization, `vardeq_logq_bits`
+are logged with the other scalars.
+
 Each boundary logs its wall time, `plot_ms` / `eval_ms` / `swd_ms` (the
 device synced before it; each ends on a host read), and the flow-step
 kernel launches it made, `plot_launches` / `eval_launches` /
@@ -60,7 +68,7 @@ import torch
 
 from pytorch_glow_tpu_torch.ops import flowstep
 from pytorch_glow_tpu_torch.train import step as steplib
-from pytorch_glow_tpu_torch.train.builder import Built
+from pytorch_glow_tpu_torch.train.builder import Built, labels_to_onehot
 from pytorch_glow_tpu_torch.utils.image import save_image_grid
 from pytorch_glow_tpu_torch.utils.metrics import MetricLogger
 from pytorch_glow_tpu_torch.utils.profiles import profile_to_dict
@@ -189,13 +197,20 @@ def _boundary(kind: str, fn, built: Built, *args) -> dict:
             f"{kind}_launches": sum(flowstep.launches.values()) - before}
 
 
-def _plot(built: Built, state: dict, step: int, images: np.ndarray, out_dir: str) -> dict:
+def _labels(y: torch.Tensor | None, n: int | None = None) -> dict:
+    """The labels keyword of a step or sample call on a y-conditional
+    profile (their first `n` rows); none on an unconditional one."""
+    return {} if y is None else {"y_onehot": y[:n]}
+
+
+def _plot(built: Built, state: dict, step: int, images: np.ndarray, y, out_dir: str) -> dict:
     t = built.profile.train
     temp = t.sample_temperature
     if t.temperature_anneal_steps:
         temp *= min(1.0, step / t.temperature_anneal_steps)
     gen = steplib.step_generator(t.seed + 2, step, built.device)
-    samples = built.sample_fn(built.serving(steplib.ema_params(state)), gen, temp)
+    samples = built.sample_fn(built.serving(steplib.ema_params(state)), gen, temp,
+                              **_labels(y, t.num_sample_images))
     save_image_grid(os.path.join(out_dir, "samples", f"step_{step:08d}.png"),
                     samples.cpu().numpy())
     live = built.serving(state["model"].state_dict())
@@ -206,17 +221,20 @@ def _plot(built: Built, state: dict, step: int, images: np.ndarray, out_dir: str
 
 def _eval(built: Built, state: dict, step: int) -> dict:
     t = built.profile.train
-    batches = [b["image"] for b in itertools.islice(built.eval_data, t.eval_batches)]
-    if not batches:
+    group = list(itertools.islice(built.eval_data, t.eval_batches))
+    if not group:
         return {}
+    batches = [b["image"] for b in group]
     stacked = torch.from_numpy(np.stack(batches)).to(built.device)
+    ys = [labels_to_onehot(b, built.profile) for b in group]
+    y = None if ys[0] is None else torch.stack(ys)
     ev = {"eval_nll": float(built.eval_step_n(built.serving(steplib.ema_params(state)),
-                                              stacked)["nll"])}
+                                              stacked, **_labels(y))["nll"])}
     live = built.serving(state["model"].state_dict())
     if "ema" in state:
         # The live weights on the same batches: every EMA run carries its
         # own control.
-        ev["eval_nll_raw"] = float(built.eval_step_n(live, stacked)["nll"])
+        ev["eval_nll_raw"] = float(built.eval_step_n(live, stacked, **_labels(y))["nll"])
     # Round-trip drift: decode(encode(x)) against x in uint8.
     xb = batches[0][: t.num_sample_images]
     rec = built.reconstruct_fn(live, torch.from_numpy(xb)).cpu().numpy()
@@ -229,11 +247,12 @@ def _eval(built: Built, state: dict, step: int) -> dict:
     return ev
 
 
-def _swd(built: Built, state: dict, step: int, images: np.ndarray) -> dict:
+def _swd(built: Built, state: dict, step: int, images: np.ndarray, y) -> dict:
     t = built.profile.train
     n = min(t.swd_images, t.batch_size)
     gen = steplib.step_generator(t.seed + 3, step, built.device)
-    fake = built.swd_sample_fn(built.serving(steplib.ema_params(state)), gen).cpu().numpy()
+    fake = built.swd_sample_fn(built.serving(steplib.ema_params(state)), gen,
+                               **_labels(y, n)).cpu().numpy()
     t0 = time.perf_counter()
     swd = sliced_wasserstein(images[:n], fake, seed=t.seed)["swd_avg"]
     return {"swd_x1e3": swd, "swd_host_ms": 1e3 * (time.perf_counter() - t0)}
@@ -280,9 +299,15 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
                 break
             if t.profile_step and step == t.profile_step and not profiler.active:
                 profiler.start(step)
-            images = [next(built.data)["image"] for _ in range(spc)]
-            batch = torch.stack(images) if spc > 1 else images[0]
-            state, metrics = built.train_step(state, batch)
+            group = [next(built.data) for _ in range(spc)]
+            images = [b["image"] for b in group]
+            ys = [labels_to_onehot(b, p) for b in group]
+            y = ys[-1]  # the last micro-batch's, with its images below
+            if spc > 1:
+                y_stack = None if y is None else torch.stack(ys)
+                state, metrics = built.train_step(state, torch.stack(images), **_labels(y_stack))
+            else:
+                state, metrics = built.train_step(state, images[0], **_labels(y))
             step += spc
             if step == first_step + spc:
                 # The first call pays the kernel build and warm-up; its images
@@ -319,11 +344,12 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
             swd = t.swd_gap and step % t.swd_gap == 0
             last = images[-1].cpu().numpy() if plot or swd else None
             if plot:
-                logger.scalars(step, _boundary("plot", _plot, built, state, step, last, out_dir))
+                logger.scalars(step, _boundary("plot", _plot, built, state, step, last, y,
+                                               out_dir))
             if t.eval_gap and step % t.eval_gap == 0 and built.eval_data is not None:
                 logger.scalars(step, _boundary("eval", _eval, built, state, step))
             if swd:
-                logger.scalars(step, _boundary("swd", _swd, built, state, step, last))
+                logger.scalars(step, _boundary("swd", _swd, built, state, step, last, y))
     except BaseException:
         if watchdog is not None:
             watchdog.stop()  # no snapshot follows a failure

@@ -10,6 +10,17 @@ makes the port compute what JAX computes on those parameters.
 
 Takes the pytree with numpy leaves (`jax.tree.map(np.asarray, params)`);
 `LUParams` may arrive as the NamedTuple or as a dict.
+
+A y-conditional model's heads `top.project_ycond` / `top.project_class`
+go under the lineage's names, `project_ycond.{weight,bias,logs}` and
+`project_class.*`, the weight transposed to (out, in).  The lineage has no
+variational dequantizer, so its subtree goes under the port's own names
+(`models/vardeq.py`):
+
+  JAX `vardeq`                               port `state_dict`
+  ctx.conv{1,2}.{w, actnorm.bias, .logs}    vardeq.ctx.conv{1,2}.{weight, actnorm.bias, .logs}
+  steps[i].conv1 / conv2 / conv3            vardeq.steps.{i}.0 / .2 / .4 (as a flow step's f)
+  final.bias, final.logs                    vardeq.bias, vardeq.logs  (4C each)
 """
 
 from __future__ import annotations
@@ -47,6 +58,27 @@ def _conv2d_zeros(prefix: str, p: dict, out: dict) -> None:
     out[f"{prefix}.logs"] = _f32(p["logs"]).reshape(-1, 1, 1)
 
 
+def _linear_zeros(prefix: str, p: dict, out: dict) -> None:
+    out[f"{prefix}.weight"] = _f32(p["w"]).T
+    out[f"{prefix}.bias"] = _f32(p["b"])
+    out[f"{prefix}.logs"] = _f32(p["logs"])
+
+
+def _coupling_net(prefix: str, cp: dict, out: dict) -> None:
+    _conv2d(f"{prefix}.0", cp["conv1"], out)
+    _conv2d(f"{prefix}.2", cp["conv2"], out)
+    _conv2d_zeros(f"{prefix}.4", cp["conv3"], out)
+
+
+def _vardeq(p: dict, out: dict) -> None:
+    _conv2d("vardeq.ctx.conv1", p["ctx"]["conv1"], out)
+    _conv2d("vardeq.ctx.conv2", p["ctx"]["conv2"], out)
+    for i, net in enumerate(p["steps"]):
+        _coupling_net(f"vardeq.steps.{i}", net, out)
+    out["vardeq.bias"] = _f32(p["final"]["bias"])
+    out["vardeq.logs"] = _f32(p["final"]["logs"])
+
+
 def _lu_field(lu: Any, name: str) -> np.ndarray:
     return np.asarray(lu[name] if isinstance(lu, dict) else getattr(lu, name))
 
@@ -57,10 +89,7 @@ def _step(prefix: str, sp: dict, out: dict, mode: str = "invconv") -> None:
     out[f"{prefix}.actnorm.bias"] = _vec4(sp["actnorm"]["bias"])
     out[f"{prefix}.actnorm.logs"] = _vec4(sp["actnorm"]["logs"])
     _permutation(prefix, sp["perm"], out, mode)
-    cp = sp["coupling"]
-    _conv2d(f"{prefix}.f.0", cp["conv1"], out)
-    _conv2d(f"{prefix}.f.2", cp["conv2"], out)
-    _conv2d_zeros(f"{prefix}.f.4", cp["conv3"], out)
+    _coupling_net(f"{prefix}.f", sp["coupling"], out)
 
 
 def _permutation(prefix: str, perm: dict, out: dict, mode: str) -> None:
@@ -106,6 +135,12 @@ def state_dict_from_jax(params: dict, cfg: GlowConfig) -> dict[str, torch.Tensor
         if level["split"] is not None:
             _conv2d_zeros(f"flow.layers.{j}.conv", level["split"]["prior_conv"], out)
             j += 1
-    if "learn_top" in params["top"]:
-        _conv2d_zeros("learn_top", params["top"]["learn_top"], out)
+    top = params["top"]
+    if "learn_top" in top:
+        _conv2d_zeros("learn_top", top["learn_top"], out)
+    if "project_ycond" in top:
+        _linear_zeros("project_ycond", top["project_ycond"], out)
+        _linear_zeros("project_class", top["project_class"], out)
+    if "vardeq" in params:
+        _vardeq(params["vardeq"], out)
     return {key: torch.from_numpy(np.array(v, copy=True)) for key, v in out.items()}

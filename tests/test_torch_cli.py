@@ -79,7 +79,7 @@ def test_exact_warns_and_takes_no_kernel_path(tmp_path, monkeypatch, capsys):
     assert "glow.compute_dtype=float32" in err
 
 
-def test_errors_exit_non_zero(tmp_path):
+def test_errors_exit_non_zero(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         _infer(str(tmp_path), "sample", "--best")
     assert "no checkpoint found" in str(e.value.code)
@@ -98,9 +98,15 @@ def test_errors_exit_non_zero(tmp_path):
         with pytest.raises(SystemExit) as e:
             _infer(str(tmp_path), op)
         assert "not ported yet" in str(e.value.code)
-    with pytest.raises(SystemExit) as e:
-        _infer(str(tmp_path), "nll", "--dequant-samples", "2")
-    assert "not ported yet" in str(e.value.code)
+    # nll --dequant-samples reports the discrete-NLL bound, which gaussian
+    # dequantization cannot give.
+    capsys.readouterr()
+    _infer(str(tmp_path), "nll", "--synthetic", "textured", "--batches", "1",
+           "--dequant-samples", "2")
+    assert "over 4 images (elbo bound, 2 noise draws)" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="only a valid discrete-NLL bound"):
+        _infer(str(tmp_path), "nll", "--synthetic", "textured", "--batches", "1",
+               "--dequant-samples", "2", "--set", "glow.dequant=gaussian")
 
 
 @pytest.mark.parametrize("shape", [(5, 7, 9, 3), (4, 6, 6, 1), (2, 3, 4, 4)])
