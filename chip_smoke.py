@@ -110,6 +110,27 @@
    5 steps, `vardeq_logq_bits` logged, every vardeq parameter's gradient
    non-zero after them.  (f) The train step with and without vardeq
    (ms, images/s, peak memory), nll, sample and nll_bound (k=4) images/s.
+21. Runs after 20: serving artifacts (`serve.py`), the attribute workflow
+   and lineage snapshots.  (a) celeba64 at full width (hidden 512, L=4,
+   bf16, fused) with its export depth cut to K=2 (SERVE_EXPORT_K),
+   DDI'd and with perturbed zero-convs, exported at b=64 as a kernel
+   artifact (all six functions, the K1/K2 chains as `torch.library` ops)
+   and a portable one (nll, sample), saved, loaded and served: the kernel
+   artifact's sample, encode, decode and reconstruct bitwise equal to the
+   live Inferer's with the same seed, nll and nll_elbo within rtol 1e-6,
+   K*L K1/K2 launches a request; the portable artifact launches none, its
+   sample bitwise and nll within rtol 1e-6 of a live unfused Inferer, its
+   nll within rtol 2e-2 of the fused one; both artifacts' nll bitwise
+   unchanged with TF32 allowed around the call (the loader's pin); times.
+   (b) One call each of
+   the K4 ops (celebahq256 level 0, b=64) and the K6a / K6b ops (65536 x
+   12), bitwise equal to direct launches.  (c) `cli.infer` delta,
+   manipulate, interpolate and report (`--batches 2 --swd-images 64`) on
+   phase 19's CelebA folder and celeba64 snapshot, each request's K1/K2
+   launches counted, report.json's keys checked.  (d) A lineage .pth of
+   the model imported by `scripts.torch_migrate` and scored bitwise as
+   the live model, and by `cli.infer nll`.  (e) A full-depth (K=32)
+   kernel artifact of nll: export, save, load and first-call seconds.
 
 8. Holds K1/K2 at celebahq256's levels 1-5 and K3 at its levels 2-5, the
    shapes they run at on its path (b=64, additive, the preset's coupling),
@@ -279,6 +300,8 @@ TIMED_STEPS = 30
 DATA_WORKERS = 4
 # Phase 20: images in each ImageNet-64 npz shard (the real widths, the count cut).
 IMAGENET_PER_FILE = 10000
+# Phase 21: the depth the serving artifacts are exported at (celeba64's K=32 cut).
+SERVE_EXPORT_K = 2
 
 
 def require(ok: bool, what: str) -> None:
@@ -2701,6 +2724,275 @@ def check_conditional(torch, fs, card: str, out_root: str) -> dict:
     return launches
 
 
+def served_launches(torch, fs, fn):
+    """(fn()'s result, the flow-step launches it made, the non-zero counts)."""
+    fs.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in fs.launches.items() if v}
+
+
+def max_rel(a, b) -> float:
+    return float(((a - b).abs() / b.abs()).max())
+
+
+def check_serving_artifacts(torch, fs, icf, card: str, out_root: str, data_root: str) -> None:
+    """Phase 21: the serving artifact, the attribute workflow and lineage
+    snapshots.  (a) celeba64 at full width (hidden 512, L=4, bf16, fused),
+    export depth cut to SERVE_EXPORT_K, random weights from a seed, DDI and
+    perturbed zero-convs: a kernel artifact (all six functions) and a
+    portable one (nll, sample) at b=64, exported, saved and loaded (each
+    step's seconds and bytes printed), then served: the kernel artifact's
+    sample, encode, decode and reconstruct bitwise equal to the live
+    Inferer's with the same seed, nll and nll_elbo within rtol 1e-6, K*L
+    K1/K2 launches per request (reconstruct K*L of each); the portable
+    artifact's 0 launches, its sample and nll against a live unfused
+    Inferer (bitwise, rtol 1e-6) and its nll against the fused one (rtol
+    2e-2); both nll bitwise unchanged with TF32 allowed around the call;
+    served and live times.  (b) One call each of the K4 ops (forward
+    and reverse, celebahq256 level 0 at b=64) and of the K6a / K6b ops
+    (65536 x 12) bitwise equal to a direct launch of the same kernel.  (c)
+    `cli.infer` delta / manipulate / interpolate / report (`--batches 2
+    --swd-images 64`) on phase 19's CelebA folder and its celeba64
+    snapshot, each with its K1/K2 launches, report.json's keys checked.
+    (d) The live model's weights written as a lineage .pth, imported by
+    `scripts.torch_migrate` and scored (`Inferer.nll` bitwise equal to the
+    live one, and `cli.infer nll`).  (e) A full-depth (K=32) kernel
+    artifact of nll: export, save, load and first-call seconds, K*L
+    launches."""
+    import numpy as np
+
+    from pytorch_glow_tpu_torch import serve
+    from pytorch_glow_tpu_torch.cli import infer as infer_cli
+    from pytorch_glow_tpu_torch.config import PRESETS
+    from pytorch_glow_tpu_torch.inference import Inferer
+    from pytorch_glow_tpu_torch.models.glow import init_glow
+    from pytorch_glow_tpu_torch.ops import invconv as ic
+    from pytorch_glow_tpu_torch.ops import library
+    from pytorch_glow_tpu_torch.scripts import torch_migrate
+    from pytorch_glow_tpu_torch.utils import lineage
+    from pytorch_glow_tpu_torch.utils.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    full = PRESETS["celeba64"].glow
+    cfg = dataclasses.replace(full, K=SERVE_EXPORT_K)
+    kl = cfg.K * cfg.L
+    print(f"phase 21: celeba64 export depth cut to K={cfg.K} of the preset's {full.K} (L={cfg.L}, "
+          f"hidden {cfg.hidden_channels}, {cfg.flowstep_impl}, {cfg.compute_dtype}), b={BATCH}")
+
+    def ddi_model(c):
+        m = init_glow(c, torch.Generator().manual_seed(SEED), "cuda")
+        m.ddi_init(m.dequantize(m.preprocess(images), torch.Generator(device="cuda").manual_seed(SEED + 2)))
+        return m
+
+    rng = np.random.default_rng(SEED + 21)
+    images = torch.from_numpy(rng.integers(0, 256, (BATCH, *cfg.image_shape), dtype="uint8")).cuda()
+    model = ddi_model(cfg)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():  # every coupling data-dependent (as phase 4)
+        for name, p in model.named_parameters():
+            if ".f.4." in name:
+                p.add_(0.003 * torch.randn(p.shape, generator=gen).cuda())
+    live = Inferer(model)
+
+    # -- (a) export, load, serve ----------------------------------------------------
+    served = {}
+    for name, keep, fns in (("kernels", True, None), ("portable", False, ("nll", "sample"))):
+        out = os.path.join(out_root, name)
+        t0 = time.perf_counter()
+        man = serve.export_artifact(model, cfg, out, BATCH, fns, keep_kernels=keep)
+        t1 = time.perf_counter()
+        sm = serve.load_artifact(out)
+        for fn in man["functions"]:
+            sm.fn(fn)
+        t2 = time.perf_counter()
+        total = sum(m["bytes"] for m in man["functions"].values())
+        print(f"{name} artifact (K={cfg.K}, b={BATCH}, device {man['device']}): export + save "
+              f"{t1 - t0:.2f} s, load {t2 - t1:.2f} s, {total} bytes; per function "
+              + ", ".join(f"{f} export {m['seconds']['export']:.2f} s save "
+                          f"{m['seconds']['save']:.2f} s {m['bytes']} bytes"
+                          for f, m in man["functions"].items()))
+        require(man["device"] == "cuda" and man["keep_kernels"] == keep, f"manifest {name}")
+        served[name] = sm
+    km, pm = served["kernels"], served["portable"]
+    cuda_seed = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa: E731
+
+    s, launched = served_launches(torch, fs, lambda: km.sample(seed=7, temperature=0.7))
+    require(launched == {"reverse": kl}, f"kernel artifact sample launches {launched}")
+    require(torch.equal(s, live.sample(BATCH, 0.7, cuda_seed(7))), "served sample != live")
+    require(not torch.equal(km.sample(seed=8, temperature=0.7), s), "seed 8 drew seed 7's sample")
+    z, launched = served_launches(torch, fs, lambda: km.encode(images))
+    require(launched == {"forward": kl}, f"kernel artifact encode launches {launched}")
+    require(torch.equal(z, live.encode(images)), "served encode != live")
+    d, launched = served_launches(torch, fs, lambda: km.decode(z, seed=3, temperature=0.7))
+    require(launched == {"reverse": kl}, f"kernel artifact decode launches {launched}")
+    require(torch.equal(d, live.decode(z, cuda_seed(3), 0.7)), "served decode != live")
+    rec, launched = served_launches(torch, fs, lambda: km.reconstruct(images))
+    require(launched == {"forward": kl, "reverse": kl}, f"reconstruct launches {launched}")
+    require(torch.equal(rec, live.reconstruct(images)), "served reconstruct != live")
+    nll, launched = served_launches(torch, fs, lambda: km.nll(images))
+    require(launched == {"forward": kl}, f"kernel artifact nll launches {launched}")
+    rel_nll = max_rel(nll, live.nll(images))
+    elbo, launched = served_launches(torch, fs, lambda: km.nll_elbo(images, seed=5))
+    require(launched == {"forward": kl}, f"kernel artifact nll_elbo launches {launched}")
+    rel_elbo = max_rel(elbo, live.nll_bound(images, 1, "elbo", cuda_seed(5)))
+    drift = int((rec.int() - images.int()).abs().max())
+    print(f"kernel artifact against the live Inferer: sample, encode, decode, reconstruct "
+          f"bitwise; nll max rel {rel_nll:.3e}, nll_elbo {rel_elbo:.3e} (bound 1e-6); "
+          f"{kl} K1/K2 launches a request; reconstruct max |x - rec| {drift} bins")
+    require(rel_nll <= 1e-6 and rel_elbo <= 1e-6, f"served nll {rel_nll}, elbo {rel_elbo}")
+
+    unfused = ddi_model(dataclasses.replace(cfg, flowstep_impl="xla"))
+    unfused.load_state_dict(model.state_dict())
+    plain = Inferer(unfused)
+    ps, launched = served_launches(torch, fs, lambda: pm.sample(seed=7, temperature=0.7))
+    require(launched == {}, f"portable artifact sample launched {launched}")
+    require(torch.equal(ps, plain.sample(BATCH, 0.7, cuda_seed(7))), "portable sample != live")
+    pn, launched = served_launches(torch, fs, lambda: pm.nll(images))
+    require(launched == {}, f"portable artifact nll launched {launched}")
+    rel_plain, rel_fused = max_rel(pn, plain.nll(images)), max_rel(pn, live.nll(images))
+    print(f"portable artifact: no kernel launch; sample bitwise the live unfused Inferer's, nll "
+          f"max rel {rel_plain:.3e} against it (bound 1e-6), {rel_fused:.3e} against the fused "
+          f"live path (bound 2e-2)")
+    require(rel_plain <= 1e-6 and rel_fused <= 2e-2, f"portable nll {rel_plain}, {rel_fused}")
+    # The loader's pin: with PyTorch's TF32 defaults switched on around the
+    # call, both artifacts' nll (f32 split priors, mix) keep their bits.
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loose = (pm.nll(images), km.nll(images))
+        with torch.no_grad():
+            unpinned = pm.fn("nll")(images)  # the program alone, as a bare caller runs it
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    require(torch.equal(loose[0], pn) and torch.equal(loose[1], nll),
+            "a served nll moved with TF32 allowed around the call")
+    print(f"served nll with TF32 allowed around the call: bitwise the pinned one (both "
+          f"artifacts); the portable program called without the loader's pin moves by "
+          f"{float((unpinned - pn).abs().max()):.3e} bits/dim")
+    times = {"live nll": lambda: live.nll(images), "kernels nll": lambda: km.nll(images),
+             "portable nll": lambda: pm.nll(images),
+             "live sample": lambda: live.sample(BATCH, 0.7, cuda_seed(9)),
+             "kernels sample": lambda: km.sample(seed=9, temperature=0.7),
+             "portable sample": lambda: pm.sample(seed=9, temperature=0.7)}
+    print(f"time served b={BATCH} K={cfg.K} (ms, CUDA events): " + ", ".join(
+        f"{k} {median_ms(fn, torch):.3f}" for k, fn in times.items()))
+    print(f"card for these times: {card}")
+    del served, km, pm, plain, unfused
+
+    # -- (b) the K4 and K6 ops, one call each ---------------------------------------
+    gen = torch.Generator().manual_seed(SEED + 3)
+    step = noisy_step(12, "additive", gen, torch)
+    zb = torch.randn(BATCH, 128, 128, 12, generator=gen).cuda()
+    require(fs.tiling("forward", BATCH, 128, 128, 12, 512, False) == "band", "K4 shape not banded")
+    with torch.no_grad():
+        fwd, rev = fs.pack_weights(step, False, False), fs.pack_weights(step, False, True)
+        (yo, ldo), launched = served_launches(torch, fs,
+                                              lambda: library.flowstep_forward(zb, False, fwd))
+        require(launched == {"band_forward": 1}, f"K4 op launches {launched}")
+        yd, ldd = fs._launch_band(fwd, zb, False, reverse=False)
+        xo, launched = served_launches(torch, fs, lambda: library.flowstep_reverse(zb, False, rev))
+        require(launched == {"band_reverse": 1}, f"K4 reverse op launches {launched}")
+        xd, _ = fs._launch_band(rev, zb, False, reverse=True)
+        require(torch.equal(yo, yd) and torch.equal(ldo, ldd) and torch.equal(xo, xd),
+                "K4 op != direct launch")
+        conv = random_lu(12, gen, torch)
+        lu = conv.lu_params()
+        x6 = torch.randn(65536, 12, generator=gen).cuda()
+        icf.reset_launches()
+        y6 = library.invconv_lu_forward(x6, *lu)
+        w_inv = ic.lu_inverse(lu)
+        x6o = library.invconv_mix(y6, w_inv)
+        require(icf.launches == {"invconv_forward": 1, "invconv_reverse": 1},
+                f"K6 op launches {icf.launches}")
+        require(torch.equal(y6, icf._launch_forward(x6, *lu)[0])
+                and torch.equal(x6o, icf._launch_mix(y6, w_inv)), "K6 op != direct launch")
+    print(f"ops: K4 forward and reverse (b={BATCH}, 128x128x12) and K6a / K6b (65536x12) "
+          f"through torch.library, bitwise equal to direct launches, one launch each")
+    del step, zb, yo, yd, xo, xd, x6, y6, x6o
+
+    # -- (c) the attribute workflow through the infer CLI --------------------------------
+    celeba = os.path.join(data_root, "celeba-data")
+    common = ["celeba64", "--data-root", celeba, "--out-dir", os.path.join(data_root, "c"),
+              "--batches", "2"]
+    klf = full.K * full.L
+    delta = os.path.join(out_root, "delta.npz")
+    cli = {
+        "delta": (["delta", *common, "-o", delta], {"forward": 2 * klf}),
+        "manipulate": (["manipulate", *common, "--delta", delta, "--attr", "31", "--strength",
+                        "1.5", "-n", "8", "-o", os.path.join(out_root, "manip.png")],
+                       {"forward": klf, "reverse": klf}),
+        "interpolate": (["interpolate", *common, "--steps", "8", "-o",
+                         os.path.join(out_root, "interp.png")],
+                        {"forward": 2 * klf, "reverse": klf}),
+        "report": (["report", *common, "--swd-images", "64", "-o", os.path.join(out_root, "rep")],
+                   None),
+    }
+    for op, (argv, want) in cli.items():
+        t0 = time.perf_counter()
+        _, launched = served_launches(torch, fs, lambda: run_cli(infer_cli.main, argv))
+        print(f"cli.infer {op}: {time.perf_counter() - t0:.2f} s, launches {launched}")
+        if want is not None:
+            require(launched == want, f"cli.infer {op} launches {launched}, want {want}")
+        require(launched.get("forward", 0) > 0, f"cli.infer {op} launched no K1")
+    d = np.load(delta, allow_pickle=True)["delta"]
+    require(d.shape == (40, *full.final_latent_shape) and np.isfinite(d).all(), f"delta {d.shape}")
+    with open(os.path.join(out_root, "manip.png"), "rb") as f:
+        require(decode_png(f.read()).shape[:2] == (8 * 66 + 2, 2 * 66 + 2), "manipulate grid")
+    with open(os.path.join(out_root, "rep", "report.json")) as f:
+        report = json.load(f)
+    keys = {"profile", "step", "snapshot", "ema", "params_millions", "image_shape",
+            "temperatures", "recon_drift_u8", "manipulate", "bits_dim", "swd_x1e3"}
+    require(keys <= set(report) and report["step"] == 10, f"report keys {sorted(report)}")
+    bits = report["bits_dim"]
+    require(report["manipulate"]["num_attributes"] == 40
+            and all(math.isfinite(bits[k]) for k in ("noise_free_corner", "elbo_1draw",
+                                                     "iwae_8draw"))
+            and report["swd_x1e3"]["images_per_set"] == 64, f"report {report}")
+    print(f"report.json: step {report['step']}, bits_dim {bits}, recon drift "
+          f"{report['recon_drift_u8']}, swd_avg {report['swd_x1e3']['swd_avg']:.3f}")
+
+    # -- (d) a lineage snapshot, imported and scored -----------------------------------
+    pth = os.path.join(out_root, "lineage.pth")
+    lineage.save_torch_snapshot(pth, lineage.export_state_dict(model.state_dict()), step=3)
+    mig = os.path.join(out_root, "migrated")
+    depth = ["--set", f"glow.K={cfg.K}"]
+    run_cli(torch_migrate.main, ["import", pth, "celeba64", "--out-dir", mig, "--keep-step",
+                                 *depth])
+    snap = CheckpointManager(os.path.join(mig, "celeba64", "checkpoints")).restore("cuda")
+    require(snap["step"] == 3, f"imported step {snap['step']}")
+    imported = init_glow(cfg, torch.Generator().manual_seed(SEED), "cuda")
+    imported.load_state_dict(snap["model"])
+    require(torch.equal(Inferer(imported).nll(images), live.nll(images)),
+            "imported lineage snapshot scores otherwise")
+    _, text = run_cli(infer_cli.main, ["nll", "celeba64", "--out-dir", mig, "--synthetic",
+                                       "textured", "--batches", "1", *depth])
+    require("bits/dim over" in text, text)
+    print("lineage .pth imported (step 3 kept): nll bitwise equal to the live model's")
+    del imported, model, live
+
+    # -- (e) full depth: one kernel artifact of nll ----------------------------------
+    fmodel = ddi_model(full)
+    t0 = time.perf_counter()
+    man = serve.export_artifact(fmodel, full, os.path.join(out_root, "full"), BATCH, ("nll",),
+                                keep_kernels=True)
+    t1 = time.perf_counter()
+    sm = serve.load_artifact(os.path.join(out_root, "full"))
+    sm.fn("nll")
+    t2 = time.perf_counter()
+    fn_nll, launched = served_launches(torch, fs, lambda: sm.nll(images))
+    t3 = time.perf_counter()
+    meta = man["functions"]["nll"]
+    require(launched == {"forward": klf}, f"full-depth nll launches {launched}")
+    require(max_rel(fn_nll, Inferer(fmodel).nll(images)) <= 1e-6, "full-depth served nll")
+    print(f"full depth (K={full.K}) kernel artifact of nll, b={BATCH}: export "
+          f"{meta['seconds']['export']:.2f} s, save {meta['seconds']['save']:.2f} s, load "
+          f"{t2 - t1:.2f} s, first call {t3 - t2:.2f} s, {meta['bytes']} bytes, "
+          f"{klf} K1 launches")
+    del fmodel, sm
+    torch.cuda.empty_cache()
+    print(f"phase 21 (serving artifacts, attributes, lineage): {time.perf_counter() - t_phase:.2f} s")
+
+
 def compare_nll(inf, plain_inf, images, what: str) -> None:
     """Fused-kernel nll against the unfused PyTorch layers, the repo's rtol 2e-2."""
     nll, nll_plain = inf.nll(images), plain_inf.nll(images)
@@ -2763,6 +3055,8 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     check_data(torch, fs, card, os.path.join(out_root, "data"))
     print(f"phase 19 (the data layer): {time.perf_counter() - t0:.2f} s")
     cond_launches = check_conditional(torch, fs, card, os.path.join(out_root, "conditional"))
+    check_serving_artifacts(torch, fs, icf, card, os.path.join(out_root, "serving"),
+                            os.path.join(out_root, "data"))
 
     # -- the 256x256 path: celebahq256 ---------------------------------------
     # K1-K3 at the level shapes they run at, in the preset's (additive) coupling.

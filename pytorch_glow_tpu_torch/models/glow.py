@@ -45,6 +45,20 @@ heads are `LinearZeros` under the lineage's names.
 the learned q(u|x) of `models/vardeq.py` (`self.vardeq`) and folds its
 -log q into the objective.  `nll_bound` is the Monte-Carlo bound on the
 discrete NLL (ELBO or IWAE) over k sequential draws.
+
+Explicit noise: every random path also takes its draws as tensors, so that
+an exported graph (`serve.py`) takes them as inputs: `sample(noise=[top,
+split L-2, ..., split 0])` and `decode(noise=[split L-2, ..., split 0])`
+take the standard normal draws in the order the live call draws them
+(`noise_shapes`), `log_prob(noise=u)` and `nll_bound(noise=[u, ...])` the
+raw dequantization draw of x's shape (U[0, 1) for uniform and variational,
+a standard normal for gaussian).  Draws taken outside from a generator in
+that order give the live call's result bit for bit.
+
+Under `torch.export` (`torch.compiler.is_exporting()`) the fused path calls
+the flow-step kernels through their `torch.library` ops
+(`ops/library.py`), which the exporter keeps opaque; the live path calls
+the autograd Functions.
 """
 
 from __future__ import annotations
@@ -68,6 +82,7 @@ from pytorch_glow_tpu_torch.models.layers import (
 )
 from pytorch_glow_tpu_torch.models.vardeq import VarDeq
 from pytorch_glow_tpu_torch.ops import flowstep as fs
+from pytorch_glow_tpu_torch.ops import library
 from pytorch_glow_tpu_torch.ops.math import (
     bits_per_dim,
     discretization_correction,
@@ -140,9 +155,13 @@ class Glow(nn.Module):
             return z, logdet
         affine = self.cfg.flow_coupling == "affine"
         z = z.float().contiguous()
+        exporting = torch.compiler.is_exporting()
         for step in steps:
             packed = fs.pack_weights(step, affine, False, fs.COUPLING_DTYPE)
-            z, ld = fs.FusedStep.apply(z, affine, *packed)
+            if exporting:
+                z, ld = library.flowstep_forward(z, affine, packed)
+            else:
+                z, ld = fs.FusedStep.apply(z, affine, *packed)
             logdet = logdet + ld
         plds = torch.stack([fs.param_logdet(step) for step in steps]).sum()
         return z, logdet + z.shape[1] * z.shape[2] * plds
@@ -154,9 +173,13 @@ class Glow(nn.Module):
             return z
         affine = self.cfg.flow_coupling == "affine"
         z = z.float().contiguous()
+        exporting = torch.compiler.is_exporting()
         for step in reversed(steps):
             packed = fs.pack_weights(step, affine, True, fs.COUPLING_DTYPE)
-            z = fs.FusedStepReverse.apply(z, affine, *packed)
+            if exporting:
+                z = library.flowstep_reverse(z, affine, packed)
+            else:
+                z = fs.FusedStepReverse.apply(z, affine, *packed)
         return z
 
     # -- encode / decode -----------------------------------------------------
@@ -176,19 +199,33 @@ class Glow(nn.Module):
         return z, logdet, z_splits
 
     def decode(self, z: torch.Tensor, generator: torch.Generator | None = None,
-               temperature: float = 1.0, z_splits: list[torch.Tensor] | None = None) -> torch.Tensor:
+               temperature: float = 1.0, z_splits: list[torch.Tensor] | None = None,
+               noise: list[torch.Tensor] | None = None) -> torch.Tensor:
         """z -> x.  With `z_splits` the reconstruction is exact; otherwise each
-        Split2d draws its half from the learned prior at `temperature`."""
+        Split2d draws its half from the learned prior at `temperature`, its
+        standard normal draw from `generator` or from `noise` (one per
+        split, the deepest first: `noise_shapes(b)[1:]`)."""
+        draws = iter(noise) if noise is not None else None
         for i in range(len(self._levels) - 1, -1, -1):
             steps, split = self._levels[i]
             if split is not None:
                 if z_splits is not None:
                     z = split.reverse(z, z2=z_splits[i])
                 else:
-                    z = split.reverse(z, generator, temperature)
+                    eps = next(draws) if draws is not None else None
+                    z = split.reverse(z, generator, temperature, eps=eps)
             z = self._steps_reverse(steps, z)
             z = unsqueeze2d(z, 2)
         return z
+
+    def noise_shapes(self, batch: int) -> list[tuple[int, ...]]:
+        """The shapes of `sample`'s standard normal draws, in the order it
+        takes them: the top latent, then each split's half, the deepest
+        first (`decode` takes all but the first)."""
+        shapes = [(batch, *self.cfg.final_latent_shape)]
+        for h, w, c in reversed(self.cfg.latent_shapes()[:-1]):
+            shapes.append((batch, h, w, c // 2))
+        return shapes
 
     def top_prior(self, batch: int, y_onehot: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -222,33 +259,38 @@ class Glow(nn.Module):
         n_bins = self.cfg.n_bins
         return torch.clamp(torch.floor(x * n_bins) * (256.0 / n_bins), 0, 255).to(torch.uint8)
 
-    def dequantize(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        """Dequantization noise on [0,1)-scaled inputs (uniform by default).
+    def dequantize(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                   noise: torch.Tensor | None = None) -> torch.Tensor:
+        """Dequantization noise on [0,1)-scaled inputs (uniform by default),
+        drawn from `generator` or given as `noise` (x's shape).
         Parameter-free: under `dequant="variational"` it adds uniform noise
         (DDI batches); the learned q(u|x) runs in `log_prob`."""
         dq = self.cfg.dequant
         if dq in ("uniform", "variational"):
-            noise = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+            if noise is None:
+                noise = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
             return x + noise / self.cfg.n_bins
         if dq == "gaussian":
-            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+            if noise is None:
+                noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
             return x + noise / self.cfg.n_bins
         return x
 
     def log_prob(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                 y_onehot: torch.Tensor | None = None) -> dict:
+                 y_onehot: torch.Tensor | None = None, noise: torch.Tensor | None = None) -> dict:
         """x in [0,1) -> {z, objective, nll (bits/dim)}, with "y_logits"
-        on a y-conditional model; with a generator the input is dequantized
-        first, and under variational dequantization "neg_log_q", -log q(u|x),
-        is returned and folded into the objective."""
+        on a y-conditional model; with a generator (or the draw itself,
+        `noise`, x's shape) the input is dequantized first, and under
+        variational dequantization "neg_log_q", -log q(u|x), is returned and
+        folded into the objective."""
         cfg = self.cfg
         dims = num_dims((x.shape[0], *cfg.image_shape))
         neg_log_q = None
-        if generator is not None:
+        if generator is not None or noise is not None:
             if cfg.dequant == "variational":
-                x, neg_log_q = self.vardeq(x, generator)
+                x, neg_log_q = self.vardeq(x, generator, noise)
             else:
-                x = self.dequantize(x, generator)
+                x = self.dequantize(x, generator, noise)
         logdet = torch.full((x.shape[0],), discretization_correction(dims, cfg.n_bins),
                             dtype=torch.float32, device=x.device)
         if neg_log_q is not None:
@@ -263,8 +305,9 @@ class Glow(nn.Module):
             out["y_logits"] = self.project_class(z.float().mean(dim=(1, 2)))
         return out
 
-    def nll_bound(self, x: torch.Tensor, generator: torch.Generator, samples: int = 1,
-                  bound: str = "elbo", y_onehot: torch.Tensor | None = None) -> torch.Tensor:
+    def nll_bound(self, x: torch.Tensor, generator: torch.Generator | None, samples: int = 1,
+                  bound: str = "elbo", y_onehot: torch.Tensor | None = None,
+                  noise: list[torch.Tensor] | None = None) -> torch.Tensor:
         """Monte-Carlo bound on the discrete NLL in bits/dim, shape (B,).
 
         `log_prob` without a generator evaluates the density at the bin
@@ -274,7 +317,9 @@ class Glow(nn.Module):
         by that draw, whose -log q term is already folded in under both
         uniform and variational q.  "elbo" is the mean of the per-draw
         objectives (k=1 is the published protocol), "iwae" the importance
-        bound logsumexp - log k (Burda et al. 2016, arXiv:1509.00519)."""
+        bound logsumexp - log k (Burda et al. 2016, arXiv:1509.00519).
+        `noise` gives the `samples` draws instead of `generator`, one
+        `log_prob` noise each."""
         if bound not in ("elbo", "iwae"):
             raise ValueError(f"unknown bound: {bound!r} (elbo | iwae)")
         if self.cfg.dequant not in ("uniform", "variational"):
@@ -283,8 +328,11 @@ class Glow(nn.Module):
             raise ValueError(
                 f"nll_bound is only a valid discrete-NLL bound for "
                 f"dequant='uniform'/'variational', not {self.cfg.dequant!r}")
-        objs = torch.stack([self.log_prob(x, generator, y_onehot)["objective"]
-                            for _ in range(samples)])
+        if noise is not None and len(noise) != samples:
+            raise ValueError(f"nll_bound: {len(noise)} noise draws for {samples} samples")
+        objs = torch.stack([
+            self.log_prob(x, generator, y_onehot, None if noise is None else noise[i])["objective"]
+            for i in range(samples)])
         if bound == "iwae":
             obj = torch.logsumexp(objs, dim=0) - math.log(samples)
         else:
@@ -321,13 +369,16 @@ class Glow(nn.Module):
 
     def sample(self, n: int, temperature: float = 1.0,
                generator: torch.Generator | None = None,
-               y_onehot: torch.Tensor | None = None) -> torch.Tensor:
+               y_onehot: torch.Tensor | None = None,
+               noise: list[torch.Tensor] | None = None) -> torch.Tensor:
         """Temperature sampling -> float images in [0,1); a y-conditional
-        model draws from the prior of `y_onehot` (n, y_classes)."""
+        model draws from the prior of `y_onehot` (n, y_classes).  The
+        standard normal draws come from `generator`, or from `noise`
+        (`noise_shapes(n)`, in that order)."""
         mean, logs = self.top_prior(n, y_onehot)
-        hf, wf, cf = self.cfg.final_latent_shape
-        z = gaussian_sample(mean, logs, temperature, generator, shape=(n, hf, wf, cf))
-        return self.decode(z, generator, temperature)
+        top, splits = (None, None) if noise is None else (noise[0], noise[1:])
+        z = gaussian_sample(mean, logs, temperature, generator, self.noise_shapes(n)[0], top)
+        return self.decode(z, generator, temperature, noise=splits)
 
     def reconstruct(self, x: torch.Tensor) -> torch.Tensor:
         """decode(encode(x)) with the stored split halves: the exact round-trip."""

@@ -428,10 +428,13 @@ class Split2d(nn.Module):
         return z1, logdet + gaussian_logp(mean, logs, z2.float()), z2
 
     def reverse(self, z1: torch.Tensor, generator: torch.Generator | None = None,
-                temperature: float = 1.0, z2: torch.Tensor | None = None) -> torch.Tensor:
+                temperature: float = 1.0, z2: torch.Tensor | None = None,
+                eps: torch.Tensor | None = None) -> torch.Tensor:
+        """z2 given, or drawn from the prior at `temperature`: its standard
+        normal draw from `generator`, or `eps` (z1's shape)."""
         if z2 is None:
             mean, logs = self.prior(z1)
-            z2 = gaussian_sample(mean, logs, temperature, generator).to(z1.dtype)
+            z2 = gaussian_sample(mean, logs, temperature, generator, eps=eps).to(z1.dtype)
         return cat_channel(z1, z2, "simple")
 
 

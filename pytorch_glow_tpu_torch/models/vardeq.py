@@ -23,7 +23,9 @@ card); only the forward direction exists.
 
 The draw is apart from the transform: `draw_uniform` takes the caller's
 generator, `forward_from_uniform` the uniform draw, so a test can hand the
-port the JAX package's own draw.
+port the JAX package's own draw; `forward(x, noise=u)` takes the raw
+U[0, 1) draw that `draw_uniform` scales, so an exported graph (`serve.py`)
+gets its draw as an input and gives the live call's bits.
 
 `state_dict` names (the lineage has no vardeq, so these are the port's):
 `ctx.conv1.weight`, `ctx.conv1.actnorm.{bias,logs}`, the same for
@@ -50,11 +52,16 @@ def _log_dsigmoid(v: torch.Tensor) -> torch.Tensor:
     return F.logsigmoid(v) + F.logsigmoid(-v)
 
 
-def draw_uniform(shape, generator: torch.Generator | None, device) -> torch.Tensor:
-    """U(1e-5, 1 - 1e-5) in f32 from `generator`, as the JAX package's
+def scale_uniform(u: torch.Tensor) -> torch.Tensor:
+    """A U[0, 1) draw scaled to U(1e-5, 1 - 1e-5), as the JAX package's
     `uniform(key, shape, f32, 1e-5, 1 - 1e-5)` scales its draw."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
     return u * (1.0 - 2 * UNIFORM_LOW) + UNIFORM_LOW
+
+
+def draw_uniform(shape, generator: torch.Generator | None, device) -> torch.Tensor:
+    """U(1e-5, 1 - 1e-5) in f32 from `generator`."""
+    return scale_uniform(torch.rand(shape, generator=generator, dtype=torch.float32,
+                                    device=device))
 
 
 class _Context(nn.Module):
@@ -100,6 +107,9 @@ class VarDeq(nn.Module):
         u = unsqueeze2d(torch.sigmoid(w), 2)
         return x + u / self.n_bins, -log_q
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
-        """(x_deq, -log q(u|x)) with the uniform draw taken from `generator`."""
-        return self.forward_from_uniform(x, draw_uniform(x.shape, generator, x.device))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None):
+        """(x_deq, -log q(u|x)) with the uniform draw taken from `generator`,
+        or made from `noise`, a U[0, 1) draw of x's shape."""
+        u0 = draw_uniform(x.shape, generator, x.device) if noise is None else scale_uniform(noise)
+        return self.forward_from_uniform(x, u0)

@@ -31,7 +31,9 @@ The products are plain matrix products outside any kernel and stay
 autograd records nothing (serving, DDI) the wrappers launch without the
 autograd Functions: under no grad a Function's apply adds 7-12 us of host
 time to its launch, more than the narrow kernels' 3-7 us of device time
-(`scripts/perf_invconv.function_vs_direct`).
+(`scripts/perf_invconv.function_vs_direct`).  Under `torch.export` the two
+entry points call the kernels' `torch.library` ops (`ops/library.py`)
+instead, on CPU and CUDA tensors alike.
 """
 
 from __future__ import annotations
@@ -243,6 +245,10 @@ def invconv_lu_forward(x: torch.Tensor, lu: ic.LUParams) -> tuple[torch.Tensor, 
     """y[..., :] = W @ x[..., :] and the per-pixel logdet sum(log_s)."""
     c = _check_lu(lu, x.get_device())
     _check(x, c, "invconv_lu_forward")
+    if torch.compiler.is_exporting():
+        from pytorch_glow_tpu_torch.ops import library
+
+        return library.invconv_lu_forward(x, *lu), ic.lu_logdet(lu)
     if not _kernels(x):
         return ic.mix_channels(x, ic.lu_assemble(lu)), ic.lu_logdet(lu)
     if _needs_grad(x, *lu):
@@ -258,6 +264,10 @@ def invconv_lu_reverse(y: torch.Tensor, lu: ic.LUParams) -> torch.Tensor:
     c = _check_lu(lu, y.get_device())
     _check(y, c, "invconv_lu_reverse")
     w_inv = ic.lu_inverse(lu)
+    if torch.compiler.is_exporting():
+        from pytorch_glow_tpu_torch.ops import library
+
+        return library.invconv_mix(y, w_inv)
     if not _kernels(y):
         return ic.mix_channels(y, w_inv)
     x = _Mix.apply(y, w_inv) if _needs_grad(y, w_inv) else _launch_mix(y, w_inv)

@@ -76,11 +76,16 @@ def gaussian_sample(
     temperature: float = 1.0,
     generator: torch.Generator | None = None,
     shape: tuple[int, ...] | None = None,
+    eps: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Temperature sampling: mean + exp(logs) * eps * temperature."""
-    if shape is None:
-        shape = torch.broadcast_shapes(mean.shape, logs.shape)
-    eps = torch.randn(shape, generator=generator, dtype=mean.dtype, device=mean.device)
+    """Temperature sampling: mean + exp(logs) * eps * temperature, with eps
+    drawn from `generator` or given (a standard normal draw of `shape`;
+    `temperature` may then be a 0-d tensor, as an exported graph takes
+    it)."""
+    if eps is None:
+        if shape is None:
+            shape = torch.broadcast_shapes(mean.shape, logs.shape)
+        eps = torch.randn(shape, generator=generator, dtype=mean.dtype, device=mean.device)
     return mean + torch.exp(logs) * eps * temperature
 
 

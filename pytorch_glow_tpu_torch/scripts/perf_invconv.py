@@ -25,8 +25,12 @@ hold none of them).  Last, under `torch.no_grad`, the "call" time of each
 kernel's autograd Function (`_LUForward.apply`, `_Mix.apply`) against its
 launcher called directly (`_launch_forward`, `_launch_mix`), in rounds
 Function, direct, direct, Function: what the wrappers save by launching
-without the Function where autograd records nothing.  Prints the card's
-name and power limit.  Needs a CUDA card.
+without the Function where autograd records nothing; and in the same way
+each kernel called through its `torch.library` op (`ops/library.py`, what
+an exported graph calls) against its launcher called directly (what the
+live path calls): K6a and K6b at each shape, and the flow step's K1 and K2
+at celeba64 level 0 (b=64, 32x32x12, hidden 512), the weights packed once.
+Prints the card's name and power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -141,6 +145,42 @@ def function_vs_direct(x, lu, y, w_inv) -> dict[str, list[float]]:
     return got
 
 
+def op_vs_direct(fns: dict) -> dict[str, list[float]]:
+    """Under no grad, the median call us of each kernel through its op and
+    through its launcher, `fns` = {kernel: (op call, direct call)}, two
+    rounds each in the order op, direct, direct, op."""
+    got: dict[str, list[float]] = {f"{k} {r}": [] for k in fns for r in ("op", "direct")}
+    with torch.no_grad():
+        for route in ("op", "direct", "direct", "op"):
+            for kernel, (op, direct) in fns.items():
+                got[f"{kernel} {route}"].append(host_us(op if route == "op" else direct)[0])
+    return got
+
+
+def flowstep_op_vs_direct() -> dict[str, list[float]]:
+    """`op_vs_direct` of K1 and K2 at celeba64 level 0, b=64."""
+    from pytorch_glow_tpu_torch.models.layers import FlowStep
+    from pytorch_glow_tpu_torch.ops import flowstep as fs
+    from pytorch_glow_tpu_torch.ops import library
+
+    gen = torch.Generator().manual_seed(0)
+    step = FlowStep(12, 512, "affine", torch.bfloat16, 1.0, gen).cuda()
+    z = torch.randn(64, 32, 32, 12, generator=gen).cuda()
+    with torch.no_grad():
+        fwd = fs.pack_weights(step, True, False)
+        rev = fs.pack_weights(step, True, True)
+    return op_vs_direct({
+        "K1": (lambda: library.flowstep_forward(z, True, fwd),
+               lambda: fs.step_forward(fwd, z, True)),
+        "K2": (lambda: library.flowstep_reverse(z, True, rev),
+               lambda: fs.step_reverse(rev, z, True))})
+
+
+def _print_rounds(what: str, routes: dict) -> None:
+    print(f"{what}, call us by round: " + ", ".join(
+        f"{k} {' / '.join(f'{t:.1f}' for t in v)}" for k, v in routes.items()))
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("perf_invconv needs a CUDA card")
@@ -179,13 +219,22 @@ def main() -> dict:
         with torch.no_grad():
             w_inv = ic.lu_inverse(lu)
         routes = function_vs_direct(x, lu, y, w_inv)
+        from pytorch_glow_tpu_torch.ops import library
+
+        ops = op_vs_direct({"K6a": (lambda: library.invconv_lu_forward(x, *lu),
+                                    lambda: icf._launch_forward(x, *lu)),
+                            "K6b": (lambda: library.invconv_mix(y, w_inv),
+                                    lambda: icf._launch_mix(y, w_inv))})
         for what in ("forward", "reverse", "backward", "layer"):
             call, synced = got[what]
             print(f"host {what} {n}x{c}: call {call:.1f} us, synced {synced:.1f} us")
         print(f"device {n}x{c}: " + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in dev.items()))
-        print(f"no grad {n}x{c}, call us by round: " + ", ".join(
-            f"{k} {' / '.join(f'{t:.1f}' for t in v)}" for k, v in routes.items()))
-        rows[(n, c)] = {"host_us": got, "device_ms": dev, "function_vs_direct_us": routes}
+        _print_rounds(f"no grad {n}x{c}", routes)
+        _print_rounds(f"op vs direct {n}x{c}", ops)
+        rows[(n, c)] = {"host_us": got, "device_ms": dev, "function_vs_direct_us": routes,
+                        "op_vs_direct_us": ops}
+    rows["flowstep"] = flowstep_op_vs_direct()
+    _print_rounds("op vs direct, flow step celeba64 level 0 b=64", rows["flowstep"])
     print(f"card for these times: {card}")
     return rows
 

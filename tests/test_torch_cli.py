@@ -2,8 +2,11 @@
 CPU, in-process on a tiny profile made with `--set`, and its PNG writer
 against Pillow."""
 
+import json
+
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from pytorch_glow_tpu_torch.cli import infer as infer_cli
@@ -94,10 +97,6 @@ def test_errors_exit_non_zero(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         train_cli.main(["no-such-profile", "--cpu"])
     assert "neither a file nor a preset" in str(e.value.code)
-    for op in ("delta", "manipulate", "interpolate", "report", "export", "serve"):
-        with pytest.raises(SystemExit) as e:
-            _infer(str(tmp_path), op)
-        assert "not ported yet" in str(e.value.code)
     # nll --dequant-samples reports the discrete-NLL bound, which gaussian
     # dequantization cannot give.
     capsys.readouterr()
@@ -107,6 +106,72 @@ def test_errors_exit_non_zero(tmp_path, capsys):
     with pytest.raises(ValueError, match="only a valid discrete-NLL bound"):
         _infer(str(tmp_path), "nll", "--synthetic", "textured", "--batches", "1",
                "--dequant-samples", "2", "--set", "glow.dequant=gaussian")
+
+
+@pytest.mark.parametrize("op,argv,message", [
+    ("manipulate", ["--synthetic", "attr"], "--delta <file.npz> required"),
+    ("delta", ["--synthetic", "textured"], "delta requires a dataset with attributes"),
+    ("serve", [], "holds no manifest.json"),
+    ("export", ["--batch-size", "0"], "--batch-size must be a positive int or 'dynamic'"),
+    ("report", ["--best", "--synthetic", "attr"], "no checkpoint found"),
+    ("interpolate", ["--best", "--synthetic", "attr"], "no checkpoint found"),
+])
+def test_new_subcommands_error_paths(tmp_path, op, argv, message):
+    """Each subcommand the JAX CLI has beyond sample / recon / nll exits
+    with its own error on a wrong call."""
+    with pytest.raises(SystemExit) as e:
+        if op == "serve":
+            infer_cli.main(["serve", str(tmp_path), "--cpu"])
+        else:
+            _infer(str(tmp_path), op, *argv)
+    assert message in str(e.value.code)
+    if op == "export":
+        with pytest.raises(SystemExit, match="exports for the device it runs on"):
+            _infer(str(tmp_path), "export", "--platforms", "tpu")
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: these tiny ops spend more on waking threads
+    than on their work (a 4x6x4x4 conv: 0.12 ms on one, 2.5-10 ms on 8)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_new_subcommands_run(trained, tmp_path, capsys, one_thread):
+    """delta, manipulate, interpolate and report on the trained snapshot
+    (synthetic attribute data), then export (fresh parameters, K=1) and
+    serve an artifact."""
+    out = trained[0]
+    delta = str(tmp_path / "d.npz")
+    _infer(out, "delta", "--synthetic", "attr", "--batches", "2", "-o", delta)
+    assert np.load(delta, allow_pickle=True)["delta"].shape == (3, 2, 2, 24)
+    _infer(out, "manipulate", "--synthetic", "attr", "--delta", delta, "--attr", "1",
+           "--strength", "1.5", "-n", "3", "-o", str(tmp_path / "m.png"))
+    assert np.asarray(Image.open(tmp_path / "m.png")).shape == (3 * 10 + 2, 2 * 10 + 2, 3)
+    _infer(out, "interpolate", "--synthetic", "attr", "--steps", "4", "-o",
+           str(tmp_path / "i.png"))
+    assert Image.open(tmp_path / "i.png").size == (4 * 10 + 2, 10 + 2)
+    rep = tmp_path / "rep"
+    _infer(out, "report", "--synthetic", "attr", "--batches", "1", "--swd-images", "4",
+           "-n", "4", "-o", str(rep))
+    report = json.loads((rep / "report.json").read_text())
+    assert report["step"] == 3 and report["manipulate"]["num_attributes"] == 3
+    assert set(report["manipulate"]["detector_dscore"]) == {"bright", "red_tint",
+                                                             "center_disk"}
+    assert set(report["bits_dim"]) == {"noise_free_corner", "elbo_1draw", "iwae_8draw",
+                                       "eval_images"}
+    assert report["swd_x1e3"]["images_per_set"] == 4
+    assert len(list(rep.glob("*.png"))) == 4 + 2 + 3  # ladder, recon, interp, 3 attributes
+    art = str(tmp_path / "art")
+    infer_cli.main(["export", "cifar10", "--cpu", "--out-dir", str(tmp_path / "fresh"), *TINY,
+                    "--set", "glow.K=1", "--batch-size", "3", "-o", art])
+    capsys.readouterr()
+    infer_cli.main(["serve", art, "-n", "3", "-o", str(tmp_path / "s.png")])
+    assert "3 samples @ T=0.7 from artifact" in capsys.readouterr().out
+    assert Image.open(tmp_path / "s.png").size == (2 * 10 + 2, 2 * 10 + 2)
 
 
 @pytest.mark.parametrize("shape", [(5, 7, 9, 3), (4, 6, 6, 1), (2, 3, 4, 4)])

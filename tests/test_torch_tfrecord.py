@@ -1,9 +1,12 @@
 """The port's TFRecord reader, CRC32C and writer against the JAX
 package's: shards the port writes read back in JAX and the reverse, and the
 tfds-layout batch streams byte for byte (two epochs and after `set_state`
-mid-epoch), with and without a resize."""
+mid-epoch), with and without a resize; the port's `prepare_tfrecords` CLI
+writes the JAX script's bytes, and the port reads its shards back."""
 
+import importlib.util
 import io
+import os
 
 import numpy as np
 import pytest
@@ -11,7 +14,7 @@ from PIL import Image
 
 from pytorch_glow_tpu.data import tfrecord as jtfr
 from pytorch_glow_tpu_torch.data import tfrecord as ttfr
-from test_torch_data import _streams, assert_streams_equal
+from test_torch_data import _streams, assert_streams_equal, write_celeba, write_image_folder
 
 N_TRAIN, N_TEST = 24, 8
 
@@ -112,3 +115,36 @@ def test_too_few_records_raises_as_jax(tfds_root):
     with pytest.raises(ValueError, match="records < batch_size"):
         ttfr.tfds_batches(DataConfig(name="cifar10", root=tfds_root, image_size=8),
                           GlowConfig(image_shape=(8, 8, 3)), TrainConfig(batch_size=64), "train")
+
+
+def _jax_prepare():
+    """The repository's scripts/prepare_tfrecords.py, loaded by path."""
+    path = os.path.join(os.path.dirname(__file__), "..", "scripts", "prepare_tfrecords.py")
+    spec = importlib.util.spec_from_file_location("jax_prepare_tfrecords", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("kind,size", [("celeba", 8), ("celeba", 0), ("image_folder", 8)])
+def test_prepare_tfrecords_cli_writes_the_jax_script_bytes(tmp_path, kind, size):
+    from pytorch_glow_tpu_torch.config import DataConfig, GlowConfig, TrainConfig
+    from pytorch_glow_tpu_torch.scripts import prepare_tfrecords
+
+    src = (write_celeba(tmp_path / "src", ".png", True) if kind == "celeba"
+           else write_image_folder(tmp_path / "src"))
+    argv = [kind, src, None, "--name", "celeba", "--shards", "2", "--image-size", str(size)]
+    counts = prepare_tfrecords.main([a if a else str(tmp_path / "port") for a in argv])
+    assert counts == _jax_prepare().main([a if a else str(tmp_path / "jax") for a in argv])
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "jax")) and len(names) == 4
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+    if size:
+        batches = ttfr.tfds_batches(DataConfig(name="celeba", root=str(tmp_path / "port"),
+                                               image_size=size),
+                                    GlowConfig(image_shape=(size, size, 3)),
+                                    TrainConfig(batch_size=4), "train")
+        batch = next(batches)
+        assert batch["image"].shape == (4, size, size, 3)
+        assert ("attr" in batch) == (kind == "celeba")
