@@ -131,6 +131,29 @@
    the model imported by `scripts.torch_migrate` and scored bitwise as
    the live model, and by `cli.infer nll`.  (e) A full-depth (K=32)
    kernel artifact of nll: export, save, load and first-call seconds.
+22. Runs after 21: multi-device training of celeba64 at full width
+   (K=32, L=4, hidden 512, b=128 global, fused), every run through
+   `cli.train.main` (steps_per_call 1 and a scalar log every step, so each
+   step's loss and grad_norm reach metrics.csv; an eval of one batch at
+   step 5).  (a') In-process, not distributed: `--steps 0` (DDI and a
+   step-0 snapshot), then 5 steps resumed from it.  (a) The same two runs
+   under `torch.distributed.run --nproc_per_node 1` (NCCL): the step-0
+   and step-5 snapshots (parameters, EMA, optimizer state) and every
+   logged number bitwise equal to (a'), since a one-rank group's
+   collectives leave their input as it is.  (b) 2 ranks on gloo sharing the card (NCCL refuses two ranks
+   on one GPU), mesh (data=2, model=1), 64 rows each: a fresh `--steps 0`
+   whose DDI'd actnorms hold to (a')'s by phase 14's rule (rtol 1e-3 with
+   an absolute 1e-5; the bf16 coupling nets' own actnorms to 2^-8 on
+   their output), its other parameters bitwise; then 5 steps from (a')'s
+   step-0 snapshot: step 1's loss within rtol 1e-5 and grad_norm within
+   rtol 1e-4 of (a')'s, steps 2-5 within rtol 2e-2 (bf16 rounding flips
+   compound).
+   (c) The same 2 ranks as (data=1, model=2), 3 steps from that snapshot
+   on the fused path (conv1/conv2 gathered over the model group before
+   K1/K3): the same bounds, which a gradient scaled by the model axis
+   breaks in grad_norm.  Each rank counts its own launches: K*L K1 and
+   K3 per step, and the eval's K1 / K2 (K2 on every rank).  The measured
+   distances and each run's step ms and images/s are printed.
 
 8. Holds K1/K2 at celebahq256's levels 1-5 and K3 at its levels 2-5, the
    shapes they run at on its path (b=64, additive, the preset's coupling),
@@ -302,6 +325,8 @@ DATA_WORKERS = 4
 IMAGENET_PER_FILE = 10000
 # Phase 21: the depth the serving artifacts are exported at (celeba64's K=32 cut).
 SERVE_EXPORT_K = 2
+# Phase 22: the steps of the data-parallel and the tensor-parallel runs.
+MULTI_STEPS, TP_STEPS = 5, 3
 
 
 def require(ok: bool, what: str) -> None:
@@ -1581,29 +1606,37 @@ def check_invconv_ddi(torch, icf, card: str) -> None:
                     f"celeba64 DDI ({dtype}, {impl}) K6a launches by path {paths}")
             states[impl] = model.state_dict()
             del model
-        xla, got = states["xla"], states["pallas"]
-        rows = {"rtol": [], "bf16": []}
-        for name, want in xla.items():
-            if not want.is_floating_point():
-                continue
-            err = (got[name] - want).abs()
-            if dtype == "bfloat16" and ".f." in name and ".actnorm." in name:
-                if name.endswith(".bias"):
-                    err = err * xla[name.removesuffix("bias") + "logs"].exp()
-                rows["bf16"].append((float(err.max()) / 2.0 ** -8, float(err.max()), name))
-            else:
-                rows["rtol"].append((float((err / (1e-3 * want.abs() + 1e-5)).max()),
-                                     float(err.max()), name))
         print(f"celeba64 DDI ({dtype} coupling; {cfg.K * cfg.L} K6a launches), post-DDI "
               f"tensors, pallas vs xla:")
-        for rule, what in (("rtol", "each element within 1e-3 |xla| + 1e-5"),
-                           ("bf16", "the nets' actnorms within 2^-8 on their output")):
-            if rows[rule]:
-                worst, largest = max(rows[rule]), max(rows[rule], key=lambda r: r[1])
-                print(f"  {len(rows[rule])} tensors, {what}: worst {worst[0]:.3e} of the bound "
-                      f"({worst[2]}); largest |diff| {largest[1]:.3e} ({largest[2]})")
-                require(worst[0] <= 1.0, f"celeba64 DDI ({dtype}) pallas vs xla: {worst}")
+        hold_ddi(states["pallas"], states["xla"], dtype == "bfloat16",
+                 f"celeba64 DDI ({dtype}) pallas vs xla")
     torch.cuda.empty_cache()
+
+
+def hold_ddi(got: dict, want_sd: dict, bf16: bool, what: str) -> None:
+    """Phase 14's rule for two DDI'd state dicts (`check_invconv_ddi`): each
+    element within rtol 1e-3 with an absolute 1e-5, except, at bf16
+    coupling, the coupling nets' actnorms, held to bf16 resolution on their
+    unit-scale output (|d bias| * exp(logs) and |d logs| within 2^-8)."""
+    rows = {"rtol": [], "bf16": []}
+    for name, want in want_sd.items():
+        if not want.is_floating_point():
+            continue
+        err = (got[name] - want).abs()
+        if bf16 and ".f." in name and ".actnorm." in name:
+            if name.endswith(".bias"):
+                err = err * want_sd[name.removesuffix("bias") + "logs"].exp()
+            rows["bf16"].append((float(err.max()) / 2.0 ** -8, float(err.max()), name))
+        else:
+            rows["rtol"].append((float((err / (1e-3 * want.abs() + 1e-5)).max()),
+                                 float(err.max()), name))
+    for rule, text in (("rtol", "each element within 1e-3 |ref| + 1e-5"),
+                       ("bf16", "the nets' actnorms within 2^-8 on their output")):
+        if rows[rule]:
+            worst, largest = max(rows[rule]), max(rows[rule], key=lambda r: r[1])
+            print(f"  {len(rows[rule])} tensors, {text}: worst {worst[0]:.3e} of the bound "
+                  f"({worst[2]}); largest |diff| {largest[1]:.3e} ({largest[2]})")
+            require(worst[0] <= 1.0, f"{what}: {worst}")
 
 
 def check_fused_permutations(torch, fs) -> None:
@@ -2993,6 +3026,182 @@ def check_serving_artifacts(torch, fs, icf, card: str, out_root: str, data_root:
     print(f"phase 21 (serving artifacts, attributes, lineage): {time.perf_counter() - t_phase:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: multi-device training
+# ---------------------------------------------------------------------------
+
+
+def launch_ranks(nproc: int, backend: str, out: str, runs: list[list[str]], threads: int,
+                 timeout: float = 600.0) -> list[list[dict]]:
+    """`torch.distributed.run --standalone --nproc_per_node nproc` of this
+    script's `--rank-cli` mode over `runs` -> per run, each rank's counts
+    and result.  Each rank gets this process's `threads` host threads
+    (OMP_NUM_THREADS; the launcher would set 1), so the host math of the
+    model's init (the LU factors of random rotations) gives the same bits.
+    Its output goes to OUT.log, whose end is printed on a failure; the
+    whole process group is killed on a timeout."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), os.path.join(HERE, "chip_smoke.py"), "--rank-cli",
+            backend, out]
+    for i, run in enumerate(runs):
+        argv += (["--next"] if i else []) + run
+    with open(out + ".log", "w") as log:
+        proc = subprocess.Popen(argv, cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True,
+                                env={**os.environ, "OMP_NUM_THREADS": str(threads)})
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    if rc != 0:
+        with open(out + ".log") as f:
+            print(f.read()[-6000:])
+        require(False, f"{nproc}-rank {backend} launch exited {rc}")
+    outs = []
+    for i in range(len(runs)):
+        per_rank = []
+        for r in range(nproc):
+            with open(f"{out}.{i}.rank{r}.json") as f:
+                per_rank.append(json.load(f))
+        outs.append(per_rank)
+    return outs
+
+
+def csv_rows(run_dir: str) -> list[dict]:
+    with open(os.path.join(run_dir, "metrics.csv")) as f:
+        return list(csv.DictReader(f))
+
+
+def step_rows(run_dir: str) -> list[dict]:
+    """metrics.csv's per-step rows (loss, grad_norm, images_per_sec ...)."""
+    return [r for r in csv_rows(run_dir) if r.get("loss")]
+
+
+def check_multi_device(torch, fs, card: str, out_root: str) -> None:
+    """Phase 22 (module docstring): celeba64 at full width through the train
+    CLI, not distributed, on one NCCL rank and on two gloo ranks sharing the
+    card as (data=2, model=1) and (data=1, model=2)."""
+    from pytorch_glow_tpu_torch.cli import train as train_cli
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    common = ["celeba64", "--synthetic", "textured", "--quiet", "--set", "train.steps_per_call=1",
+              "--set", "train.scalar_log_gap=1", "--set", "train.eval_gap=5",
+              "--set", "train.eval_batches=1"]
+    prof = train_cli.resolve_profile(train_cli.parse_args(common))
+    cfg, b = prof.glow, prof.train.batch_size
+    kl = cfg.K * cfg.L
+
+    def argv(tag: str, steps: int, *extra: str) -> list[str]:
+        return [*common, "--out-dir", os.path.join(out_root, tag), "--steps", str(steps), *extra]
+
+    def run_dir(tag: str) -> str:
+        return os.path.join(out_root, tag, "celeba64")
+
+    def snapshot(tag: str, step: int) -> dict:
+        return torch.load(os.path.join(run_dir(tag), "checkpoints", f"{step}.pt"),
+                          map_location="cpu", weights_only=False)
+
+    def seed_from(tag: str) -> None:
+        """(a')'s step-0 snapshot as the start of run `tag`."""
+        ckpts = os.path.join(run_dir(tag), "checkpoints")
+        os.makedirs(ckpts)
+        shutil.copy(os.path.join(run_dir("a1"), "checkpoints", "0.pt"), ckpts)
+
+    def step_ms(tag: str) -> str:
+        rates = [float(r["images_per_sec"]) for r in step_rows(run_dir(tag))[1:]]
+        med = statistics.median(rates)
+        return (f"median step {1e3 * b / med:.3f} ms, {med:.3f} images/s over steps "
+                f"2-{len(rates) + 1}")
+
+    train_launches = {"forward": MULTI_STEPS * kl, "backward": MULTI_STEPS * kl}
+    evals = {"forward": 3 * kl, "reverse": kl}  # nll EMA and live, a reconstruct
+    want = {k: train_launches.get(k, 0) + evals.get(k, 0) for k in fs.launches}
+
+    # -- (a') not distributed, in-process ---------------------------------------
+    t0 = time.perf_counter()
+    run_cli(train_cli.main, argv("a1", 0))
+    fs.reset_launches()
+    result, _ = run_cli(train_cli.main, argv("a1", MULTI_STEPS))
+    launched = dict(fs.launches)
+    require(result["final_step"] == MULTI_STEPS and launched == want,
+            f"(a') {result}, launches {launched}, want {want}")
+    ref = step_rows(run_dir("a1"))
+    print(f"(a') cli.train celeba64, not distributed: {time.perf_counter() - t0:.2f} s, "
+          f"{step_ms('a1')}; launches {launched}")
+
+    # -- (a) one NCCL rank -----------------------------------------------------
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    (_, ), (r5, ) = launch_ranks(1, "nccl", os.path.join(out_root, "a"),
+                                 [argv("a", 0), argv("a", MULTI_STEPS)], threads)
+    require(r5["launches"] == want, f"(a) launches {r5['launches']}")
+    for step in (0, MULTI_STEPS):
+        x, y = snapshot("a1", step), snapshot("a", step)
+        same = (all(torch.equal(x["model"][k], y["model"][k]) for k in x["model"])
+                and all(torch.equal(x["opt_state"][k], y["opt_state"][k]) for k in x["opt_state"])
+                and all(torch.equal(u, v) for u, v in zip(x["ema"], y["ema"])))
+        require(same and len(x["model"]) == len(y["model"]), f"(a) step-{step} snapshot differs")
+    keys = ("step", "loss", "nll", "grad_norm", "lr", "eval_nll", "eval_nll_raw",
+            "recon_err_max_u8", "best_eval_nll")
+    got, ref_all = csv_rows(run_dir("a")), csv_rows(run_dir("a1"))
+    require([{k: r.get(k) for k in keys} for r in got]
+            == [{k: r.get(k) for k in keys} for r in ref_all],
+            f"(a) logged numbers differ:\n{got}\n{ref_all}")
+    print(f"(a) torchrun 1 rank: {time.perf_counter() - t0:.2f} s, {step_ms('a')}; "
+          f"step-0 and step-{MULTI_STEPS} snapshots and every logged number bitwise equal "
+          f"to (a'); launches {r5['launches']}")
+
+    # -- (b), (c) two gloo ranks sharing the card ---------------------------------
+    seed_from("b2")
+    seed_from("c")
+    t0 = time.perf_counter()
+    outs = launch_ranks(2, "gloo", os.path.join(out_root, "bc"), [
+        argv("b1", 0, "--dist-backend", "gloo"),
+        argv("b2", MULTI_STEPS, "--dist-backend", "gloo"),
+        argv("c", TP_STEPS, "--dist-backend", "gloo", "--set", "mesh.model=2")], threads)
+    wall = time.perf_counter() - t0
+    x, y = snapshot("a1", 0)["model"], snapshot("b1", 0)["model"]
+    for k in x:
+        if "actnorm" not in k:
+            require(torch.equal(x[k], y[k]), f"(b) fresh {k} differs from (a')")
+    print(f"(b) 2 gloo ranks, DDI on {b // 2} rows each with the global statistics, against "
+          f"(a')'s on {b} (phase 14's rule; the other parameters bitwise):")
+    hold_ddi({k: v for k, v in y.items() if "actnorm" in k},
+             {k: v for k, v in x.items() if "actnorm" in k}, cfg.compute_dtype == "bfloat16",
+             "(b) DDI on 2 ranks against one")
+    for tag, steps, per_rank, mesh in (("b2", MULTI_STEPS, outs[1], "data=2, model=1"),
+                                       ("c", TP_STEPS, outs[2], "data=1, model=2")):
+        rows = step_rows(run_dir(tag))
+        require(len(rows) == steps, f"({tag}) rows {rows}")
+        dist_txt = []
+        for i, (r, q) in enumerate(zip(rows, ref)):
+            rl = rel_diff(float(r["loss"]), float(q["loss"]))
+            rg = rel_diff(float(r["grad_norm"]), float(q["grad_norm"]))
+            bounds = (1e-5, 1e-4) if i == 0 else (2e-2, 2e-2)
+            require(rl <= bounds[0] and rg <= bounds[1],
+                    f"({tag}) step {i + 1}: loss rel {rl:.3e}, grad_norm rel {rg:.3e}")
+            dist_txt.append(f"step {i + 1} loss {rl:.3e} grad_norm {rg:.3e}")
+        want_r = {k: steps * kl if k in ("forward", "backward") else 0 for k in fs.launches}
+        if steps == MULTI_STEPS:
+            want_r = want
+        for rank, o in enumerate(per_rank):
+            require(o["launches"] == want_r and o["result"]["final_step"] == steps,
+                    f"({tag}) rank {rank} launches {o['launches']}, want {want_r}")
+        print(f"({tag}) 2 gloo ranks ({mesh}) from (a')'s step-0 snapshot, {steps} steps, "
+              f"relative distances to (a'): " + "; ".join(dist_txt)
+              + f"; {step_ms(tag)}; launches per rank "
+              + ", ".join(str(o["launches"]) for o in per_rank))
+    grad_mb = snapshot("a1", 0)["opt_state"]["mu"].numel() * 4 / 1e6
+    print(f"(b)+(c) launch: {wall:.2f} s; each gloo step moves the {grad_mb:.1f} MB f32 "
+          f"gradient through host memory: no measure of NCCL across cards")
+    print(f"card for these times: {card}")
+    shutil.rmtree(out_root, ignore_errors=True)
+    print(f"phase 22 (multi-device training): {time.perf_counter() - t_phase:.2f} s")
+
+
 def compare_nll(inf, plain_inf, images, what: str) -> None:
     """Fused-kernel nll against the unfused PyTorch layers, the repo's rtol 2e-2."""
     nll, nll_plain = inf.nll(images), plain_inf.nll(images)
@@ -3002,9 +3211,58 @@ def compare_nll(inf, plain_inf, images, what: str) -> None:
     require(rel <= 2e-2, f"fused nll vs plain path rel diff {rel} ({what})")
 
 
+def pin_backends(torch) -> None:
+    """True f32 (no TF32) and deterministic cuDNN algorithms."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+
+
+def rank_cli(argv: list[str]) -> int:
+    """One rank of a phase-22 launch: `chip_smoke.py --rank-cli BACKEND OUT
+    ARGS [--next ARGS ...]`.  Joins the process group on BACKEND, then runs
+    `cli.train.main` on each argument list in turn, the flow-step launch
+    counts set to 0 just before each and written just after it, with the
+    run's result, to OUT.<i>.rank<R>.json."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+
+    from pytorch_glow_tpu_torch.cli import train as train_cli
+    from pytorch_glow_tpu_torch.ops import flowstep as fs
+    from pytorch_glow_tpu_torch.parallel import distributed
+
+    pin_backends(torch)
+    backend, out = argv[0], argv[1]
+    runs, cur = [], []
+    for a in argv[2:]:
+        if a == "--next":
+            runs.append(cur)
+            cur = []
+        else:
+            cur.append(a)
+    runs.append(cur)
+    require(distributed.maybe_initialize(distributed.local_device(), backend),
+            "torchrun's environment is missing")
+    try:
+        for i, run in enumerate(runs):
+            fs.reset_launches()
+            result = train_cli.main(run)
+            torch.cuda.synchronize()
+            with open(f"{out}.{i}.rank{dist.get_rank()}.json", "w") as f:
+                json.dump({"launches": dict(fs.launches), "result": result}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--rank-cli"]:
+        return rank_cli(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
@@ -3018,10 +3276,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
+    pin_backends(torch)
 
     t0 = time.perf_counter()
     _build.library()
@@ -3057,6 +3312,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     cond_launches = check_conditional(torch, fs, card, os.path.join(out_root, "conditional"))
     check_serving_artifacts(torch, fs, icf, card, os.path.join(out_root, "serving"),
                             os.path.join(out_root, "data"))
+    check_multi_device(torch, fs, card, os.path.join(out_root, "multi"))
 
     # -- the 256x256 path: celebahq256 ---------------------------------------
     # K1-K3 at the level shapes they run at, in the preset's (additive) coupling.

@@ -9,12 +9,20 @@ that fails rebuilds from the newest snapshot and goes on, up to N times
 the run at the next step boundary with a snapshot written and
 `"preempted": true` in the printed result.
 
+Multi-device: under `torchrun` each rank initialises the process group
+(`parallel/distributed.maybe_initialize`: NCCL on the card, gloo with
+`--cpu`, or `--dist-backend gloo` for ranks that share one card) and trains
+on cuda:LOCAL_RANK over the profile's mesh (`--set mesh.model=2` for
+tensor parallelism); rank 0 writes the files.  A multi-rank run does not
+retry: a failed rank ends the launch, and a rerun resumes.
+
 Usage:
   python -m pytorch_glow_tpu_torch.cli.train cifar10 --synthetic textured --steps 100
   python -m pytorch_glow_tpu_torch.cli.train profiles/celeba64.json --out-dir results
   python -m pytorch_glow_tpu_torch.cli.train tiny-cifar10 --cpu --synthetic \\
       --set glow.invconv_impl=pallas --set train.checkpoint_gap=10 --steps 20
   python -m pytorch_glow_tpu_torch.cli.train celeba64 --synthetic textured --retries 2
+  torchrun --nproc_per_node 4 -m pytorch_glow_tpu_torch.cli.train celeba64 --synthetic textured
 """
 
 from __future__ import annotations
@@ -54,6 +62,9 @@ def parse_args(argv=None):
     p.add_argument("--retries", type=int, default=0,
                    help="after a failure, resume from the newest snapshot, up to N times")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="under torchrun: the process group's backend (default nccl on the "
+                        "card, gloo with --cpu)")
     return p.parse_args(argv)
 
 
@@ -94,15 +105,34 @@ def resolve_profile(args):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     prof = resolve_profile(args)
+    import torch.distributed as dist
+
+    from pytorch_glow_tpu_torch.parallel import distributed
+
+    started = (not dist.is_initialized()
+               and distributed.maybe_initialize(distributed.local_device(args.cpu),
+                                                args.dist_backend))
+    device = (distributed.local_device(args.cpu) if dist.is_initialized()
+              else "cpu" if args.cpu else "cuda")
+    try:
+        return _run(args, prof, device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, prof, device) -> dict:
+    from pytorch_glow_tpu_torch.parallel import distributed
     from pytorch_glow_tpu_torch.train.builder import build
     from pytorch_glow_tpu_torch.train.trainer import train
 
     # The step-liveness watchdog re-execs a wedged run within this budget;
     # setdefault, so a re-exec'd run keeps its decremented budget.
     os.environ.setdefault("GLOW_WEDGE_RESTART_BUDGET", str(args.retries))
-    attempts = args.retries + 1
+    # A one-sided retry would leave the other ranks in a collective.
+    attempts = args.retries + 1 if distributed.world_size() == 1 else 1
     for attempt in range(attempts):
-        built = build(prof, device="cpu" if args.cpu else "cuda")
+        built = build(prof, device=device)
         if built.resumed:
             print(f"[train] resumed from step {built.start_step}")
         try:

@@ -136,14 +136,15 @@ def celeba_batches(
     glow_cfg: GlowConfig,
     train_cfg: TrainConfig,
     split: str = "train",
+    shard: tuple[int, int] = (0, 1),
 ):
     """Shuffled uint8 batches (data/folder.py's engine), infinite, cycling
-    unshuffled for the test split; O(1)-resumable.  None if the dataset is
-    not on disk."""
+    unshuffled for the test split; O(1)-resumable; row block `shard` of
+    each batch.  None if the dataset is not on disk."""
     from pytorch_glow_tpu_torch.data.folder import folder_batches
 
     try:
         ds = CelebAFolder(data_cfg.root, data_cfg.image_size, split)
     except (FileNotFoundError, NotADirectoryError):
         return None
-    return folder_batches(ds, data_cfg, train_cfg, split, ds.meta_cols)
+    return folder_batches(ds, data_cfg, train_cfg, split, ds.meta_cols, shard)

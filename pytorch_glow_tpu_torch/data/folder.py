@@ -14,7 +14,7 @@ holdout (per class when labeled).
 `folder_batches`, shared with data/celeba.py, decodes with the native C++
 decoder (data/native_loader.py) when it builds, one batch ahead, else with
 a Pillow thread pool; per-epoch global shuffle, O(1) index-state resume,
-and each process's rows under an initialised torch.distributed group.
+and one data shard's rows of each batch (`shard`).
 """
 
 from __future__ import annotations
@@ -119,17 +119,17 @@ def folder_batches(
     train_cfg: TrainConfig,
     split: str = "train",
     meta_cols: Callable[[np.ndarray], dict] | None = None,
+    shard: tuple[int, int] = (0, 1),
 ):
     """Shuffled uint8 batches over any folder dataset exposing `__len__`,
     `path(i)`, and `image_size`; native C++ decode (double-buffered batch
-    lookahead) or thread-pool Pillow; O(1)-resumable; per-process rows under
-    torch.distributed.  `meta_cols(idx) -> dict` appends extra per-row
+    lookahead) or thread-pool Pillow; O(1)-resumable; row block `shard` =
+    (i, n) of each batch.  `meta_cols(idx) -> dict` appends extra per-row
     columns (CelebA attrs, class labels).  Returns None on an empty epoch.
     """
     from pytorch_glow_tpu_torch.data import native_loader as nl
     from pytorch_glow_tpu_torch.data.pipeline import (
         IndexedBatches,
-        _proc_slice,
         _process_rows,
         epoch_permutation,
     )
@@ -149,7 +149,7 @@ def folder_batches(
     if bpe == 0:
         return None
     shuffle = split == "train"
-    pidx, pcount = _proc_slice()
+    pidx, pcount = shard
     lo, hi = _process_rows(bs, pidx, pcount)
 
     def batch_indices(i: int) -> np.ndarray:
@@ -194,6 +194,7 @@ def image_folder_batches(
     glow_cfg: GlowConfig,
     train_cfg: TrainConfig,
     split: str = "train",
+    shard: tuple[int, int] = (0, 1),
 ):
     """`pipeline.make_dataset`'s entry for `name="image_folder"`; None when
     the root holds no images."""
@@ -201,4 +202,4 @@ def image_folder_batches(
         ds = ImageFolder(data_cfg.root, data_cfg.image_size, split)
     except (FileNotFoundError, NotADirectoryError):
         return None
-    return folder_batches(ds, data_cfg, train_cfg, split, ds.meta_cols)
+    return folder_batches(ds, data_cfg, train_cfg, split, ds.meta_cols, shard)

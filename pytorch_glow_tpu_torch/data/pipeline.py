@@ -20,9 +20,10 @@ synthetic data with a printed line when the dataset is not on disk.
 Grain is not used: `loader="auto"` and `"native"` give the indexed order,
 and `"grain"` only insists that the dataset is on disk.  With
 `DataConfig.grain_workers > 0` the train stream's batches are built in
-worker processes (data/workers.py), in the same order.  Under an
-initialised `torch.distributed` process group each rank builds only its
-rows of the global batch.
+worker processes (data/workers.py), in the same order.  With `shard=(i,
+n)` (a mesh's data coordinate and size, `parallel/mesh.Mesh.shard`) each
+source builds only row block i of n of every global batch, so ranks that
+share a data coordinate (model peers) read the same rows.
 """
 
 from __future__ import annotations
@@ -79,20 +80,11 @@ class IndexedBatches:
 
 
 def _process_rows(global_batch: int, pidx: int, pcount: int) -> tuple[int, int]:
-    """Row range [lo, hi) of the global batch owned by process `pidx`."""
+    """Row range [lo, hi) of the global batch owned by data shard `pidx`."""
     if global_batch % pcount:
-        raise ValueError(f"batch {global_batch} does not split over {pcount} processes")
+        raise ValueError(f"batch {global_batch} does not split over {pcount} data shards")
     per = global_batch // pcount
     return pidx * per, (pidx + 1) * per
-
-
-def _proc_slice() -> tuple[int, int]:
-    """(rank, world size) of an initialised torch.distributed group, else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 # ---------------------------------------------------------------------------
@@ -133,12 +125,13 @@ def epoch_permutation(seed: int, epoch: int, n: int, shuffle: bool) -> np.ndarra
 
 def array_batches(images: np.ndarray, labels: np.ndarray | None, batch_size: int,
                   seed: int = 0, shuffle: bool = True, drop_remainder: bool = True,
-                  repeat: bool = True) -> IndexedBatches:
-    """Epoch-shuffled batches over in-memory arrays; infinite if `repeat`."""
+                  repeat: bool = True, shard: tuple[int, int] = (0, 1)) -> IndexedBatches:
+    """Epoch-shuffled batches over in-memory arrays; infinite if `repeat`;
+    row block `shard` of each full batch."""
     n = images.shape[0]
     end = n - (n % batch_size) if drop_remainder else n
     bpe = -(-end // batch_size)  # batches per epoch
-    pidx, pcount = _proc_slice()
+    pidx, pcount = shard
     lo, hi = _process_rows(batch_size, pidx, pcount)
 
     def batch_at(i: int) -> Batch | None:
@@ -185,12 +178,12 @@ def load_imagenet_npz(root: str, size: int,
 
 
 def _on_disk(data_cfg: DataConfig, glow_cfg: GlowConfig, train_cfg: TrainConfig,
-             split: str):
+             split: str, shard: tuple[int, int]):
     """The indexed stream of a dataset on disk, or None."""
     from pytorch_glow_tpu_torch.data import tfrecord
 
     bs = train_cfg.batch_size
-    it = tfrecord.tfds_batches(data_cfg, glow_cfg, train_cfg, split)
+    it = tfrecord.tfds_batches(data_cfg, glow_cfg, train_cfg, split, shard)
     if it is not None:
         return it
     if data_cfg.name == "imagenet64":
@@ -198,26 +191,28 @@ def _on_disk(data_cfg: DataConfig, glow_cfg: GlowConfig, train_cfg: TrainConfig,
         if loaded is not None:
             # The test split cycles deterministically (the trainer's eval
             # takes a few batches at each boundary).
-            return array_batches(*loaded, bs, seed=train_cfg.seed, shuffle=split == "train")
+            return array_batches(*loaded, bs, seed=train_cfg.seed, shuffle=split == "train",
+                                 shard=shard)
     if data_cfg.name == "cifar10":
         loaded = load_cifar10(data_cfg.root, split)
         if loaded is not None:
-            return array_batches(*loaded, bs, seed=train_cfg.seed, shuffle=split == "train")
+            return array_batches(*loaded, bs, seed=train_cfg.seed, shuffle=split == "train",
+                                 shard=shard)
     if data_cfg.name in ("celeba", "celebahq"):
         from pytorch_glow_tpu_torch.data.celeba import celeba_batches
 
-        it = celeba_batches(data_cfg, glow_cfg, train_cfg, split)
+        it = celeba_batches(data_cfg, glow_cfg, train_cfg, split, shard)
         if it is not None:
             return it
     if data_cfg.name == "image_folder":
         from pytorch_glow_tpu_torch.data.folder import image_folder_batches
 
-        return image_folder_batches(data_cfg, glow_cfg, train_cfg, split)
+        return image_folder_batches(data_cfg, glow_cfg, train_cfg, split, shard)
     return None
 
 
 def make_dataset(data_cfg: DataConfig, glow_cfg: GlowConfig, train_cfg: TrainConfig,
-                 split: str = "train") -> Any:
+                 split: str = "train", shard: tuple[int, int] = (0, 1)) -> Any:
     """The host batch stream of a profile: an iterator of {"image": uint8
     (B,H,W,C), ...} numpy batches with `get_state()` / `set_state()`.
 
@@ -225,7 +220,8 @@ def make_dataset(data_cfg: DataConfig, glow_cfg: GlowConfig, train_cfg: TrainCon
     the dataset is not on disk); then the on-disk sources; else uniform
     synthetic data with a printed line.  With `grain_workers > 0` the train
     split's batches come from that many worker processes
-    (data/workers.py), in the same order."""
+    (data/workers.py), in the same order.  `shard` = (i, n): row block i of
+    n of every batch (the whole batch by default)."""
     from pytorch_glow_tpu_torch.data.synthetic import SYNTHETIC_NAMES, synthetic_batches
 
     bs = train_cfg.batch_size
@@ -237,13 +233,13 @@ def make_dataset(data_cfg: DataConfig, glow_cfg: GlowConfig, train_cfg: TrainCon
         from pytorch_glow_tpu_torch.data.workers import WorkerBatches
 
         inline = dataclasses.replace(data_cfg, grain_workers=0)
-        make_dataset(inline, glow_cfg, train_cfg, split)  # a missing source raises here
-        return WorkerBatches(inline, glow_cfg, train_cfg, split, data_cfg.grain_workers)
+        make_dataset(inline, glow_cfg, train_cfg, split, shard)  # a missing source raises here
+        return WorkerBatches(inline, glow_cfg, train_cfg, split, data_cfg.grain_workers, shard)
     if data_cfg.name in SYNTHETIC_NAMES:
         # The test split draws a different stream of the same family.
         return synthetic_batches(bs, glow_cfg.image_shape, y_classes, seed=seed,
-                                 kind=SYNTHETIC_NAMES[data_cfg.name])
-    it = _on_disk(data_cfg, glow_cfg, train_cfg, split)
+                                 kind=SYNTHETIC_NAMES[data_cfg.name], shard=shard)
+    it = _on_disk(data_cfg, glow_cfg, train_cfg, split, shard)
     if it is not None:
         return it
     if data_cfg.loader == "grain":
@@ -251,7 +247,7 @@ def make_dataset(data_cfg: DataConfig, glow_cfg: GlowConfig, train_cfg: TrainCon
                            f"'{data_cfg.name}' under root='{data_cfg.root}'")
     print(f"[data] dataset '{data_cfg.name}' not found under root="
           f"'{data_cfg.root}'; using synthetic data")
-    return synthetic_batches(bs, glow_cfg.image_shape, y_classes, seed=seed)
+    return synthetic_batches(bs, glow_cfg.image_shape, y_classes, seed=seed, shard=shard)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,6 @@ import numpy as np
 from pytorch_glow_tpu_torch.data.pipeline import (
     Batch,
     IndexedBatches,
-    _proc_slice,
     _process_rows,
 )
 
@@ -101,12 +100,13 @@ def _synthetic_batch(i: int, batch_size: int, image_shape: tuple[int, int, int],
 
 def synthetic_batches(batch_size: int, image_shape: tuple[int, int, int],
                       y_classes: int | None = None, seed: int = 0,
-                      kind: str = "uniform") -> IndexedBatches:
+                      kind: str = "uniform", shard: tuple[int, int] = (0, 1)) -> IndexedBatches:
     """Deterministic uint8 batches; infinite, O(1)-resumable.  kind
     "uniform" (noise, 8 bits/dim floor), "smooth" (colour gradients),
     "textured" (multi-scale textures with occluding shapes) or "attr"
-    (three measurable binary attributes)."""
-    pidx, pcount = _proc_slice()
+    (three measurable binary attributes); row block `shard` = (i, n) of
+    each batch."""
+    pidx, pcount = shard
     lo, hi = _process_rows(batch_size, pidx, pcount)
 
     def batch_at(i: int) -> Batch:

@@ -388,14 +388,16 @@ def tfds_batches(
     glow_cfg: GlowConfig,
     train_cfg: TrainConfig,
     split: str = "train",
+    shard: tuple[int, int] = (0, 1),
 ):
-    """IndexedBatches over a tfds-prepared TFRecord directory, or None when
+    """IndexedBatches over a tfds-prepared TFRecord directory (row block
+    `shard` of each batch), or None when
     `data_cfg.root` holds no matching shards.  Train split: epoch-shuffled,
     infinite; test split: deterministic order, also cycling — the trainer's
     periodic eval islices a few batches per eval boundary across the run
     (same contract as array_batches)."""
     from pytorch_glow_tpu_torch.data.pipeline import (
-        IndexedBatches, _proc_slice, _process_rows, epoch_permutation,
+        IndexedBatches, _process_rows, epoch_permutation,
     )
 
     tfds_split = split
@@ -414,7 +416,7 @@ def tfds_batches(
     bpe = n // bs  # drop remainder
     shuffle = split == "train"
     seed = train_cfg.seed
-    pidx, pcount = _proc_slice()
+    pidx, pcount = shard
     lo, hi = _process_rows(bs, pidx, pcount)
 
     def batch_at(i: int):

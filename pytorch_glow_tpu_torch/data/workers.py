@@ -29,8 +29,8 @@ class _IndexedSource:
     stream, built lazily in each worker from the (picklable) configs."""
 
     def __init__(self, data_cfg: DataConfig, glow_cfg: GlowConfig, train_cfg: TrainConfig,
-                 split: str):
-        self._cfgs = (data_cfg, glow_cfg, train_cfg, split)
+                 split: str, shard: tuple[int, int]):
+        self._cfgs = (data_cfg, glow_cfg, train_cfg, split, shard)
         self._it = None
 
     def __getitem__(self, i: int):
@@ -48,10 +48,10 @@ class WorkerBatches:
     again from the consumed position."""
 
     def __init__(self, data_cfg: DataConfig, glow_cfg: GlowConfig, train_cfg: TrainConfig,
-                 split: str, workers: int):
+                 split: str, workers: int, shard: tuple[int, int] = (0, 1)):
         if workers < 1:
             raise ValueError(f"workers must be at least 1, got {workers}")
-        self._source = _IndexedSource(data_cfg, glow_cfg, train_cfg, split)
+        self._source = _IndexedSource(data_cfg, glow_cfg, train_cfg, split, shard)
         self._workers = workers
         self._next = 0
         self._it = None

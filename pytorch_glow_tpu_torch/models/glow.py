@@ -55,6 +55,16 @@ raw dequantization draw of x's shape (U[0, 1) for uniform and variational,
 a standard normal for gaussian).  Draws taken outside from a generator in
 that order give the live call's result bit for bit.
 
+On a mesh (`self.mesh`, set by `parallel/mesh.shard_model`): DDI takes the
+global batch's statistics over the data group, and under tensor
+parallelism the unfused coupling nets reduce over the model group
+(`models/layers.CouplingNet`).  The fused kernels keep the whole hidden
+width, as the JAX kernels' partitioning keeps the weights replicated and
+shards only the batch: before packing, conv1 and conv2 are gathered over
+the model group (`_GatherFromModel`), and the backward hands each shard
+its slice of the kernel's gradient, so each model peer runs K1/K3 on the
+same rows with the full weights.
+
 Under `torch.export` (`torch.compiler.is_exporting()`) the fused path calls
 the flow-step kernels through their `torch.library` ops
 (`ops/library.py`), which the exporter keeps opaque; the live path calls
@@ -91,8 +101,26 @@ from pytorch_glow_tpu_torch.ops.math import (
     num_dims,
 )
 from pytorch_glow_tpu_torch.ops.reshape import split_channel, squeeze2d, unsqueeze2d
+from pytorch_glow_tpu_torch.parallel import distributed as pd
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """A tensor-parallel shard -> the full tensor, concatenated over the
+    model group along `dim`.  Every model peer computes the same gradient
+    of the full tensor (same rows, same weights), so the backward keeps
+    this rank's slice of it: an all-gather's own backward would sum the
+    peers' identical gradients and scale it by the group's size."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, dim: int, group) -> torch.Tensor:
+        ctx.dim, ctx.rank, ctx.n = dim, torch.distributed.get_rank(group), t.shape[dim]
+        return pd.all_gather_cat(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
 
 
 class _FlowNet(nn.Module):
@@ -134,6 +162,7 @@ class Glow(nn.Module):
         if cfg.dequant == "variational":
             self.vardeq = VarDeq(cfg, generator)
         self._ddi = False
+        self.mesh = None  # parallel.mesh.Mesh, set by parallel.mesh.shard_model
 
     @property
     def device(self) -> torch.device:
@@ -143,6 +172,15 @@ class Glow(nn.Module):
 
     def _fused(self) -> bool:
         return self.cfg.flowstep_impl == "pallas" and not self._ddi
+
+    def _pack(self, step: FlowStep, affine: bool, reverse: bool) -> list[torch.Tensor]:
+        gather = None
+        if self.mesh is not None and self.mesh.tp:
+            group = self.mesh.model_group
+
+            def gather(t, dim):
+                return _GatherFromModel.apply(t, dim, group)
+        return fs.pack_weights(step, affine, reverse, fs.COUPLING_DTYPE, gather)
 
     def _steps_forward(self, steps: list[FlowStep], z: torch.Tensor, logdet: torch.Tensor):
         if not self._fused():
@@ -157,7 +195,7 @@ class Glow(nn.Module):
         z = z.float().contiguous()
         exporting = torch.compiler.is_exporting()
         for step in steps:
-            packed = fs.pack_weights(step, affine, False, fs.COUPLING_DTYPE)
+            packed = self._pack(step, affine, False)
             if exporting:
                 z, ld = library.flowstep_forward(z, affine, packed)
             else:
@@ -175,7 +213,7 @@ class Glow(nn.Module):
         z = z.float().contiguous()
         exporting = torch.compiler.is_exporting()
         for step in reversed(steps):
-            packed = fs.pack_weights(step, affine, True, fs.COUPLING_DTYPE)
+            packed = self._pack(step, affine, True)
             if exporting:
                 z = library.flowstep_reverse(z, affine, packed)
             else:
@@ -276,6 +314,19 @@ class Glow(nn.Module):
             return x + noise / self.cfg.n_bins
         return x
 
+    def dequant_noise(self, shape, generator: torch.Generator | None,
+                      device) -> torch.Tensor | None:
+        """The raw dequantization draw `log_prob` takes of a batch of
+        `shape`, from `generator`, as it would draw it itself: U[0, 1) for
+        uniform and variational, a standard normal for gaussian, None
+        without dequantization."""
+        dq = self.cfg.dequant
+        if dq in ("uniform", "variational"):
+            return torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+        if dq == "gaussian":
+            return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return None
+
     def log_prob(self, x: torch.Tensor, generator: torch.Generator | None = None,
                  y_onehot: torch.Tensor | None = None, noise: torch.Tensor | None = None) -> dict:
         """x in [0,1) -> {z, objective, nll (bits/dim)}, with "y_logits"
@@ -340,14 +391,16 @@ class Glow(nn.Module):
         return bits_per_dim(obj, num_dims((x.shape[0], *self.cfg.image_shape)))
 
     def loss_fn(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                y_onehot: torch.Tensor | None = None):
+                y_onehot: torch.Tensor | None = None, noise: torch.Tensor | None = None):
         """Training loss on [0,1) images -> (loss, metrics): the mean nll in
         bits/dim, plus `weight_y` times the class loss on a y-conditional
-        model; with a generator the input is dequantized first.  Metrics:
+        model; with a generator (or its draw, `noise`, as `log_prob` takes
+        it) the input is dequantized first.  Metrics:
         "nll", "loss", and "loss_class" and "vardeq_logq_bits" (the bits/dim
         the learned q charges for its noise) where they apply."""
         cfg = self.cfg
-        out = self.log_prob(x, generator, y_onehot)
+        extra = {} if noise is None else {"noise": noise}
+        out = self.log_prob(x, generator, y_onehot, **extra)
         loss = out["nll"].mean()
         metrics = {"nll": loss}
         if "neg_log_q" in out:
@@ -388,21 +441,23 @@ class Glow(nn.Module):
     @contextmanager
     def _ddi_mode(self):
         actnorms = [m for m in self.flow.modules() if isinstance(m, ActNorm)]
+        group = None if self.mesh is None else self.mesh.data_group
         self._ddi = True
         for m in actnorms:
-            m.ddi = True
+            m.ddi, m.group = True, group
         try:
             yield
         finally:
             self._ddi = False
             for m in actnorms:
-                m.ddi = False
+                m.ddi, m.group = False, None
 
     @torch.no_grad()
     def ddi_init(self, x: torch.Tensor) -> "Glow":
         """Data-dependent actnorm init from one preprocessed+dequantized batch:
         one unfused encode in which every actnorm of the flow, in depth
-        order, sets its parameters from the batch statistics of its input."""
+        order, sets its parameters from the batch statistics of its input
+        (on a mesh: this rank's rows, the global batch's statistics)."""
         with self._ddi_mode():
             self.encode(x)
         return self

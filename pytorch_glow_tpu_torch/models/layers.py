@@ -20,7 +20,17 @@ f32 (`Conv2dZeros`).
 
 ActNorm's data-dependent init: while `ActNorm.ddi` is True, a forward call
 sets the module's parameters from the batch statistics of its input and then
-applies them (`Glow.ddi_init` switches it on for one encode).
+applies them (`Glow.ddi_init` switches it on for one encode).  With a data
+group (`ActNorm.group`, set by `Glow.ddi_init` on a mesh) the statistics are
+the global batch's, as the JAX reductions are under pjit: the mean
+all-reduced over the group, then the variance about that mean, so every
+replica derives the same parameters.
+
+Tensor parallelism (`CouplingNet.model_group`, set by
+`parallel/mesh.shard_model`): the coupling net's conv1 holds its slice of
+the hidden channels (column-parallel, its actnorm local) and conv2 its
+slice of their inputs (row-parallel): its partial products are summed over
+the model group in f32, then its actnorm and the zero conv run replicated.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from pytorch_glow_tpu_torch.ops import invconv as ic
 from pytorch_glow_tpu_torch.ops import invconv_fused as icf
 from pytorch_glow_tpu_torch.ops.math import gaussian_logp, gaussian_sample, true_f32
 from pytorch_glow_tpu_torch.ops.reshape import cat_channel, split_channel, squeeze2d, unsqueeze2d
+from pytorch_glow_tpu_torch.parallel import distributed as pd
 
 ACTNORM_EPS = 1e-6
 LOGSCALE_FACTOR = 3.0
@@ -60,13 +71,20 @@ class ActNorm(nn.Module):
         self.logs = nn.Parameter(torch.zeros(1, c, 1, 1))
         self.scale = scale
         self.ddi = False
+        self.group = None  # the data group DDI's statistics reduce over
 
     @torch.no_grad()
     def ddi_(self, x: torch.Tensor) -> None:
-        """bias = -mean, logs = log(scale / (std + eps)) over (B, H, W)."""
+        """bias = -mean, logs = log(scale / (std + eps)) over (B, H, W), of
+        the global batch under a data group (equal rows on every rank)."""
         x32 = x.float()
         mean = x32.mean(dim=(0, 1, 2))
-        std = torch.sqrt(torch.square(x32 - mean).mean(dim=(0, 1, 2)))
+        if self.group is not None:
+            pd.mean_(mean, self.group)
+        var = torch.square(x32 - mean).mean(dim=(0, 1, 2))
+        if self.group is not None:
+            pd.mean_(var, self.group)
+        std = torch.sqrt(var)
         self.bias.copy_((-mean).view_as(self.bias))
         self.logs.copy_(torch.log(self.scale / (std + ACTNORM_EPS)).view_as(self.logs))
 
@@ -186,15 +204,61 @@ class LinearZeros(nn.Module):
         return y * torch.exp(self.logs * LOGSCALE_FACTOR)
 
 
-def coupling_net(c_in: int, hidden: int, c_out: int,
-                 generator: torch.Generator | None = None) -> nn.Sequential:
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model group backward
+    (the input of a column-parallel layer)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return pd.all_reduce_(g.to(torch.float32, copy=True), ctx.group).to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The partial products summed over the model group (in f32) forward;
+    identity backward (the output of a row-parallel layer)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        return pd.all_reduce_(x.float(), group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+class CouplingNet(nn.Sequential):
     """The coupling net f: Conv(3x3) -> ReLU -> Conv(1x1) -> ReLU ->
-    Conv2dZeros(3x3), keys 0 / 2 / 4; it runs in its input's dtype."""
-    return nn.Sequential(
-        Conv2d(c_in, hidden, 3, generator), nn.ReLU(),
-        Conv2d(hidden, hidden, 1, generator), nn.ReLU(),
-        Conv2dZeros(hidden, c_out),
-    )
+    Conv2dZeros(3x3), keys 0 / 2 / 4; it runs in its input's dtype.  With
+    a `model_group` its conv1 and conv2 hold their shards of the hidden
+    channels (module docstring)."""
+
+    def __init__(self, c_in: int, hidden: int, c_out: int,
+                 generator: torch.Generator | None = None):
+        super().__init__(
+            Conv2d(c_in, hidden, 3, generator), nn.ReLU(),
+            Conv2d(hidden, hidden, 1, generator), nn.ReLU(),
+            Conv2dZeros(hidden, c_out),
+        )
+        self.model_group = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.model_group is None:
+            return super().forward(x)
+        conv1, conv2, conv3 = self[0], self[2], self[4]
+        h = F.relu(conv1(_CopyToModel.apply(x, self.model_group)))
+        h = _ReduceFromModel.apply(_conv_nhwc(h, conv2.weight), self.model_group)
+        h, _ = conv2.actnorm(h)
+        return conv3(F.relu(h))
+
+
+def coupling_net(c_in: int, hidden: int, c_out: int,
+                 generator: torch.Generator | None = None) -> CouplingNet:
+    return CouplingNet(c_in, hidden, c_out, generator)
 
 
 def _random_lu(c: int, generator: torch.Generator | None):

@@ -73,18 +73,25 @@ def _cross_perm(rows: torch.Tensor, affine: bool) -> torch.Tensor:
 
 
 def pack_weights(step, affine: bool, reverse: bool,
-                 coupling_dtype: torch.dtype = COUPLING_DTYPE) -> list[torch.Tensor]:
+                 coupling_dtype: torch.dtype = COUPLING_DTYPE,
+                 gather=None) -> list[torch.Tensor]:
     """One `FlowStep` module -> the 12 kernel operands, in the JAX kernel's
     order, shapes and dtypes (column vectors are (r, 1) f32).  The mix is
     the step's permutation as a (C, C) matrix, whatever its kind (LU or
-    plain 1x1 conv, or a fixed permutation's 0/1 matrix)."""
+    plain 1x1 conv, or a fixed permutation's 0/1 matrix).  `gather(t,
+    dim)`, where given, makes the full tensor of a tensor-parallel shard
+    of conv1 (sharded on its hidden dim 0, its actnorm on dim 1) and conv2
+    (on its input dim 1)."""
     conv1, conv2, conv3 = step.f[0], step.f[2], step.f[4]
-    hidden = conv1.weight.shape[0]
+    w1, b1, l1, w2 = conv1.weight, conv1.actnorm.bias, conv1.actnorm.logs, conv2.weight
+    if gather is not None:
+        w1, b1, l1, w2 = gather(w1, 0), gather(b1, 1), gather(l1, 1), gather(w2, 1)
+    hidden = w1.shape[0]
     cout = conv3.weight.shape[0]
     # (cout, hid, 3, 3) -> rows (tap, cout in [shift | raw] order), cols hid
     w3t = _cross_perm(conv3.weight, affine).permute(2, 3, 0, 1).reshape(9 * cout, hidden)
     # (hid, cin, 3, 3) -> rows hid, cols (tap, cin)
-    w1t = conv1.weight.permute(0, 2, 3, 1).reshape(hidden, -1)
+    w1t = w1.permute(0, 2, 3, 1).reshape(hidden, -1)
 
     def col(v):
         return v.reshape(-1, 1).float()
@@ -94,9 +101,9 @@ def pack_weights(step, affine: bool, reverse: bool,
         col(step.actnorm.bias),
         col(step.actnorm.logs),
         w1t.to(coupling_dtype),
-        col(conv1.actnorm.bias),
-        col(conv1.actnorm.logs),
-        conv2.weight.reshape(hidden, hidden).to(coupling_dtype),
+        col(b1),
+        col(l1),
+        w2.reshape(hidden, hidden).to(coupling_dtype),
         col(conv2.actnorm.bias),
         col(conv2.actnorm.logs),
         w3t.to(coupling_dtype),

@@ -14,6 +14,11 @@ stage is a handful of tensor ops whatever the number of parameters, and the
 branches of the optax wrappers become `torch.where` selections on the
 device: no step waits on the host.  A parameter that receives no gradient
 counts as a zero gradient, as it does under `jax.grad`.
+
+`Optimizer.global_norm` (flat gradient -> its l2 norm) serves the
+global-norm clip and the step's `grad_norm`; under tensor parallelism the
+builder sets it to `parallel/mesh.global_norm_fn`, the norm over every
+rank's shards.
 """
 
 from __future__ import annotations
@@ -74,6 +79,7 @@ class Optimizer:
         self.max_grad_norm = train_cfg.max_grad_norm or 0.0
         self.grad_accum = max(1, train_cfg.grad_accum)
         self.max_errors = train_cfg.skip_nonfinite_updates or 0
+        self.global_norm: Callable[[torch.Tensor], torch.Tensor] = torch.linalg.vector_norm
 
     def init(self, params: list[torch.Tensor]) -> State:
         n = sum(p.numel() for p in params)
@@ -96,7 +102,7 @@ class Optimizer:
         if self.max_grad_clip > 0:
             g = g.clamp(-self.max_grad_clip, self.max_grad_clip)
         if self.max_grad_norm > 0:
-            norm = torch.linalg.vector_norm(g)
+            norm = self.global_norm(g)
             g = torch.where(norm < self.max_grad_norm, g, g / norm * self.max_grad_norm)
         count_inc = st["count"] + 1
         mu = (1 - self.b1) * g + self.b1 * st["mu"]

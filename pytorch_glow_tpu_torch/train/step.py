@@ -17,6 +17,15 @@ Per-step randomness comes from a `torch.Generator` seeded from (seed, step)
 alone, so a resumed run draws the same noise; the flips use a separate
 stream, as the JAX package's `fold_in(rng, 0xF11B)` does.  The numbers
 differ from `jax.random`'s: tests hand both sides the same numpy noise.
+
+On a mesh (`parallel/mesh.py`) each rank's batch is its rows of the global
+batch.  The dequantization noise and the flips are drawn for the whole
+global batch and each rank keeps its rows, as JAX draws them once for the
+sharded global array, so N ranks compute what one rank does on the global
+batch.  The flat gradient is mean-all-reduced over the data group before
+the optimizer (the counterpart of GSPMD's gradient psum and of the fused
+backward's in-kernel psum), and the metrics are data-group means, equal
+on every rank; the eval nll likewise.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ import torch
 from pytorch_glow_tpu_torch.config import GlowConfig
 from pytorch_glow_tpu_torch.models.glow import Glow
 from pytorch_glow_tpu_torch.ops.math import true_f32
+from pytorch_glow_tpu_torch.parallel import distributed as pd
+from pytorch_glow_tpu_torch.parallel.mesh import Mesh
 from pytorch_glow_tpu_torch.train.optim import Optimizer
 
 State = dict[str, Any]
@@ -87,30 +98,53 @@ def _labels(model: Glow, y_onehot: torch.Tensor | None) -> torch.Tensor | None:
     return None if y_onehot is None else y_onehot.to(model.device)
 
 
+def global_rows(mesh: Mesh | None, local: int) -> tuple[int, int, int]:
+    """(global batch, first row, end row) of this rank's `local` rows."""
+    if mesh is None:
+        return local, 0, local
+    return local * mesh.data, mesh.data_rank * local, (mesh.data_rank + 1) * local
+
+
+def data_mean(values: dict[str, torch.Tensor], mesh: Mesh | None) -> dict[str, torch.Tensor]:
+    """Each scalar's mean over the data group (one all-reduce)."""
+    if mesh is None or not values:
+        return values
+    stacked = pd.mean_(torch.stack([v.float() for v in values.values()]), mesh.data_group)
+    return dict(zip(values, stacked.unbind()))
+
+
 def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
-                        schedule=None, augment_flip: bool = False):
+                        schedule=None, augment_flip: bool = False, mesh: Mesh | None = None):
     def train_step(state: State, batch: torch.Tensor, y_onehot: torch.Tensor | None = None):
         model: Glow = state["model"]
         _check_model(model, cfg)
         step = state["step"]
         dev = model.device
         x = _prep(model, batch)
+        n, lo, hi = global_rows(mesh, x.shape[0])
         gen = step_generator(state["seed"], step, dev)
         if augment_flip:
             flip_gen = step_generator(state["seed"], step, dev, FLIP_STREAM)
-            flip = torch.rand(x.shape[0], generator=flip_gen, device=dev) < 0.5
+            flip = (torch.rand(n, generator=flip_gen, device=dev) < 0.5)[lo:hi]
             x = torch.where(flip[:, None, None, None], x.flip(2), x)
         names_params = trainable(model)
         params = [p for _, p in names_params]
-        loss, metrics = model.loss_fn(x, gen, _labels(model, y_onehot))
+        if mesh is None:
+            loss, metrics = model.loss_fn(x, gen, _labels(model, y_onehot))
+        else:
+            noise = model.dequant_noise((n, *x.shape[1:]), gen, dev)
+            loss, metrics = model.loss_fn(x, y_onehot=_labels(model, y_onehot),
+                                          noise=None if noise is None else noise[lo:hi])
         # The backward's f32 convs run after their forward's pin has ended.
         with true_f32():
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         flat = tx.flatten(params, grads)
+        if mesh is not None:
+            pd.mean_(flat, mesh.data_group)
         updates, opt_state = tx.update(flat, state["opt_state"])
         tx.apply(params, updates)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = torch.linalg.vector_norm(flat)
+        metrics = data_mean({k: v.detach() for k, v in metrics.items()}, mesh)
+        metrics["grad_norm"] = tx.global_norm(flat)
         if schedule is not None:
             metrics["lr"] = schedule(torch.tensor(step, dtype=torch.int32, device=dev))
         new_state = {**state, "step": step + 1, "opt_state": opt_state}
@@ -126,18 +160,19 @@ def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
 
 
 def make_train_step(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0, schedule=None,
-                    augment_flip: bool = False) -> Callable:
+                    augment_flip: bool = False, mesh: Mesh | None = None) -> Callable:
     """-> (state, image batch[, y_onehot]) -> (state, metrics); metrics stay
-    on the device."""
-    return _make_train_step_fn(cfg, tx, ema_decay, schedule, augment_flip)
+    on the device.  On a `mesh` the batch is this rank's rows."""
+    return _make_train_step_fn(cfg, tx, ema_decay, schedule, augment_flip, mesh)
 
 
 def make_train_step_n(cfg: GlowConfig, tx: Optimizer, n: int, ema_decay: float = 0.0,
-                      schedule=None, augment_flip: bool = False) -> Callable:
+                      schedule=None, augment_flip: bool = False,
+                      mesh: Mesh | None = None) -> Callable:
     """n train steps per call over stacked (n, B, H, W, C) batches (and
     (n, B, y_classes) labels), with the trajectory of n single calls;
     returns the last step's metrics."""
-    one = _make_train_step_fn(cfg, tx, ema_decay, schedule, augment_flip)
+    one = _make_train_step_fn(cfg, tx, ema_decay, schedule, augment_flip, mesh)
 
     def train_step_n(state: State, batches: torch.Tensor, y_onehot: torch.Tensor | None = None):
         if batches.shape[0] != n:
@@ -150,11 +185,12 @@ def make_train_step_n(cfg: GlowConfig, tx: Optimizer, n: int, ema_decay: float =
     return train_step_n
 
 
-def make_eval_step_n(cfg: GlowConfig) -> Callable:
+def make_eval_step_n(cfg: GlowConfig, mesh: Mesh | None = None) -> Callable:
     """(model, (N, B, H, W, C) batches[, (N, B, y_classes) labels]) ->
     {"nll": the mean over the N batches of each batch's mean bits/dim},
     without dequantization noise, summed in f32 in batch order as the JAX
-    fori_loop sums."""
+    fori_loop sums; on a `mesh` the batches are this rank's rows and the
+    nll their data-group mean."""
 
     @torch.no_grad()
     def eval_step_n(model: Glow, batches: torch.Tensor, y_onehot: torch.Tensor | None = None):
@@ -163,7 +199,7 @@ def make_eval_step_n(cfg: GlowConfig) -> Callable:
         for i, batch in enumerate(batches):
             y = None if y_onehot is None else _labels(model, y_onehot[i])
             total = total + model.log_prob(_prep(model, batch), y_onehot=y)["nll"].mean()
-        return {"nll": total / batches.shape[0]}
+        return data_mean({"nll": total / batches.shape[0]}, mesh)
 
     return eval_step_n
 

@@ -51,6 +51,17 @@ best-snapshot check and write).
 and CUDA on the card) into out_dir/name/profile/.  A SIGTERM stops the loop
 at the next step boundary; the final snapshot is written and the result
 says `"preempted": True` (rerun the same command to resume).
+
+On a mesh (`Built.mesh`, several ranks): every rank runs the loop and every
+boundary, on its rows, and rank 0 alone writes metrics.csv, TensorBoard,
+the PNGs, the SWD and the profiler trace.  The SIGTERM flag is
+MAX-all-reduced at `scalar_log_gap` boundaries, the same step numbers on
+every rank, so all ranks stop at one step (a one-sided stop would leave
+the others blocked in the next collective).  The eval metrics are global:
+`eval_nll` the data-group mean, `recon_err_max_u8` its maximum.  The
+eval copy and the snapshots take gathered (full) weights.  The watchdog
+never re-execs a multi-rank run: it exits with WEDGE_EXIT_CODE, and the
+launcher owns the restart.
 """
 
 from __future__ import annotations
@@ -65,8 +76,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pytorch_glow_tpu_torch.ops import flowstep
+from pytorch_glow_tpu_torch.parallel import distributed as pd
+from pytorch_glow_tpu_torch.parallel.mesh import gather_params
 from pytorch_glow_tpu_torch.train import step as steplib
 from pytorch_glow_tpu_torch.train.builder import Built, labels_to_onehot
 from pytorch_glow_tpu_torch.utils.image import save_image_grid
@@ -91,8 +105,8 @@ class _StepWatchdog:
     lands for `timeout_s`, it writes a diagnostic to stderr and re-execs
     the process while GLOW_WEDGE_RESTART_BUDGET is above 0 (decrementing
     it; the new run resumes from the newest snapshot), else exits with
-    WEDGE_EXIT_CODE.  The port trains in one process, so the re-exec is
-    always allowed."""
+    WEDGE_EXIT_CODE.  A multi-rank run always exits: a one-sided re-exec
+    would leave its peers in a collective the new process never joins."""
 
     def __init__(self, timeout_s: float, poll_s: float | None = None, on_die=None):
         self.timeout_s = timeout_s
@@ -134,7 +148,7 @@ class _StepWatchdog:
             except Exception as e:  # the re-exec must happen all the same
                 sys.stderr.write(f"[train] watchdog cleanup failed: {type(e).__name__}: {e}\n")
         budget = int(os.environ.get(_WEDGE_BUDGET_ENV, "0") or 0)
-        if budget > 0:
+        if budget > 0 and pd.world_size() == 1:
             os.environ[_WEDGE_BUDGET_ENV] = str(budget - 1)
             sys.stderr.write(f"[train] watchdog re-exec ({budget - 1} restart(s) left): "
                              f"{sys.executable} {' '.join(sys.argv)}\n")
@@ -150,6 +164,29 @@ def _sync(device: torch.device) -> None:
 
 def _save(built: Built, state: dict, step: int) -> None:
     built.ckpt.save(step, state, built.data.get_state(), profile_to_dict(built.profile))
+
+
+def _writer(built: Built) -> bool:
+    """Whether this rank writes the run's files (rank 0, or a lone process)."""
+    return built.mesh is None or dist.get_rank() == 0
+
+
+def _serving(built: Built, sd: dict):
+    """The eval copy holding the full tensors of the (sharded) `sd`."""
+    return built.serving(gather_params(sd, built.mesh))
+
+
+def _preempt_stop(built: Built, preempt: dict, step: int, log_gap: int) -> bool:
+    """True when the loop should stop for a delivered SIGTERM; on a mesh the
+    decision is collective, taken at `log_gap` boundaries."""
+    if built.mesh is None:
+        return preempt["sig"] is not None
+    if log_gap and step % log_gap:
+        return False
+    flag = torch.tensor([int(preempt["sig"] is not None)], dtype=torch.int32,
+                        device=pd.comm_device())
+    pd.all_reduce_(flag, None, dist.ReduceOp.MAX)
+    return bool(flag.item())
 
 
 class _Profiler:
@@ -209,13 +246,14 @@ def _plot(built: Built, state: dict, step: int, images: np.ndarray, y, out_dir: 
     if t.temperature_anneal_steps:
         temp *= min(1.0, step / t.temperature_anneal_steps)
     gen = steplib.step_generator(t.seed + 2, step, built.device)
-    samples = built.sample_fn(built.serving(steplib.ema_params(state)), gen, temp,
-                              **_labels(y, t.num_sample_images))
-    save_image_grid(os.path.join(out_dir, "samples", f"step_{step:08d}.png"),
-                    samples.cpu().numpy())
-    live = built.serving(state["model"].state_dict())
+    samples = built.sample_fn(_serving(built, steplib.ema_params(state)), gen, temp,
+                              **_labels(y, t.num_sample_images)).cpu().numpy()
+    live = _serving(built, state["model"].state_dict())
     recon = built.reconstruct_fn(live, torch.from_numpy(images[: t.num_sample_images]))
-    save_image_grid(os.path.join(out_dir, "recon", f"step_{step:08d}.png"), recon.cpu().numpy())
+    recon = recon.cpu().numpy()
+    if _writer(built):
+        save_image_grid(os.path.join(out_dir, "samples", f"step_{step:08d}.png"), samples)
+        save_image_grid(os.path.join(out_dir, "recon", f"step_{step:08d}.png"), recon)
     return {}
 
 
@@ -228,9 +266,9 @@ def _eval(built: Built, state: dict, step: int) -> dict:
     stacked = torch.from_numpy(np.stack(batches)).to(built.device)
     ys = [labels_to_onehot(b, built.profile) for b in group]
     y = None if ys[0] is None else torch.stack(ys)
-    ev = {"eval_nll": float(built.eval_step_n(built.serving(steplib.ema_params(state)),
+    ev = {"eval_nll": float(built.eval_step_n(_serving(built, steplib.ema_params(state)),
                                               stacked, **_labels(y))["nll"])}
-    live = built.serving(state["model"].state_dict())
+    live = _serving(built, state["model"].state_dict())
     if "ema" in state:
         # The live weights on the same batches: every EMA run carries its
         # own control.
@@ -238,7 +276,11 @@ def _eval(built: Built, state: dict, step: int) -> dict:
     # Round-trip drift: decode(encode(x)) against x in uint8.
     xb = batches[0][: t.num_sample_images]
     rec = built.reconstruct_fn(live, torch.from_numpy(xb)).cpu().numpy()
-    ev["recon_err_max_u8"] = float(np.abs(xb.astype(np.int16) - rec.astype(np.int16)).max())
+    err = float(np.abs(xb.astype(np.int16) - rec.astype(np.int16)).max())
+    if built.mesh is not None:
+        err_t = torch.tensor([err], device=pd.comm_device())
+        err = float(pd.all_reduce_(err_t, built.mesh.data_group, dist.ReduceOp.MAX).item())
+    ev["recon_err_max_u8"] = err
     t0 = time.perf_counter()
     if math.isfinite(ev["eval_nll"]) and built.ckpt.maybe_save_best(
             step, state, ev["eval_nll"], built.data.get_state(), profile_to_dict(built.profile)):
@@ -249,10 +291,12 @@ def _eval(built: Built, state: dict, step: int) -> dict:
 
 def _swd(built: Built, state: dict, step: int, images: np.ndarray, y) -> dict:
     t = built.profile.train
-    n = min(t.swd_images, t.batch_size)
+    n = min(t.swd_images, images.shape[0])  # this rank's rows
     gen = steplib.step_generator(t.seed + 3, step, built.device)
-    fake = built.swd_sample_fn(built.serving(steplib.ema_params(state)), gen,
+    fake = built.swd_sample_fn(_serving(built, steplib.ema_params(state)), gen,
                                **_labels(y, n)).cpu().numpy()
+    if not _writer(built):
+        return {}
     t0 = time.perf_counter()
     swd = sliced_wasserstein(images[:n], fake, seed=t.seed)["swd_avg"]
     return {"swd_x1e3": swd, "swd_host_ms": 1e3 * (time.perf_counter() - t0)}
@@ -263,9 +307,10 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
     t = p.train
     num_steps = num_steps if num_steps is not None else t.num_steps
     out_dir = os.path.join(p.out_dir, p.name)
-    logger = MetricLogger(out_dir, t.batch_size, quiet=quiet)
+    writer = _writer(built)
+    logger = MetricLogger(out_dir, t.batch_size, quiet=quiet, write=writer)
     state = built.state
-    if not quiet:
+    if not quiet and writer:
         print(f"[train] {summarize(state['model'], p.glow)}", flush=True)
     step = first_step = state["step"]
     spc = t.steps_per_call
@@ -291,13 +336,14 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
         while step < num_steps:
             if watchdog is not None:
                 watchdog.beat()
-            if preempt["sig"] is not None:
+            if _preempt_stop(built, preempt, step, t.scalar_log_gap):
                 stopped_early = True
                 if not quiet:
                     print(f"[train] SIGTERM: stopping at step {step} (snapshot will be written)",
                           flush=True)
                 break
-            if t.profile_step and step == t.profile_step and not profiler.active:
+            if (t.profile_step and step == t.profile_step and not profiler.active
+                    and writer):
                 profiler.start(step)
             group = [next(built.data) for _ in range(spc)]
             images = [b["image"] for b in group]

@@ -29,6 +29,16 @@ that is not on disk, `restore_best` loads the newest best file there and
 prints a warning.  The port saves synchronously, so the JAX package's
 bookkeeping of asynchronous best saves (`_best_pending`, commit threads)
 has no counterpart here.
+
+On a mesh (`CheckpointManager(..., mesh)`), every rank takes part in a
+save and rank 0 alone writes: the tensors are gathered first
+(`parallel/mesh.gather_params`, the optimizer's flat moments by
+`gather_flat`), so a snapshot is mesh-independent and restores onto any
+mesh, one rank included, as orbax restores onto another sharding.  Each
+rank's stream position goes in as "data_states" (by global rank; the
+counterpart of the JAX sidecars `step_*.p{i}.json`).  The best-save
+decision is rank 0's, broadcast to all; every write, and each prune, is
+followed by a barrier, so no rank restores or prunes a half-written file.
 """
 
 from __future__ import annotations
@@ -40,6 +50,10 @@ import tempfile
 from typing import Any
 
 import torch
+import torch.distributed as dist
+
+from pytorch_glow_tpu_torch.parallel import distributed as pd
+from pytorch_glow_tpu_torch.parallel import mesh as meshlib
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -69,10 +83,19 @@ def _load(path: str, device: torch.device | str) -> dict:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh: meshlib.Mesh | None = None):
         self.directory = os.path.abspath(directory)
         self.best_directory = self.directory + "-best"
         self._keep = max(1, keep)
+        self.mesh = mesh
+
+    @property
+    def _writer(self) -> bool:
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            dist.barrier()
 
     def steps(self) -> list[int]:
         """Steps with a snapshot on disk, ascending."""
@@ -85,25 +108,47 @@ class CheckpointManager:
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
 
-    def _write(self, directory: str, step: int, state: dict, data_state: dict | None,
-               profile: dict) -> None:
+    def _snapshot(self, step: int, state: dict, data_state: dict | None,
+                  profile: dict) -> dict[str, Any]:
+        """The snapshot dict of `state`, its tensors gathered (collective)."""
+        mesh = self.mesh
+        model = state["model"]
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        ema = state.get("ema")
+        if ema is not None:
+            ema = list(meshlib.gather_params(dict(zip([n for n, _ in named], ema)), mesh).values())
+        opt_state = {k: (meshlib.gather_flat(v, named, mesh) if v.dim() == 1 else v)
+                     for k, v in state["opt_state"].items()}
         snapshot: dict[str, Any] = {
             "step": int(step),
             "seed": int(state["seed"]),
-            "model": state["model"].state_dict(),
-            "opt_state": state["opt_state"],
-            "ema": state.get("ema"),
+            "model": meshlib.gather_params(model.state_dict(), mesh),
+            "opt_state": opt_state,
+            "ema": ema,
             "data_state": data_state,
             "profile": profile,
         }
-        os.makedirs(directory, exist_ok=True)
-        _write_atomic(os.path.join(directory, f"{step}.pt"), lambda f: torch.save(snapshot, f))
+        if mesh is not None:
+            states = [None] * dist.get_world_size()
+            dist.all_gather_object(states, data_state)
+            snapshot["data_states"] = states
+        return snapshot
+
+    def _write(self, directory: str, step: int, state: dict, data_state: dict | None,
+               profile: dict) -> None:
+        snapshot = self._snapshot(step, state, data_state, profile)
+        if self._writer:
+            os.makedirs(directory, exist_ok=True)
+            _write_atomic(os.path.join(directory, f"{step}.pt"),
+                          lambda f: torch.save(snapshot, f))
 
     def save(self, step: int, state: dict, data_state: dict | None, profile: dict) -> str:
         """Write the snapshot of `state` at `step`; keep the newest `keep`."""
         self._write(self.directory, step, state, data_state, profile)
-        for old in self.steps()[:-self._keep]:
-            os.remove(self.path(old))
+        if self._writer:
+            for old in self.steps()[:-self._keep]:
+                os.remove(self.path(old))
+        self._barrier()
         return self.path(step)
 
     def restore(self, device: torch.device | str) -> dict | None:
@@ -131,14 +176,21 @@ class CheckpointManager:
         """Save `state` as the best snapshot iff `metric` (lower is better,
         e.g. eval bits/dim) improves on the stored best; True when it did."""
         prev = self.best_info()
-        if prev is not None and not float(metric) < float(prev["metric"]):
+        should = prev is None or float(metric) < float(prev["metric"])
+        if self.mesh is not None:
+            # Rank 0's decision: the ranks must enter the gather together.
+            flag = torch.tensor([int(should)], dtype=torch.int32, device=pd.comm_device())
+            should = bool(pd.broadcast_(flag, 0).item())
+        if not should:
             return False
         self._write(self.best_directory, step, state, data_state, profile)
-        info = json.dumps({"step": int(step), "metric": float(metric)}).encode()
-        _write_atomic(self._best_json(), lambda f: f.write(info))
-        for old in _steps(self.best_directory):
-            if old != step:
-                os.remove(os.path.join(self.best_directory, f"{old}.pt"))
+        if self._writer:
+            info = json.dumps({"step": int(step), "metric": float(metric)}).encode()
+            _write_atomic(self._best_json(), lambda f: f.write(info))
+            for old in _steps(self.best_directory):
+                if old != step:
+                    os.remove(os.path.join(self.best_directory, f"{old}.pt"))
+        self._barrier()
         return True
 
     def restore_best(self, device: torch.device | str) -> dict | None:

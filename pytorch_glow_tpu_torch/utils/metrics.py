@@ -105,13 +105,20 @@ class Throughput:
 
 
 class MetricLogger:
-    def __init__(self, out_dir: str, batch_size: int, quiet: bool = False):
-        self.csv = CsvWriter(os.path.join(out_dir, "metrics.csv"))
-        self.tb = TBWriter(os.path.join(out_dir, "tb"))
+    """CSV, TensorBoard and stdout scalars.  With `write=False` (a
+    multi-rank run's other ranks) it writes and prints nothing; its
+    throughput meter still runs."""
+
+    def __init__(self, out_dir: str, batch_size: int, quiet: bool = False, write: bool = True):
+        self.write = write
+        self.csv = CsvWriter(os.path.join(out_dir, "metrics.csv")) if write else None
+        self.tb = TBWriter(os.path.join(out_dir, "tb")) if write else None
         self.throughput = Throughput(batch_size)
-        self.quiet = quiet
+        self.quiet = quiet or not write
 
     def scalars(self, step: int, values: dict[str, Any]) -> None:
+        if not self.write:
+            return
         vals = {k: float(v) for k, v in values.items()}
         self.csv.scalars(step, vals)
         self.tb.scalars(step, vals)
@@ -120,7 +127,9 @@ class MetricLogger:
             print(f"[step {step}] {msg}", flush=True)
 
     def image(self, step: int, tag: str, image: np.ndarray) -> None:
-        self.tb.image(step, tag, image)
+        if self.write:
+            self.tb.image(step, tag, image)
 
     def close(self) -> None:
-        self.tb.close()
+        if self.write:
+            self.tb.close()
