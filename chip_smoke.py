@@ -62,7 +62,10 @@
    and above 0; best.json at the lowest eval_nll, `build(restore="best")`
    giving it again (rtol 1e-6), `cli.infer nll --best` with no fallback;
    the profiler's trace and its kernel events.
-19. Runs after 18: the data layer.  Every `build` above reads its batches
+19. Runs beside 18 and 20 in a process of its own (`--beside`, which
+   then runs 22; its output is printed after 21, and the times of 18-22
+   are taken while the two processes share the card and the host): the
+   data layer.  Every `build` above reads its batches
    through `data/pipeline.make_dataset` and the prefetcher.  (a) Writes a
    full-size CIFAR-10 python-pickle set (data_batch_1..5 of 10000 and
    test_batch of 10000, textured images from seed 0) and trains the
@@ -76,7 +79,7 @@
    (b) 50 batches of the files through the prefetcher to the card, the
    consumer's stream sleeping (`torch.cuda._sleep`) and writing a fresh
    allocation between them: each device batch, read before and after the
-   sleep, byte-equal to its host batch.  (c) A CelebA folder of 1500
+   sleep, byte-equal to its host batch.  (c) A CelebA folder of 800
    178x218 PNGs (`utils/image.encode_png`), `list_attr_celeba.txt` and
    `list_eval_partition.txt`: the first celeba64 train batch within 1 of
    the numpy crop-and-bilinear plain version of the decoder in use (the
@@ -89,10 +92,10 @@
    on the prefetcher's thread and in 4 worker processes, and the device's
    idle share over trainer steps 10-15 (the trainer's torch.profiler
    trace, in a run of its own).
-20. Runs after 19: the conditional model, the imagenet64-cond preset
+20. Runs after 18 (19 beside them): the conditional model, the imagenet64-cond preset
    (K=48, L=4, hidden 512, 1000 classes, b=128, fused, remat) at full
    width.  (a) Writes an ImageNet-64 npz set from seed 0 (two train shards
-   and val_data of 10000 textured images each, 'data' (N, 12288) CHW
+   and val_data of 4000 textured images each, 'data' (N, 12288) CHW
    uint8, 1-based 'labels' over all 1000 classes).  (b) Trains the
    unmodified preset from it through the train CLI in-process, 10 steps
    with a plot and an eval at 5 and 10 and an SWD of 64 at 10: the run's
@@ -112,7 +115,7 @@
    (ms, images/s, peak memory), nll, sample and nll_bound (k=4) images/s.
 21. Runs after 20: serving artifacts (`serve.py`), the attribute workflow
    and lineage snapshots.  (a) celeba64 at full width (hidden 512, L=4,
-   bf16, fused) with its export depth cut to K=2 (SERVE_EXPORT_K),
+   bf16, fused) with its export depth cut to K=1 (SERVE_EXPORT_K),
    DDI'd and with perturbed zero-convs, exported at b=64 as a kernel
    artifact (all six functions, the K1/K2 chains as `torch.library` ops)
    and a portable one (nll, sample), saved, loaded and served: the kernel
@@ -129,9 +132,11 @@
    phase 19's CelebA folder and celeba64 snapshot, each request's K1/K2
    launches counted, report.json's keys checked.  (d) A lineage .pth of
    the model imported by `scripts.torch_migrate` and scored bitwise as
-   the live model, and by `cli.infer nll`.  (e) A full-depth (K=32)
-   kernel artifact of nll: export, save, load and first-call seconds.
-22. Runs after 21: multi-device training of celeba64 at full width
+   the live model, and by `cli.infer nll`.  (e) An SPMD kernel artifact
+   of the same model (sample, encode, nll) with a data axis of 2, and the
+   one-device kernel artifact's outputs, for 23.
+22. Runs after 19 in 19's process, beside 20 and 21: multi-device
+   training of celeba64 at full width
    (K=32, L=4, hidden 512, b=128 global, fused), every run through
    `cli.train.main` (steps_per_call 1 and a scalar log every step, so each
    step's loss and grad_norm reach metrics.csv; an eval of one batch at
@@ -154,6 +159,36 @@
    breaks in grad_norm.  Each rank counts its own launches: K*L K1 and
    K3 per step, and the eval's K1 / K2 (K2 on every rank).  The measured
    distances and each run's step ms and images/s are printed.
+23. Runs after 22: spatial sharding of celebahq256 (256x256, K=32, L=6,
+   hidden 512, additive, 5-bit, bf16 coupling, fused, remat) at full width
+   and depth, image rows over a model group of 2.  (a) K4 and K5 in slab
+   form at level 0 (b=64, each rank's 64 of 128 rows with 2 rows of the
+   other's around them, 128 wide, C=12): each slab's K4 forward and
+   reverse against its plain slab version (the bounds of 3), the slabs'
+   rows concatenated bitwise equal to the unsharded band chain's in both
+   directions and their logdets' sum within 1e-6 relative of its logdet;
+   K5 on each slab, a second launch bitwise equal, the slabs' g_z with
+   their halo rows added on the neighbour and their weight grads summed
+   against `step_backward_ref` at the bounds of 6; each timed beside its
+   plain slab version, the library yardstick on the padded slab and the
+   bound of the slab's own rows.  (b) `cli.train` not distributed,
+   `--steps 0` (DDI, a step-0 snapshot) then SPATIAL_STEPS steps; the
+   same steps from that snapshot under `torch.distributed.run
+   --nproc_per_node 2` on gloo as (data=1, model=2) with the preset's
+   `shard_spatial`: at every step (step 2 after the update) the loss
+   within 1e-5 relative and grad_norm within 1e-4 of the unsharded run's,
+   phase 22's step-1 bounds, K*L slab-form K4 and K5 launches a step on
+   each rank, no whole-chain or unsharded band launch; each arm's
+   step ms.  (c) On the same two ranks, from the step-0 snapshot: the
+   sharded encode's z and split halves bitwise equal to the unsharded
+   chain's (the parent's, K4 bands at level 0 and K1 below), its logdet
+   within 1e-6 relative, decode(encode(x)) bitwise equal to the unsharded
+   one (whose f32 round trip through 192 steps misses x by about 2e-4,
+   held within 1e-3, a thirtieth of a 5-bit bin).  (d) The ranks serve 21's SPMD kernel
+   artifact (data axis of 2, 32 rows a rank, outputs all-gathered): the
+   sample and encode bitwise equal to the one-device kernel artifact's,
+   nll within 1e-5 relative; K*L K1 launches a rank for nll and encode,
+   K*L K2 for the sample.
 
 8. Holds K1/K2 at celebahq256's levels 1-5 and K3 at its levels 2-5, the
    shapes they run at on its path (b=64, additive, the preset's coupling),
@@ -260,15 +295,18 @@ the device's idle share, for one fused and one unfused train step of
 celeba64 and celebahq256, and one cifar10 unfused step with and without
 the K6 kernels.
 
-Prints a JSON line of per-kernel results (each kernel's launches from the
-main-path run that drives it: K1/K2/K3 from 18, K4 from 10, K5 from 11,
-K6a/K6b from 13, S1-S3 from 16c), the card line, and last
+Prints each phase's seconds, and a JSON line of per-kernel results (each
+kernel's launches from the main-path run that drives it: K1/K2/K3 from
+18, K4 from 10, K5 from 11, K4 and K5 in slab form from 23 (rank 0's
+train run, and its encode and decode), K6a/K6b from 13, S1-S3 from 16c),
+the card line, and last
 `{"ok": true, "device": {...}}`.  Exits non-zero, with no result line,
 without a CUDA device or when any check fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import json
@@ -318,15 +356,19 @@ CIFAR_BATCH = 256
 PREEMPT_AFTER_S = 1.0
 # Phase 19: the CelebA folder's images and test split, the timed cifar10
 # runs' steps and the worker loader's processes.
-CELEBA_IMAGES, CELEBA_TEST = 1500, 160
-TIMED_STEPS = 30
+CELEBA_IMAGES, CELEBA_TEST = 800, 160
+TIMED_STEPS = 20
 DATA_WORKERS = 4
 # Phase 20: images in each ImageNet-64 npz shard (the real widths, the count cut).
-IMAGENET_PER_FILE = 10000
+IMAGENET_PER_FILE = 4000
 # Phase 21: the depth the serving artifacts are exported at (celeba64's K=32 cut).
-SERVE_EXPORT_K = 2
+SERVE_EXPORT_K = 1
 # Phase 22: the steps of the data-parallel and the tensor-parallel runs.
 MULTI_STEPS, TP_STEPS = 5, 3
+# Phase 23: the model group that shards celebahq256's rows, the train steps
+# of each arm, the SPMD artifact's data axis and functions (exported in 21).
+SPATIAL_MODEL, SPATIAL_STEPS = 2, 2
+SPMD_DATA, SPMD_FUNCTIONS, SPMD_SEED = 2, ("sample", "encode", "nll"), SEED + 23
 
 
 def require(ok: bool, what: str) -> None:
@@ -2769,6 +2811,26 @@ def max_rel(a, b) -> float:
     return float(((a - b).abs() / b.abs()).max())
 
 
+def export_spmd(torch, serve, model, cfg, images, km, out: str) -> None:
+    """Phase 21 (e): `model` exported to `out` as an SPMD kernel artifact of
+    SPMD_FUNCTIONS at b=BATCH with a data axis of SPMD_DATA, and the
+    one-device kernel artifact `km`'s outputs on `images` (and its sample
+    of seed SPMD_SEED) beside it, for phase 23's ranks."""
+    t0 = time.perf_counter()
+    man = serve.export_artifact(model, cfg, out, BATCH, SPMD_FUNCTIONS, keep_kernels=True,
+                                mesh={"data": SPMD_DATA})
+    require(man["mesh"] == {"shape": [SPMD_DATA], "axis_names": ["data"]}
+            and all(m["arg_specs"] for m in man["functions"].values()), f"SPMD manifest {man}")
+    torch.save({"images": images.cpu(), "nll": km.nll(images).cpu(),
+                "encode": km.encode(images).cpu(),
+                "sample": km.sample(seed=SPMD_SEED, temperature=0.7).cpu()},
+               os.path.join(out, "one_device.pt"))
+    print(f"SPMD kernel artifact (data={SPMD_DATA}, functions {list(SPMD_FUNCTIONS)}, b={BATCH}, "
+          f"{BATCH // SPMD_DATA} rows a rank): export + save {time.perf_counter() - t0:.2f} s, "
+          f"{sum(m['bytes'] for m in man['functions'].values())} bytes; the one-device "
+          f"artifact's outputs kept for phase 23")
+
+
 def check_serving_artifacts(torch, fs, icf, card: str, out_root: str, data_root: str) -> None:
     """Phase 21: the serving artifact, the attribute workflow and lineage
     snapshots.  (a) celeba64 at full width (hidden 512, L=4, bf16, fused),
@@ -2790,9 +2852,10 @@ def check_serving_artifacts(torch, fs, icf, card: str, out_root: str, data_root:
     snapshot, each with its K1/K2 launches, report.json's keys checked.
     (d) The live model's weights written as a lineage .pth, imported by
     `scripts.torch_migrate` and scored (`Inferer.nll` bitwise equal to the
-    live one, and `cli.infer nll`).  (e) A full-depth (K=32) kernel
-    artifact of nll: export, save, load and first-call seconds, K*L
-    launches."""
+    live one, and `cli.infer nll`).  (e) The same model exported as an
+    SPMD kernel artifact (sample, encode, nll; a data axis of 2, 32 rows a
+    rank), with the one-device kernel artifact's outputs on phase 23's
+    inputs, for phase 23's two ranks to serve."""
     import numpy as np
 
     from pytorch_glow_tpu_torch import serve
@@ -2848,6 +2911,9 @@ def check_serving_artifacts(torch, fs, icf, card: str, out_root: str, data_root:
         require(man["device"] == "cuda" and man["keep_kernels"] == keep, f"manifest {name}")
         served[name] = sm
     km, pm = served["kernels"], served["portable"]
+
+    # -- (e) an SPMD kernel artifact for phase 23's ranks ------------------------------
+    export_spmd(torch, serve, model, cfg, images, km, os.path.join(out_root, "spmd"))
     cuda_seed = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa: E731
 
     s, launched = served_launches(torch, fs, lambda: km.sample(seed=7, temperature=0.7))
@@ -3003,26 +3069,6 @@ def check_serving_artifacts(torch, fs, icf, card: str, out_root: str, data_root:
     print("lineage .pth imported (step 3 kept): nll bitwise equal to the live model's")
     del imported, model, live
 
-    # -- (e) full depth: one kernel artifact of nll ----------------------------------
-    fmodel = ddi_model(full)
-    t0 = time.perf_counter()
-    man = serve.export_artifact(fmodel, full, os.path.join(out_root, "full"), BATCH, ("nll",),
-                                keep_kernels=True)
-    t1 = time.perf_counter()
-    sm = serve.load_artifact(os.path.join(out_root, "full"))
-    sm.fn("nll")
-    t2 = time.perf_counter()
-    fn_nll, launched = served_launches(torch, fs, lambda: sm.nll(images))
-    t3 = time.perf_counter()
-    meta = man["functions"]["nll"]
-    require(launched == {"forward": klf}, f"full-depth nll launches {launched}")
-    require(max_rel(fn_nll, Inferer(fmodel).nll(images)) <= 1e-6, "full-depth served nll")
-    print(f"full depth (K={full.K}) kernel artifact of nll, b={BATCH}: export "
-          f"{meta['seconds']['export']:.2f} s, save {meta['seconds']['save']:.2f} s, load "
-          f"{t2 - t1:.2f} s, first call {t3 - t2:.2f} s, {meta['bytes']} bytes, "
-          f"{klf} K1 launches")
-    del fmodel, sm
-    torch.cuda.empty_cache()
     print(f"phase 21 (serving artifacts, attributes, lineage): {time.perf_counter() - t_phase:.2f} s")
 
 
@@ -3031,34 +3077,46 @@ def check_serving_artifacts(torch, fs, icf, card: str, out_root: str, data_root:
 # ---------------------------------------------------------------------------
 
 
+# The process groups of the rank launches under way, which a SIGTERM to
+# the side process kills (`phases_beside`).
+_LAUNCHED: set[int] = set()
+
+
 def launch_ranks(nproc: int, backend: str, out: str, runs: list[list[str]], threads: int,
-                 timeout: float = 600.0) -> list[list[dict]]:
+                 timeout: float = 600.0, mode: str = "--rank-cli", extra: list[str] = (),
+                 outputs: bool = True) -> list[list[dict]]:
     """`torch.distributed.run --standalone --nproc_per_node nproc` of this
     script's `--rank-cli` mode over `runs` -> per run, each rank's counts
-    and result.  Each rank gets this process's `threads` host threads
-    (OMP_NUM_THREADS; the launcher would set 1), so the host math of the
-    model's init (the LU factors of random rotations) gives the same bits.
-    Its output goes to OUT.log, whose end is printed on a failure; the
-    whole process group is killed on a timeout."""
+    and result (or of `mode` with `extra` arguments, whose outputs the
+    caller reads: `outputs` False).  Each rank gets this process's
+    `threads` host threads (OMP_NUM_THREADS; the launcher would set 1), so
+    the host math of the model's init (the LU factors of random rotations)
+    gives the same bits.  Its output goes to OUT.log, whose end is printed
+    on a failure; the whole process group is killed on a timeout."""
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc_per_node", str(nproc), os.path.join(HERE, "chip_smoke.py"), "--rank-cli",
-            backend, out]
+            "--nproc_per_node", str(nproc), os.path.join(HERE, "chip_smoke.py"), mode,
+            backend, out, *extra]
     for i, run in enumerate(runs):
         argv += (["--next"] if i else []) + run
     with open(out + ".log", "w") as log:
         proc = subprocess.Popen(argv, cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
                                 start_new_session=True,
                                 env={**os.environ, "OMP_NUM_THREADS": str(threads)})
+        _LAUNCHED.add(proc.pid)
         try:
             rc = proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
             rc = "timeout"
+        finally:
+            _LAUNCHED.discard(proc.pid)
     if rc != 0:
         with open(out + ".log") as f:
             print(f.read()[-6000:])
         require(False, f"{nproc}-rank {backend} launch exited {rc}")
+    if not outputs:
+        return []
     outs = []
     for i in range(len(runs)):
         per_rank = []
@@ -3202,6 +3260,314 @@ def check_multi_device(torch, fs, card: str, out_root: str) -> None:
     print(f"phase 22 (multi-device training): {time.perf_counter() - t_phase:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: spatial sharding and SPMD serving
+# ---------------------------------------------------------------------------
+
+
+def padded_slabs(torch, fs, z, n: int):
+    """The n row slabs of z, each with fs.HALO rows of its neighbours around
+    it (zeros beyond the image), and their Slabs."""
+    h, k = z.shape[1], fs.HALO
+    s = h // n
+    zp = torch.nn.functional.pad(z, (0, 0, 0, 0, k, k))
+    return [(zp[:, m * s:m * s + s + 2 * k].contiguous(), fs.Slab(m * s, h)) for m in range(n)]
+
+
+def check_slab(torch, fs, results: dict) -> None:
+    """Phase 23 (a) (module docstring): K4 / K5 in slab form at celebahq256
+    level 0 under a model group of SPATIAL_MODEL, additive, b=64."""
+    b, (h, w, c), n = BATCH, HQ_BAND_SHAPES[0], SPATIAL_MODEL
+    gen = torch.Generator().manual_seed(SEED + 40)
+    step = noisy_step(c, "additive", gen, torch)
+    z, gzn = (torch.randn(b, h, w, c, generator=gen).cuda() for _ in range(2))
+    gld = torch.randn(b, generator=gen).cuda()
+    s = h // n
+    tag = f"{b}x{s}(+{2 * fs.HALO})x{w}x{c} additive slabs of {h} rows (R={fs.band_rows(s, w)})"
+    slabs = padded_slabs(torch, fs, z, n)
+    with torch.no_grad():
+        wf = fs.pack_weights(step, False, reverse=False)
+        wr = fs.pack_weights(step, False, reverse=True)
+        zb, ldb = fs._launch_band(wf, z, False, False)
+        xb = fs._launch_band(wr, zb, False, True)[0]
+        outs = [fs._launch_band(wf, zp, False, False, slab) for zp, slab in slabs]
+        backs = [fs._launch_band(wr, zp, False, True, slab)[0]
+                 for zp, slab in padded_slabs(torch, fs, zb, n)]
+        for (zp, slab), (zk, _), (zq, sq), xk in zip(slabs, outs, padded_slabs(torch, fs, zb, n),
+                                                      backs):
+            hold_outputs(torch, tag, "slab_forward", zk,
+                         fs.step_forward_band_ref(wf, zp, False, slab=slab)[0], results)
+            hold_outputs(torch, tag, "slab_reverse", xk,
+                         fs.step_reverse_band_ref(wr, zq, False, slab=sq), results)
+    torch.cuda.synchronize()
+    require(torch.equal(torch.cat([o for o, _ in outs], dim=1), zb)
+            and torch.equal(torch.cat(backs, dim=1), xb),
+            f"{tag}: the slabs' rows differ from the unsharded band chain's")
+    # Relative to the largest |logdet| (additive coupling's is exactly 0).
+    ld_rel = float((sum(ld for _, ld in outs) - ldb).abs().max()) / max(float(ldb.abs().max()),
+                                                                        1e-30)
+    require(ld_rel <= 1e-6, f"{tag}: the slabs' logdet sum rel {ld_rel}")
+    rt_err = float((xb - z).abs().max())
+    require(rt_err <= 2e-5, f"{tag}: round-trip {rt_err}")
+    print(f"slab kernel {tag}: K4 forward and reverse on each slab within the bounds of 3 of "
+          f"their plain slab versions, the slabs' rows bitwise the unsharded band chain's, "
+          f"logdet sum rel {ld_rel:.3e}, round-trip {rt_err:.3e}")
+    del zb, xb, backs
+    k = fs.HALO
+    with torch.no_grad():
+        runs = []
+        for _ in range(2):
+            g_pad = torch.zeros(b, h + 2 * k, w, c, device=z.device)
+            grads = None
+            for m, (zp, slab) in enumerate(slabs):
+                g, part = fs._launch_band_backward(wf, zp, gzn[:, m * s:(m + 1) * s], gld, False,
+                                                   slab)
+                g_pad[:, m * s:m * s + s + 2 * k] += g
+                grads = part if grads is None else [a + p_ for a, p_ in zip(grads, part)]
+            runs.append((g_pad, grads))
+        rz, rgrads = fs.step_backward_ref(wf, z, gzn, gld, False)
+    torch.cuda.synchronize()
+    (g_pad, grads), (g2, grads2) = runs
+    require(torch.equal(g_pad, g2) and all(torch.equal(a, a2) for a, a2 in zip(grads, grads2)),
+            f"{tag} slab_backward: a second launch differs")
+    require(not g_pad[:, :k].any() and not g_pad[:, -k:].any(),
+            f"{tag} slab_backward: a cotangent beyond the image")
+    err, scale = hold_gz(torch, tag, "slab_backward", g_pad[:, k:-k], rz, results)
+    rel = []
+    for i, (g, r) in enumerate(zip(grads, rgrads)):
+        gmax = float((g - r).abs().max())
+        require(bool(torch.isfinite(g).all()) and gmax <= 5e-2 * float(r.abs().max()),
+                f"{tag} slab_backward: weight grad {i} max |diff| {gmax}")
+        rel.append(gmax / max(float(r.abs().max()), 1e-30))
+    print(f"slab_backward {tag}: the slabs' g_z (halo rows added on the neighbour) against "
+          f"step_backward_ref max {float(err.max()):.3e} mean {float(err.mean()):.3e} scale "
+          f"{scale:.3f}; summed weight grads max rel {max(rel):.2e}; a second launch bitwise")
+    del runs, g_pad, g2, grads, grads2, rz, rgrads
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        return median_ms(fn, torch, reps=3, inner=2)
+
+    zp, slab = slabs[0]
+    g0 = gzn[:, :s].contiguous()
+    zeros = torch.zeros(b, device=z.device)
+    with torch.no_grad():
+        zk = outs[0][0]
+        zq, sq = padded_slabs(torch, fs, torch.cat([o for o, _ in outs], dim=1), n)[0]
+        times = {
+            "slab_forward": (timed(lambda: fs._launch_band(wf, zp, False, False, slab)),
+                             timed(lambda: fs.step_forward_band_ref(wf, zp, False, slab=slab)),
+                             timed(lambda: step(zp, zeros))),
+            "slab_reverse": (timed(lambda: fs._launch_band(wr, zq, False, True, sq)),
+                             timed(lambda: fs.step_reverse_band_ref(wr, zq, False, slab=sq)),
+                             timed(lambda: step.reverse(zq))),
+            "slab_backward": (
+                timed(lambda: fs._launch_band_backward(wf, zp, g0, gld, False, slab)),
+                timed(lambda: fs.step_backward_band_ref(wf, zp, g0, gld, False, slab=slab))),
+        }
+    times["slab_backward"] += (timed(library_backward(
+        torch, step, zp, gzn[:, :zp.shape[1]].contiguous(), gld)),)
+    del zk
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        bound, by = fs.bound_ms(name.removeprefix("slab_"), b, s, w, c, 512, False)
+        print(f"time step {name} {tag}, one slab: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library (unfused FlowStep on the padded slab) {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by})")
+        results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                             bound_by=by)
+    del step, z, gzn, slabs, outs
+    torch.cuda.empty_cache()
+
+
+def check_spatial(torch, fs, card: str, out_root: str, spmd: str) -> dict:
+    """Phase 23 (module docstring); returns rank 0's slab-form launches."""
+    from pytorch_glow_tpu_torch.cli import train as train_cli
+    from pytorch_glow_tpu_torch.config import PRESETS
+    from pytorch_glow_tpu_torch.models.glow import init_glow
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = PRESETS["celebahq256"].glow
+    b, kl = BATCH, cfg.K * cfg.L
+    common = ["celebahq256", "--synthetic", "textured", "--quiet", "--set",
+              "train.scalar_log_gap=1", "--set", "train.plot_gap=0", "--set", "train.eval_gap=0",
+              "--set", "train.swd_gap=0", "--set", "train.checkpoint_gap=1000"]
+
+    def run_dir(tag: str) -> str:
+        return os.path.join(out_root, tag, "celebahq256")
+
+    def argv(tag: str, steps: int, *extra: str) -> list[str]:
+        return [*common, "--out-dir", os.path.join(out_root, tag), "--steps", str(steps), *extra]
+
+    def step_ms(tag: str) -> str:
+        rates = [float(r["images_per_sec"]) for r in step_rows(run_dir(tag))[1:]]
+        med = statistics.median(rates)
+        return f"step {1e3 * b / med:.3f} ms ({med:.3f} images/s) over steps 2-{len(rates) + 1}"
+
+    # -- (b) the unsharded arm, in-process ---------------------------------------
+    t0 = time.perf_counter()
+    run_cli(train_cli.main, argv("u", 0))
+    snap = os.path.join(run_dir("u"), "checkpoints", "0.pt")
+    fs.reset_launches()
+    run_cli(train_cli.main, argv("u", SPATIAL_STEPS))
+    unsharded = dict(fs.launches)
+    ref = step_rows(run_dir("u"))
+    print(f"(u) cli.train celebahq256 b={b}, not distributed: {time.perf_counter() - t0:.2f} s, "
+          f"{step_ms('u')}; launches {unsharded}")
+
+    # -- (c)'s reference: the unsharded encode and decode of one batch ------------
+    model = init_glow(cfg, torch.Generator().manual_seed(SEED), "cuda")
+    model.load_state_dict(torch.load(snap, map_location="cuda", weights_only=False)["model"])
+    rng = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    images = torch.randint(0, 256, (b, *cfg.image_shape), generator=rng, device="cuda",
+                           dtype=torch.uint8)
+    with torch.no_grad():
+        x = model.preprocess(images)
+        z, ld, zs = model.encode(x)
+        rec = model.decode(z, z_splits=zs)
+    coding = os.path.join(out_root, "coding.pt")
+    torch.save({"x": x, "z": z, "ld": ld, "zs": zs, "rec": rec}, coding)
+    del model, x, z, ld, zs, rec
+    torch.cuda.empty_cache()
+
+    # -- (b) sharded, (c), (d) on two gloo ranks -------------------------------------
+    ckpts = os.path.join(run_dir("s"), "checkpoints")
+    os.makedirs(ckpts)
+    shutil.copy(snap, ckpts)
+    spec = os.path.join(out_root, "spatial.json")
+    with open(spec, "w") as f:
+        json.dump({"train": argv("s", SPATIAL_STEPS, "--dist-backend", "gloo", "--set",
+                                 f"mesh.model={SPATIAL_MODEL}"),
+                   "snapshot": snap, "coding": coding, "spmd": spmd}, f)
+    t0 = time.perf_counter()
+    out = os.path.join(out_root, "spatial")
+    launch_ranks(SPATIAL_MODEL, "gloo", out, [], torch.get_num_threads(), mode="--rank-spatial",
+                 extra=[spec], outputs=False)
+    ranks = []
+    for r in range(SPATIAL_MODEL):
+        with open(f"{out}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    wall = time.perf_counter() - t0
+    rows = step_rows(run_dir("s"))
+    require(len(rows) == len(ref) == SPATIAL_STEPS, f"sharded rows {rows}, unsharded {ref}")
+    dist_txt = []
+    for i, (r, q) in enumerate(zip(rows, ref)):
+        rl = rel_diff(float(r["loss"]), float(q["loss"]))
+        rg = rel_diff(float(r["grad_norm"]), float(q["grad_norm"]))
+        require(rl <= 1e-5 and rg <= 1e-4,
+                f"sharded step {i + 1}: loss rel {rl:.3e}, grad_norm rel {rg:.3e}")
+        dist_txt.append(f"step {i + 1} loss rel {rl:.3e} grad_norm rel {rg:.3e}")
+    want = counts(fs, slab_forward=SPATIAL_STEPS * kl, slab_backward=SPATIAL_STEPS * kl)
+    coding_want = counts(fs, slab_forward=kl, slab_reverse=kl)
+    skl = SERVE_EXPORT_K * PRESETS["celeba64"].glow.L  # the SPMD artifact's K*L
+    serve_want = {"forward": 2 * skl, "reverse": skl}  # nll and encode; the sample
+    for r, o in enumerate(ranks):
+        require(o["train_launches"] == want and o["result"]["final_step"] == SPATIAL_STEPS,
+                f"rank {r}: train launches {o['train_launches']}, want {want}")
+        require(o["coding_launches"] == coding_want,
+                f"rank {r}: encode/decode launches {o['coding_launches']}, want {coding_want}")
+        require(o["z_equal"] and o["splits_equal"] and o["ld_rel"] <= 1e-6,
+                f"rank {r}: sharded encode {o}")
+        require(o["rec_equal"] and o["rec_err"] <= 1e-3, f"rank {r}: sharded decode {o}")
+        sv = o["serve"]
+        require(sv["sample_equal"] and sv["encode_equal"] and sv["nll_rel"] <= 1e-5
+                and sv["launches"] == serve_want, f"rank {r}: SPMD serving {sv}")
+    o = ranks[0]
+    print(f"(s) 2 gloo ranks (data=1, model={SPATIAL_MODEL}, shard_spatial) from (u)'s step-0 "
+          f"snapshot, {SPATIAL_STEPS} steps: {wall:.2f} s with start-up, {step_ms('s')}; "
+          + "; ".join(dist_txt) + " against (u); launches per rank "
+          + ", ".join(str({k: v for k, v in q["train_launches"].items() if v}) for q in ranks))
+    print(f"sharded encode (b={b}) from the step-0 snapshot: z and the split halves bitwise the "
+          f"unsharded chain's on every rank, logdet rel {max(q['ld_rel'] for q in ranks):.3e}; "
+          f"decode(encode(x)) bitwise the unsharded one, max |x - rec| {o['rec_err']:.3e}; "
+          f"launches {o['coding_launches']}")
+    print(f"SPMD kernel artifact on 2 gloo ranks (data={SPMD_DATA}, {b // SPMD_DATA} rows a "
+          f"rank): sample and encode bitwise the one-device artifact's, nll max rel "
+          f"{max(q['serve']['nll_rel'] for q in ranks):.3e}; launches per rank "
+          f"{o['serve']['launches']}; served ms (rank 0, CUDA events around each call): "
+          f"{o['serve']['ms']}")
+    print(f"card for these times: {card}")
+    shutil.rmtree(os.path.join(out_root, "u"), ignore_errors=True)
+    shutil.rmtree(os.path.join(out_root, "s"), ignore_errors=True)
+    print(f"phase 23 (spatial sharding, SPMD serving): {time.perf_counter() - t_phase:.2f} s")
+    return {k: o["train_launches"][k] + o["coding_launches"][k]
+            for k in ("slab_forward", "slab_reverse", "slab_backward")}
+
+
+def rank_spatial(argv: list[str]) -> int:
+    """One rank of phase 23: `chip_smoke.py --rank-spatial gloo OUT SPEC`.
+    Joins the gloo group, then (b) `cli.train.main` on SPEC's arguments,
+    (c) the sharded encode and decode of the step-0 snapshot against the
+    parent's unsharded ones, (d) the SPMD artifact served; each with its
+    launches counted from 0, written to OUT.rank<R>.json."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+
+    from pytorch_glow_tpu_torch import serve
+    from pytorch_glow_tpu_torch.cli import train as train_cli
+    from pytorch_glow_tpu_torch.config import PRESETS, MeshConfig
+    from pytorch_glow_tpu_torch.models.glow import init_glow
+    from pytorch_glow_tpu_torch.ops import flowstep as fs
+    from pytorch_glow_tpu_torch.parallel import distributed
+    from pytorch_glow_tpu_torch.parallel import mesh as meshlib
+
+    pin_backends(torch)
+    backend, out, spec_path = argv
+    with open(spec_path) as f:
+        spec = json.load(f)
+    require(distributed.maybe_initialize(distributed.local_device(), backend),
+            "torchrun's environment is missing")
+    res = {}
+    try:
+        fs.reset_launches()
+        res["result"] = train_cli.main(spec["train"])
+        torch.cuda.synchronize()
+        res["train_launches"] = dict(fs.launches)
+
+        cfg = PRESETS["celebahq256"].glow
+        model = init_glow(cfg, torch.Generator().manual_seed(SEED), "cuda")
+        model.load_state_dict(torch.load(spec["snapshot"], map_location="cuda",
+                                         weights_only=False)["model"])
+        model.set_mesh(meshlib.make_mesh(MeshConfig(1, SPATIAL_MODEL), spatial=True))
+        ref = torch.load(spec["coding"], map_location="cuda", weights_only=False)
+        fs.reset_launches()
+        with torch.no_grad():
+            z, ld, zs = model.encode(ref["x"])
+            rec = model.decode(z, z_splits=zs)
+        torch.cuda.synchronize()
+        res["coding_launches"] = dict(fs.launches)
+        res.update(z_equal=torch.equal(z, ref["z"]),
+                   splits_equal=all(torch.equal(a, r) for a, r in zip(zs, ref["zs"])),
+                   ld_rel=max_rel(ld, ref["ld"]), rec_equal=torch.equal(rec, ref["rec"]),
+                   rec_err=float((rec - ref["x"]).abs().max()))
+        del model, z, zs, rec, ref
+        torch.cuda.empty_cache()
+
+        sm = serve.load_artifact(spec["spmd"])
+        one = torch.load(os.path.join(spec["spmd"], "one_device.pt"), map_location="cuda",
+                         weights_only=False)
+        images = one["images"]
+        fs.reset_launches()
+        got = {"nll": sm.nll(images), "encode": sm.encode(images),
+               "sample": sm.sample(seed=SPMD_SEED, temperature=0.7)}
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in fs.launches.items() if v}
+        ms = {"nll": median_ms(lambda: sm.nll(images), torch, reps=3, inner=1),
+              "sample": median_ms(lambda: sm.sample(seed=SPMD_SEED, temperature=0.7), torch,
+                                  reps=3, inner=1)}
+        res["serve"] = {"nll_rel": max_rel(got["nll"], one["nll"]),
+                        "encode_equal": torch.equal(got["encode"], one["encode"]),
+                        "sample_equal": torch.equal(got["sample"], one["sample"]),
+                        "launches": launched, "ms": {k: round(v, 3) for k, v in ms.items()}}
+        with open(f"{out}.rank{dist.get_rank()}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def compare_nll(inf, plain_inf, images, what: str) -> None:
     """Fused-kernel nll against the unfused PyTorch layers, the repo's rtol 2e-2."""
     nll, nll_plain = inf.nll(images), plain_inf.nll(images)
@@ -3258,11 +3624,83 @@ def rank_cli(argv: list[str]) -> int:
     return 0
 
 
+def phases_beside(argv: list[str]) -> int:
+    """Phases 19 and 22 in a process of their own: `chip_smoke.py --beside
+    OUT`.  Phase 19's files go under OUT/data, then OUT/data.done marks
+    them complete (phase 21 reads them); phase 22 runs under OUT/multi.
+    A SIGTERM kills the rank launches under way, then this process group
+    (phase 19's worker processes with it)."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from pytorch_glow_tpu_torch.ops import _build
+    from pytorch_glow_tpu_torch.ops import flowstep as fs
+
+    def stop(signum, frame):
+        for pid in list(_LAUNCHED):
+            os.killpg(pid, signal.SIGKILL)
+        os.killpg(0, signal.SIGKILL)
+
+    signal.signal(signal.SIGTERM, stop)
+    pin_backends(torch)
+    _build.library()
+    card, out = card_line(), argv[0]
+    t0 = time.perf_counter()
+    check_data(torch, fs, card, os.path.join(out, "data"))
+    print(f"phase 19 (the data layer): {time.perf_counter() - t0:.2f} s", flush=True)
+    open(os.path.join(out, "data.done"), "w").close()
+    check_multi_device(torch, fs, card, os.path.join(out, "multi"))
+    return 0
+
+
+@contextlib.contextmanager
+def beside(argv: list[str], log_path: str, timeout: float):
+    """Runs `chip_smoke.py ARGV` in a process of its own, its output to
+    `log_path`, while the body runs; then waits for it, prints its output
+    and fails if it failed.  The body gets `until(path)`, which waits for
+    the process to write `path` and fails if it ends first.  On an error
+    in the body or a timeout the process is sent SIGTERM (then SIGKILL),
+    nothing is left running and its output is printed too."""
+    rc = None
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"), *argv],
+                                cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+        def until(path: str, wait_s: float = 900.0) -> None:
+            deadline = time.monotonic() + wait_s
+            while not os.path.exists(path):
+                require(proc.poll() is None and time.monotonic() < deadline,
+                        f"{argv[0]} ended ({proc.poll()}) or timed out before writing {path}")
+                time.sleep(0.5)
+
+        try:
+            yield until
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+            with open(log_path) as f:
+                print(f.read(), end="")
+    require(rc == 0, f"{argv[0]} exited {rc}")
+
+
 def main() -> int:
     import torch
 
     if sys.argv[1:2] == ["--rank-cli"]:
         return rank_cli(sys.argv[2:])
+    if sys.argv[1:2] == ["--rank-spatial"]:
+        return rank_spatial(sys.argv[2:])
+    if sys.argv[1:2] == ["--beside"]:
+        return phases_beside(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
@@ -3295,27 +3733,46 @@ def main() -> int:
 def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     from pytorch_glow_tpu_torch.ops import _build
 
+    def done(what: str, since: float) -> float:
+        now = time.perf_counter()
+        print(f"{what}: {now - since:.2f} s")
+        return now
+
+    t0 = time.perf_counter()
     check_gemm_core(torch, fs)
+    t0 = done("phase 17 (the GEMM core)", t0)
     check_kernels(torch, fs, results)
     launches = check_serving(torch, fs, card, "celeba64")
+    t0 = done("phases 3-5 (celeba64 kernels and serving)", t0)
 
     # -- the training path ----------------------------------------------------
     check_backward(torch, fs, results)
     train_launches = check_training(torch, fs, card, os.path.join(out_root, "celeba64"),
                                     "--profile" in sys.argv[1:], eval_copy_memory=True)
+    t0 = done("phases 6-7 (celeba64 backward and training)", t0)
+    # Phases 19 and 22 (the data layer, multi-device training) run in a
+    # process of their own beside 18, 20 and 21: all five are mostly host
+    # work (CLI runs, exports, the ranks' start-up), and one after another
+    # they would take most of the script's time limit.  None of them times
+    # a kernel of the kernels line; 21 reads 19's files.
+    with beside(["--beside", out_root], os.path.join(out_root, "beside.log"),
+                timeout=900) as until:
+        boundary_launches = check_boundaries(torch, fs, card,
+                                             os.path.join(out_root, "boundaries"))
+        print(f"phase 18 (the trainer's boundaries): {time.perf_counter() - t0:.2f} s")
+        cond_launches = check_conditional(torch, fs, card, os.path.join(out_root, "conditional"))
+        until(os.path.join(out_root, "data.done"))
+        check_serving_artifacts(torch, fs, icf, card, os.path.join(out_root, "serving"),
+                                os.path.join(out_root, "data"))
     t0 = time.perf_counter()
-    boundary_launches = check_boundaries(torch, fs, card, os.path.join(out_root, "boundaries"))
-    print(f"phase 18 (the trainer's boundaries): {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    check_data(torch, fs, card, os.path.join(out_root, "data"))
-    print(f"phase 19 (the data layer): {time.perf_counter() - t0:.2f} s")
-    cond_launches = check_conditional(torch, fs, card, os.path.join(out_root, "conditional"))
-    check_serving_artifacts(torch, fs, icf, card, os.path.join(out_root, "serving"),
-                            os.path.join(out_root, "data"))
-    check_multi_device(torch, fs, card, os.path.join(out_root, "multi"))
+    check_slab(torch, fs, results)
+    print(f"phase 23 (a), the slab-form kernels: {time.perf_counter() - t0:.2f} s")
+    slab_launches = check_spatial(torch, fs, card, os.path.join(out_root, "spatial"),
+                                  os.path.join(out_root, "serving", "spmd"))
 
     # -- the 256x256 path: celebahq256 ---------------------------------------
     # K1-K3 at the level shapes they run at, in the preset's (additive) coupling.
+    t0 = time.perf_counter()
     hq_cases = [(BATCH, *shape) for shape in HQ_WHOLE_SHAPES]
     check_kernels(torch, fs, results, hq_cases, time_all=True, modes=("additive",))
     check_backward(torch, fs, results, hq_cases[1:], time_all=True, modes=("additive",),
@@ -3328,6 +3785,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
         torch, fs, card, os.path.join(out_root, "celebahq256"), "--profile" in sys.argv[1:],
         preset="celebahq256", batch=BATCH, num_steps=2, time_steps=2,
         want=counts(fs, band_forward=32, forward=160, band_backward=64, backward=128))
+    t0 = done("phases 8-11 (celebahq256)", t0)
 
     # -- the unfused cifar10 path: the LU 1x1 conv kernels K6a / K6b ---------
     check_invconv(torch, icf, results, card)
@@ -3337,9 +3795,11 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     check_fused_permutations(torch, fs)
     cli_launches = check_invconv_training(torch, icf, card, os.path.join(out_root, "cifar10"),
                                           "--profile" in sys.argv[1:])
+    t0 = done("phases 12-15 (cifar10 and the K6 kernels)", t0)
 
     # -- the anatomy studies S1-S3 --------------------------------------------
     anatomy_launches = check_anatomy(torch, fs, results)
+    done("phase 16 (the anatomy studies)", t0)
 
     # Launches: each kernel's count from the main-path run that drives it:
     # K1/K2/K3 from the celeba64 train CLI run through the boundaries (18),
@@ -3353,6 +3813,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     for d in ("band_forward", "band_reverse"):
         launches[d] = hq_launches[d]
     launches["band_backward"] = hq_train_launches["band_backward"]
+    launches.update(slab_launches)
     launches.update(invconv_launches)
     launches.update(anatomy_launches)
     print(f"training-run launches: celeba64 {train_launches}, celebahq256 {hq_train_launches}, "
@@ -3362,6 +3823,9 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
                "band_forward": (BAND_SOURCE, BAND_TPU_KERNEL),
                "band_reverse": (BAND_SOURCE, BAND_TPU_KERNEL),
                "band_backward": (BAND_BWD_SOURCE, BAND_BWD_TPU_KERNEL),
+               "slab_forward": (BAND_SOURCE, BAND_TPU_KERNEL),
+               "slab_reverse": (BAND_SOURCE, BAND_TPU_KERNEL),
+               "slab_backward": (BAND_BWD_SOURCE, BAND_BWD_TPU_KERNEL),
                **{d: (INVCONV_SOURCE, tpu) for d, tpu in INVCONV_TPU_KERNELS.items()},
                **{d: (ANATOMY_SOURCE, tpu) for d, tpu in ANATOMY_TPU_KERNELS.items()}}
     kernels = [

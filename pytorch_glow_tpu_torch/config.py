@@ -25,10 +25,12 @@ How the port reads the knobs that name JAX machinery:
   flow step carries its own mix and ignores it, as the JAX package does.
 * `flow_permutation` / `lu_decomposed`: the LU 1x1 conv, the plain 1x1
   conv, or a fixed shuffle / reverse (`models/layers.make_permutation`).
-* `invconv_precision`, `scan_unroll`, `shard_spatial`: kept for field
-  parity; the port reads none of them.  The 1x1 mix and its backward
-  always run in full f32, where the JAX package may drop the backward's
-  MXU passes to "high".
+* `shard_spatial`: on a mesh whose model axis is larger than 1, each
+  level's image rows are split over it (`parallel/spatial.py`), with the
+  coupling nets kept replicated (`parallel/mesh.py`).
+* `invconv_precision`, `scan_unroll`: kept for field parity; the port
+  reads neither.  The 1x1 mix and its backward always run in full f32,
+  where the JAX package may drop the backward's MXU passes to "high".
 """
 
 from __future__ import annotations

@@ -27,6 +27,14 @@
 //   mix_kernel<rev>    (reverse only) on the centre rows into the output
 // then ld_sum adds each image's band partials in band order.  No atomics.
 //
+// Slab form (spatial sharding, `pytorch_glow_tpu_torch/parallel/spatial.py`):
+// the input is one rank's row slab of each image with 2 rows of each
+// neighbouring rank's slab around it (`lead` = 2), `origin` the slab's
+// first row in an image of `image` rows.  The bands cover the slab's own
+// rows; taps mask on the absolute row, so the rows the exchange could not
+// fill (above the image's first row, below its last) never count, and the
+// logdet is the slab's partial, which the caller sums over the ranks.
+//
 // Bits: a centre row's p1, h1, h2, y and output come from the same values
 // by the same code as in the whole chain (each product row runs over the
 // same K slices in the same order inside one block, no split-K; the mix,
@@ -115,16 +123,20 @@ cudaError_t launch_coupling_band(int affine, int count, int ww, int C, const Ban
 
 extern "C" {
 
-// One flow step over row bands.  z: (b*hh*ww, c) f32 input, left
-// untouched; R: band rows (divides hh); G: bands per group.  out: (same)
+// One flow step over row bands.  z: (b*(hh + 2*lead)*ww, c) f32 input,
+// left untouched: hh centre rows per image, lead rows above and below them
+// (0, or 2 in the slab form), the first centre row being row `origin` of
+// an image `image` rows high (0 and hh for whole images); R: band rows
+// (divides hh); G: bands per group.  out: (same)
 // f32 result.  ld: (b,) f32 coupling logdet (forward; zeros for additive).
 // w1 padded to (hidden, padded(9*ch)).  Scratch for one group of G bands
 // of (R+4)*ww staged pixels: zext and v (G*(R+4)*ww, c) f32 (v unused in
 // reverse), p1 (.., padded(9*ch)) bf16, h1, h2 (.., hidden) bf16,
 // y (.., 9*cout) f32, tmp (G*R*ww, c) f32 (reverse only), and ld_band
-// (b*hh/R,) f32.  Returns 0 or the first launch's cudaError_t.
+// (b*hh/R,) f32.  out and ld hold the centre rows only.  Returns 0 or the
+// first launch's cudaError_t.
 int glow_flowstep_band(int reverse, int affine, int b, int hh, int ww, int c, int hidden, int R,
-                       int G, const float* z, const float* wmat, const float* anb,
+                       int G, int lead, int origin, int image, const float* z, const float* wmat, const float* anb,
                        const float* anl, const void* w1, const float* a1b, const float* a1l,
                        const void* w2, const float* a2b, const float* a2l, const void* w3,
                        const float* b3, const float* l3, float* out, float* ld, float* zext,
@@ -136,7 +148,7 @@ int glow_flowstep_band(int reverse, int affine, int b, int hh, int ww, int c, in
   const StepWeights sw = {wmat, anb, anl, w1, a1b, a1l, w2, a2b, a2l, w3, b3, l3};
   for (int first = 0; first < nbands; first += G) {
     const int count = nbands - first < G ? nbands - first : G;
-    const Band bd = {first, T, R, hh};
+    const Band bd = {first, T, R, hh + 2 * lead, lead, origin, image};
     const int me = count * ext_rows * ww;
     GLOW_TRY(gather_band<false>(count, ww, c, bd, z, zext, stream));
     const float* src = zext;

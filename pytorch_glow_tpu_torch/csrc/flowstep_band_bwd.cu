@@ -28,6 +28,13 @@
 // weight grad sums the group slots in group order.  No float atomics: two
 // launches on the same inputs give the same bits.
 //
+// Slab form (the input laid out as in flowstep_band.cu's slab form): the
+// folds stay inside the slab, and the slab's own outer halo rows of g_z,
+// the cotangents of the two rows above it and the two below it, which
+// belong to the neighbouring ranks' slabs, go to `halo_top` / `halo_bot`
+// for the caller to send on (the halo exchange's backward adds them on
+// the owner).  The weight grads are the slab's partials.
+//
 // What bounds it on this card: as K3, operations, plus (R+4)/R of them for
 // the recomputed halo rows.  All nine products (the recompute's three,
 // K4's own, and the six gradient products) run on K3's wgmma/TMA core
@@ -125,17 +132,21 @@ size_t glow_flowstep_band_bwd_workspace(int affine, int b, int hh, int ww, int c
 }
 
 // Backward of one forward flow step over row bands of R rows (R divides
-// hh), G bands per group.  Operands as `glow_flowstep_bwd`.  Returns 0 or
-// the first launch's cudaError_t.
+// hh), G bands per group.  Operands as `glow_flowstep_bwd`, z laid out as
+// `glow_flowstep_band` takes it (lead, origin, image); gzn and gz hold the
+// hh centre rows.  With lead > 0, halo_top and halo_bot (b, 2, ww, c) f32
+// receive the outer halo rows' cotangents (unused, may be null, with lead
+// 0).  Returns 0 or the first launch's cudaError_t.
 int glow_flowstep_band_bwd(int affine, int b, int hh, int ww, int c, int hidden, int R, int G,
-                           const float* z, const float* wmat, const float* anb, const float* anl,
+                           int lead, int origin, int image, const float* z, const float* wmat, const float* anb, const float* anl,
                            const void* w1, const float* a1b, const float* a1l, const void* w2,
                            const float* a2b, const float* a2l, const void* w3, const float* b3,
                            const float* l3, const void* w1t, const void* w2t, const void* w3t,
                            const float* gzn, const float* gld, float* gz, float* g_wmat,
                            float* g_anb, float* g_anl, float* g_w1, float* g_a1b, float* g_a1l,
                            float* g_w2, float* g_a2b, float* g_a2l, float* g_w3, float* g_b3,
-                           float* g_l3, void* workspace, void* stream_ptr) {
+                           float* g_l3, float* halo_top, float* halo_bot, void* workspace,
+                           void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int T = hh / R, nbands = b * T, ext_rows = R + 4;
   const int cout = affine ? c : c / 2;
@@ -150,7 +161,7 @@ int glow_flowstep_band_bwd(int affine, int b, int hh, int ww, int c, int hidden,
   for (int group = 0; group < groups; ++group) {
     const int first = group * G;
     const int count = nbands - first < G ? nbands - first : G;
-    const Band bd = {first, T, R, hh};
+    const Band bd = {first, T, R, hh + 2 * lead, lead, origin, image};
     const int me = count * ext_rows * ww;
     GLOW_TRY(gather_band<false>(count, ww, c, bd, z, ws.zext, stream));
     GLOW_TRY(gather_band<true>(count, ww, c, bd, gzn, ws.gext, stream));
@@ -167,6 +178,13 @@ int glow_flowstep_band_bwd(int affine, int b, int hh, int ww, int c, int hidden,
   fold_band_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(total, ww, c, R, T,
                                                                          ws.gtop, ws.gbot, gz);
   GLOW_TRY(cudaGetLastError());
+  if (lead > 0) {  // each image's first band's top halo, its last band's bottom halo
+    const size_t halo = (size_t)2 * ww * c * sizeof(float);
+    GLOW_TRY(cudaMemcpy2DAsync(halo_top, halo, ws.gtop, T * halo, halo, b,
+                               cudaMemcpyDeviceToDevice, stream));
+    GLOW_TRY(cudaMemcpy2DAsync(halo_bot, halo, (const char*)ws.gbot + (T - 1) * halo, T * halo,
+                               halo, b, cudaMemcpyDeviceToDevice, stream));
+  }
   for (int i = 0; i < N_WEIGHTS; ++i)
     GLOW_TRY(reduce(groups, (int)n[i], ws.slot[i], 1.0f, out[i], stream));
   return 0;

@@ -72,21 +72,29 @@ __device__ __forceinline__ int wrap_index(int i, int n) {
 // rows, each extended by a 2-row halo above and below (the coupling net's
 // receptive field) into an (R+4)-row "image" of the staging buffers.  Band
 // j of the launch is band first + j of the batch: image (first + j) / T,
-// absolute first row ((first + j) % T) * R - 2, of an image `height` rows
-// high.  Taps are masked on absolute rows, so halo rows outside the image
-// (above row 0, below the last row) read as zero.
+// first row ((first + j) % T) * R - 2 relative to the first centre row.
+// The input holds `stored` rows per image, its first centre row at stored
+// row `lead`; that row is absolute row `origin` of an image `image` rows
+// high.  Whole images: lead 0, origin 0, stored = image = hh.  A row slab
+// of an image split over ranks (the slab form): the slab's S rows with
+// `lead` = 2 rows of each neighbour around them (stored = S + 4), origin
+// its first row in the image.  Taps are masked on absolute rows, so halo
+// rows outside the image (above row 0, below the last row) read as zero,
+// whatever the input holds there.
 struct Band {
-  int first, per_image, rows, height;  // first band, T, R, true image height
+  int first, per_image, rows;  // first band of the launch, T, R
+  int stored, lead;            // input rows per image, rows before the first centre row
+  int origin, image;           // absolute row of the first centre row, true image height
 };
 
 // Whether local row yy of staged image img lies inside the true image:
 // always for whole images; for a band, when its absolute row is in
-// [0, height).
+// [0, image).
 template <bool BAND>
 __device__ __forceinline__ bool row_in_image(const Band& bd, int img, int yy) {
   if (!BAND) return true;
-  const int row = ((bd.first + img) % bd.per_image) * bd.rows - 2 + yy;
-  return row >= 0 && row < bd.height;
+  const int row = bd.origin + ((bd.first + img) % bd.per_image) * bd.rows - 2 + yy;
+  return row >= 0 && row < bd.image;
 }
 
 // Patch element k = tap * cin + ci of pixel m: z1 at the tap's neighbour,
@@ -332,10 +340,11 @@ cudaError_t launch_coupling(int affine, int b, int hh, int ww, int C, const floa
   return cudaGetLastError();
 }
 
-// Stage `count` bands of the batch (b, height, ww, c) f32 into ext
-// (count * (R+4) * ww, c): rows outside the image are zero, and with
-// CENTRE_ONLY the halo rows too (a cotangent that belongs to the
-// neighbouring bands).  Global offsets in 64 bits.
+// Stage `count` bands of the batch into ext (count * (R+4) * ww, c): rows
+// outside the image are zero, and with CENTRE_ONLY the halo rows too (a
+// cotangent that belongs to the neighbouring bands).  The source is the
+// step's input as `bd` lays it out, or with CENTRE_ONLY the centre rows
+// alone (T * R rows per image, no lead).  Global offsets in 64 bits.
 template <bool CENTRE_ONLY>
 __global__ void gather_band_kernel(int count, int ww, int c, Band bd, const float* src,
                                    float* ext) {
@@ -347,9 +356,12 @@ __global__ void gather_band_kernel(int count, int ww, int c, Band bd, const floa
   const int j = r / ext_rows, yy = r - j * ext_rows;
   const int band = bd.first + j;
   const int img = band / bd.per_image;
-  const int row = (band % bd.per_image) * bd.rows - 2 + yy;
-  const bool keep = row >= 0 && row < bd.height && (!CENTRE_ONLY || (yy >= 2 && yy < bd.rows + 2));
-  ext[idx] = keep ? src[(((size_t)img * bd.height + row) * ww + x) * c + ch] : 0.0f;
+  const int rel = (band % bd.per_image) * bd.rows - 2 + yy;
+  const int lead = CENTRE_ONLY ? 0 : bd.lead;
+  const int stored = CENTRE_ONLY ? bd.per_image * bd.rows : bd.stored;
+  const bool keep =
+      row_in_image<true>(bd, j, yy) && (!CENTRE_ONLY || (yy >= 2 && yy < bd.rows + 2));
+  ext[idx] = keep ? src[(((size_t)img * stored + lead + rel) * ww + x) * c + ch] : 0.0f;
 }
 
 template <bool CENTRE_ONLY>

@@ -23,6 +23,11 @@ attribute per class, one-vs-rest); `manipulate` moves an image's z_L by
 Deltas are saved as `.npz` with the JAX package's keys ("delta", "names"),
 so either package reads the other's file.  Decoding without a generator
 draws the split halves from one seeded 0 on the model's device.
+
+On a model set on a spatially sharded mesh (`Glow.set_mesh`), every call
+runs its sharded levels on row slabs over the model group, every rank of
+the group calling it with the same images; results are whole on every
+rank.
 """
 
 from __future__ import annotations

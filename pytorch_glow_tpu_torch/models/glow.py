@@ -65,6 +65,22 @@ the model group (`_GatherFromModel`), and the backward hands each shard
 its slice of the kernel's gradient, so each model peer runs K1/K3 on the
 same rows with the full weights.
 
+Spatial sharding (`cfg.shard_spatial` on a mesh with model > 1, set up
+by `set_mesh`; `parallel/spatial.py` says which levels and how gradients
+flow): at the start of each sharded level, encode and decode hold the
+rank's row slab of the level's activations, the counterpart of JAX's
+`_maybe_shard_spatial`.  On the fused path every step exchanges HALO rows
+with the neighbouring ranks and runs the band chain on the padded slab
+(`ops/flowstep.FusedStep` with a `Slab`, K4/K5 in slab form); on the unfused path
+the 3x3 convs exchange one row each (`models/layers`).  Every term that
+counts pixels of a sharded level (actnorm, 1x1 conv and coupling logdets,
+the split priors' log-probs, H*W*sum(param_logdet)) adds to a partial
+logdet that is summed over the model group once, at the end of encode
+(`sum_partial`).  The public results are whole on every rank: encode
+gathers z and the split halves, decode the image; random draws are made
+for the whole batch and each rank keeps its rows, so a sharded sample
+equals the unsharded one for the same generator.
+
 Under `torch.export` (`torch.compiler.is_exporting()`) the fused path calls
 the flow-step kernels through their `torch.library` ops
 (`ops/library.py`), which the exporter keeps opaque; the live path calls
@@ -102,6 +118,7 @@ from pytorch_glow_tpu_torch.ops.math import (
 )
 from pytorch_glow_tpu_torch.ops.reshape import split_channel, squeeze2d, unsqueeze2d
 from pytorch_glow_tpu_torch.parallel import distributed as pd
+from pytorch_glow_tpu_torch.parallel import spatial
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -162,11 +179,49 @@ class Glow(nn.Module):
         if cfg.dequant == "variational":
             self.vardeq = VarDeq(cfg, generator)
         self._ddi = False
-        self.mesh = None  # parallel.mesh.Mesh, set by parallel.mesh.shard_model
+        self.mesh = None  # parallel.mesh.Mesh, set by set_mesh
+        self._sharded = [False] * cfg.L  # per level: on row slabs over the model group
 
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    def set_mesh(self, mesh) -> "Glow":
+        """Run on `mesh` (`parallel/mesh.shard_model` calls it): DDI's
+        statistics over its data group, and under spatial sharding the
+        levels `spatial.level_sharded` picks on row slabs, their 3x3 convs
+        exchanging halo rows."""
+        self.mesh = mesh
+        self._sharded = [spatial.level_sharded(self.cfg, mesh, h)
+                         for h, _, _ in self.cfg.latent_shapes()]
+        halo = None
+        if any(self._sharded):
+            def halo(x, k):
+                return spatial.exchange(x, k, mesh)
+        for (steps, split), sharded in zip(self._levels, self._sharded):
+            for step in steps:
+                step.f[0].halo = step.f[4].halo = halo if sharded else None
+            if split is not None:
+                split.conv.halo = halo if sharded else None
+        return self
+
+    def sharded_modules(self) -> list[nn.Module]:
+        """The flow steps and split priors of the spatially sharded levels:
+        their parameters' gradients are the rank's rows' partials."""
+        out: list[nn.Module] = []
+        for (steps, split), sharded in zip(self._levels, self._sharded):
+            if sharded:
+                out.extend(steps)
+                if split is not None:
+                    out.append(split)
+        return out
+
+    def _slab(self, level: int) -> fs.Slab | None:
+        """Where this rank's rows of a sharded level lie, else None."""
+        if not self._sharded[level]:
+            return None
+        h = self.cfg.latent_shapes()[level][0]
+        return fs.Slab(self.mesh.model_rank * (h // self.mesh.model), h)
 
     # -- flow steps ----------------------------------------------------------
 
@@ -182,7 +237,10 @@ class Glow(nn.Module):
                 return _GatherFromModel.apply(t, dim, group)
         return fs.pack_weights(step, affine, reverse, fs.COUPLING_DTYPE, gather)
 
-    def _steps_forward(self, steps: list[FlowStep], z: torch.Tensor, logdet: torch.Tensor):
+    def _steps_forward(self, steps: list[FlowStep], z: torch.Tensor, logdet: torch.Tensor,
+                       slab: fs.Slab | None = None):
+        """K steps forward; with a slab, z is the rank's row slab and the
+        logdet added is its partial."""
         if not self._fused():
             remat = self.cfg.remat and not self._ddi and torch.is_grad_enabled()
             for step in steps:
@@ -196,15 +254,18 @@ class Glow(nn.Module):
         exporting = torch.compiler.is_exporting()
         for step in steps:
             packed = self._pack(step, affine, False)
+            if slab is not None:
+                z = spatial.exchange(z, fs.HALO, self.mesh)
             if exporting:
                 z, ld = library.flowstep_forward(z, affine, packed)
             else:
-                z, ld = fs.FusedStep.apply(z, affine, *packed)
+                z, ld = fs.FusedStep.apply(z, affine, slab, *packed)
             logdet = logdet + ld
         plds = torch.stack([fs.param_logdet(step) for step in steps]).sum()
         return z, logdet + z.shape[1] * z.shape[2] * plds
 
-    def _steps_reverse(self, steps: list[FlowStep], z: torch.Tensor) -> torch.Tensor:
+    def _steps_reverse(self, steps: list[FlowStep], z: torch.Tensor,
+                       slab: fs.Slab | None = None) -> torch.Tensor:
         if not self._fused():
             for step in reversed(steps):
                 z = step.reverse(z)
@@ -214,26 +275,57 @@ class Glow(nn.Module):
         exporting = torch.compiler.is_exporting()
         for step in reversed(steps):
             packed = self._pack(step, affine, True)
+            if slab is not None:
+                z = spatial.exchange(z, fs.HALO, self.mesh)
             if exporting:
                 z = library.flowstep_reverse(z, affine, packed)
             else:
-                z = fs.FusedStepReverse.apply(z, affine, *packed)
+                z = fs.FusedStepReverse.apply(z, affine, slab, *packed)
         return z
 
     # -- encode / decode -----------------------------------------------------
 
-    def encode(self, x: torch.Tensor, logdet: torch.Tensor | None = None):
-        """x (B, H, W, C) -> (z_final, logdet, z_splits)."""
+    def _encode(self, x: torch.Tensor, logdet: torch.Tensor | None = None):
+        """encode with the split halves of sharded levels left as the
+        rank's slabs; z and the logdet are whole."""
         if logdet is None:
             logdet = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
         z = x
         z_splits: list[torch.Tensor] = []
-        for steps, split in self._levels:
+        partial = None  # the sharded levels' logdet terms, this rank's rows
+        sharded = False
+        for level, (steps, split) in enumerate(self._levels):
+            now = self._sharded[level]
+            if sharded and not now:
+                z = spatial.gather_rows(z, self.mesh)
             z = squeeze2d(z, 2)
+            if now and not sharded:
+                z = spatial.shard_rows(z, self.mesh)
+            sharded = now
+            if now:
+                if partial is None:
+                    partial = torch.zeros_like(logdet)
+                z, partial = self._steps_forward(steps, z, partial, self._slab(level))
+                if split is not None:
+                    z, partial, z2 = split(z, partial)
+                    z_splits.append(z2)
+                continue
             z, logdet = self._steps_forward(steps, z, logdet)
             if split is not None:
                 z, logdet, z2 = split(z, logdet)
                 z_splits.append(z2)
+        if sharded:
+            z = spatial.gather_rows(z, self.mesh)
+        if partial is not None:
+            logdet = logdet + spatial.sum_partial(partial, self.mesh)
+        return z, logdet, z_splits
+
+    def encode(self, x: torch.Tensor, logdet: torch.Tensor | None = None):
+        """x (B, H, W, C) -> (z_final, logdet, z_splits), whole on every rank
+        under spatial sharding."""
+        z, logdet, z_splits = self._encode(x, logdet)
+        z_splits = [spatial.gather_rows(z2, self.mesh) if sharded else z2
+                    for z2, sharded in zip(z_splits, self._sharded)]
         return z, logdet, z_splits
 
     def decode(self, z: torch.Tensor, generator: torch.Generator | None = None,
@@ -242,18 +334,37 @@ class Glow(nn.Module):
         """z -> x.  With `z_splits` the reconstruction is exact; otherwise each
         Split2d draws its half from the learned prior at `temperature`, its
         standard normal draw from `generator` or from `noise` (one per
-        split, the deepest first: `noise_shapes(b)[1:]`)."""
+        split, the deepest first: `noise_shapes(b)[1:]`).  On sharded levels
+        each rank keeps its rows of z, of the halves given (whole, or its
+        slabs from `_encode`) and of the whole batch's draws."""
         draws = iter(noise) if noise is not None else None
+        shapes = self.cfg.latent_shapes()
+        sharded = False
         for i in range(len(self._levels) - 1, -1, -1):
             steps, split = self._levels[i]
+            now = self._sharded[i]
+            if now and not sharded:
+                z = spatial.shard_rows(z, self.mesh)
+            sharded = now
             if split is not None:
                 if z_splits is not None:
-                    z = split.reverse(z, z2=z_splits[i])
+                    z2 = z_splits[i]
+                    if now and z2.shape[1] == shapes[i][0]:
+                        z2 = spatial.shard_rows(z2, self.mesh)
+                    z = split.reverse(z, z2=z2)
                 else:
                     eps = next(draws) if draws is not None else None
+                    if now:
+                        if eps is None:
+                            b, (h, w, c) = z.shape[0], shapes[i]
+                            eps = torch.randn((b, h, w, c // 2), generator=generator,
+                                              dtype=torch.float32, device=z.device)
+                        eps = spatial.own_rows(eps, self.mesh)
                     z = split.reverse(z, generator, temperature, eps=eps)
-            z = self._steps_reverse(steps, z)
+            z = self._steps_reverse(steps, z, self._slab(i))
             z = unsqueeze2d(z, 2)
+        if sharded:
+            z = spatial.gather_rows(z, self.mesh)
         return z
 
     def noise_shapes(self, batch: int) -> list[tuple[int, ...]]:
@@ -346,7 +457,7 @@ class Glow(nn.Module):
                             dtype=torch.float32, device=x.device)
         if neg_log_q is not None:
             logdet = logdet + neg_log_q
-        z, objective, _ = self.encode(x, logdet)
+        z, objective, _ = self._encode(x, logdet)
         mean, logs = self.top_prior(x.shape[0], y_onehot)
         objective = objective + gaussian_logp(mean, logs, z.float())
         out = {"z": z, "objective": objective, "nll": bits_per_dim(objective, dims)}
@@ -440,17 +551,24 @@ class Glow(nn.Module):
 
     @contextmanager
     def _ddi_mode(self):
+        groups = {}  # id(actnorm) -> the groups its statistics reduce over
+        if self.mesh is not None:
+            data = (self.mesh.data_group,)
+            for (steps, _), sharded in zip(self._levels, self._sharded):
+                for step in steps:
+                    for m in step.modules():
+                        if isinstance(m, ActNorm):
+                            groups[id(m)] = data + ((self.mesh.model_group,) if sharded else ())
         actnorms = [m for m in self.flow.modules() if isinstance(m, ActNorm)]
-        group = None if self.mesh is None else self.mesh.data_group
         self._ddi = True
         for m in actnorms:
-            m.ddi, m.group = True, group
+            m.ddi, m.groups = True, groups.get(id(m), ())
         try:
             yield
         finally:
             self._ddi = False
             for m in actnorms:
-                m.ddi, m.group = False, None
+                m.ddi, m.groups = False, ()
 
     @torch.no_grad()
     def ddi_init(self, x: torch.Tensor) -> "Glow":
@@ -459,7 +577,7 @@ class Glow(nn.Module):
         order, sets its parameters from the batch statistics of its input
         (on a mesh: this rank's rows, the global batch's statistics)."""
         with self._ddi_mode():
-            self.encode(x)
+            self._encode(x)
         return self
 
 

@@ -20,11 +20,20 @@ f32 (`Conv2dZeros`).
 
 ActNorm's data-dependent init: while `ActNorm.ddi` is True, a forward call
 sets the module's parameters from the batch statistics of its input and then
-applies them (`Glow.ddi_init` switches it on for one encode).  With a data
-group (`ActNorm.group`, set by `Glow.ddi_init` on a mesh) the statistics are
-the global batch's, as the JAX reductions are under pjit: the mean
-all-reduced over the group, then the variance about that mean, so every
-replica derives the same parameters.
+applies them (`Glow.ddi_init` switches it on for one encode).  With groups
+(`ActNorm.groups`, set by `Glow.ddi_init` on a mesh: the data group, and
+on a spatially sharded level the model group too) the statistics are the
+global batch's, as the JAX reductions are under pjit: the mean
+all-reduced over each group (every rank holds as many pixels), then the
+variance about that mean, so every replica derives the same parameters.
+
+Spatial sharding (`parallel/spatial.py`): on a sharded level the model
+sets `halo` on its 3x3 convs (the coupling nets' conv1 and zero conv, the
+split prior): `halo(x, 1)` gives the row slab with one row of each
+neighbouring rank around it (zeros beyond the image, the SAME padding's
+rows), the conv runs on that and keeps the slab's own output rows.  DDI's
+statistics there reduce over the model group's pixels too
+(`ActNorm.groups`).
 
 Tensor parallelism (`CouplingNet.model_group`, set by
 `parallel/mesh.shard_model`): the coupling net's conv1 holds its slice of
@@ -50,6 +59,14 @@ ACTNORM_EPS = 1e-6
 LOGSCALE_FACTOR = 3.0
 
 
+def _halo_conv(conv, x: torch.Tensor, halo) -> torch.Tensor:
+    """`conv(x)`, or on a row slab (`halo` given) the slab's own rows of
+    `conv` over the slab with one row of each neighbour."""
+    if halo is None:
+        return conv(x)
+    return conv(halo(x, 1))[:, 1:-1]
+
+
 def _conv_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """SAME-padded stride-1 conv of NHWC `x` with an (out, in, kh, kw) weight;
     true f32 for an f32 `x`."""
@@ -71,19 +88,19 @@ class ActNorm(nn.Module):
         self.logs = nn.Parameter(torch.zeros(1, c, 1, 1))
         self.scale = scale
         self.ddi = False
-        self.group = None  # the data group DDI's statistics reduce over
+        self.groups = ()  # the groups DDI's statistics reduce over
 
     @torch.no_grad()
     def ddi_(self, x: torch.Tensor) -> None:
         """bias = -mean, logs = log(scale / (std + eps)) over (B, H, W), of
-        the global batch under a data group (equal rows on every rank)."""
+        the global batch under its groups (as many pixels on every rank)."""
         x32 = x.float()
         mean = x32.mean(dim=(0, 1, 2))
-        if self.group is not None:
-            pd.mean_(mean, self.group)
+        for group in self.groups:
+            pd.mean_(mean, group)
         var = torch.square(x32 - mean).mean(dim=(0, 1, 2))
-        if self.group is not None:
-            pd.mean_(var, self.group)
+        for group in self.groups:
+            pd.mean_(var, group)
         std = torch.sqrt(var)
         self.bias.copy_((-mean).view_as(self.bias))
         self.logs.copy_(torch.log(self.scale / (std + ACTNORM_EPS)).view_as(self.logs))
@@ -114,9 +131,10 @@ class Conv2d(nn.Module):
             0.05 * torch.randn(c_out, c_in, kernel, kernel, generator=generator)
         )
         self.actnorm = ActNorm(c_out)
+        self.halo = None  # a row slab's exchange (module docstring)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y, _ = self.actnorm(_conv_nhwc(x, self.weight))
+        y, _ = self.actnorm(_halo_conv(lambda t: _conv_nhwc(t, self.weight), x, self.halo))
         return y
 
 
@@ -178,12 +196,15 @@ class Conv2dZeros(nn.Module):
         self.weight = nn.Parameter(torch.zeros(c_out, c_in, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(c_out))
         self.logs = nn.Parameter(torch.zeros(c_out, 1, 1))
+        self.halo = None  # a row slab's exchange (module docstring)
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return _conv_nhwc(x, self.weight)
+        return _ConvF32Sum.apply(x, self.weight.to(x.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.float32:
-            y = _conv_nhwc(x, self.weight)
-        else:
-            y = _ConvF32Sum.apply(x, self.weight.to(x.dtype))
+        y = _halo_conv(self._conv, x, self.halo)
         y = y + self.bias
         return y * torch.exp(self.logs.view(-1) * LOGSCALE_FACTOR)
 

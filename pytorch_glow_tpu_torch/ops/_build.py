@@ -62,11 +62,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.glow_flowstep_bwd_workspace.restype = ctypes.c_size_t
     lib.glow_flowstep_bwd.argtypes = [i32] * 6 + [ptr] * 33
     lib.glow_flowstep_bwd.restype = i32
-    lib.glow_flowstep_band.argtypes = [i32] * 9 + [ptr] * 23 + [ptr]
+    lib.glow_flowstep_band.argtypes = [i32] * 12 + [ptr] * 23 + [ptr]
     lib.glow_flowstep_band.restype = i32
     lib.glow_flowstep_band_bwd_workspace.argtypes = [i32] * 8
     lib.glow_flowstep_band_bwd_workspace.restype = ctypes.c_size_t
-    lib.glow_flowstep_band_bwd.argtypes = [i32] * 8 + [ptr] * 33
+    lib.glow_flowstep_band_bwd.argtypes = [i32] * 11 + [ptr] * 35
     lib.glow_flowstep_band_bwd.restype = i32
     lib.glow_invconv_forward.argtypes = [i32] * 3 + [ptr] * 8 + [ptr]
     lib.glow_invconv_forward.restype = i32

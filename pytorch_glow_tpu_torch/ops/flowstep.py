@@ -33,6 +33,16 @@ VMEM; these rules are the card's own.
 tensor runs the plain version (`step_*_ref` or `step_*_band_ref`), a CUDA
 tensor launches the kernel chain or raises.  Nothing falls back.
 
+Slab form (spatial sharding, `parallel/spatial.py`): with a `Slab`, the
+input z is one rank's row slab of each image with HALO rows of each
+neighbouring slab around it, and the step always runs the band chain over
+the slab's own rows, R dividing the slab height.  Taps mask on the
+absolute image row, so the rows the exchange leaves unfilled at the
+image's top and bottom never count.  The outputs are the slab's rows,
+its logdet partial and, backward, the padded slab's cotangent: the slab's
+rows, and the HALO rows above and below, which belong to the neighbours.
+`FusedStep` / `FusedStepReverse` take the slab as their third argument.
+
 The plain version computes the kernel's math, not the layer math of
 `models/layers.py`: f32 actnorm and f32 mix; coupling-net operands rounded
 to bf16 and multiplied in f32 (exact products, f32 sums, as the JAX
@@ -42,6 +52,8 @@ f32 where a test packs f32 weights to check the algebra).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -53,10 +65,23 @@ N_WEIGHTS = 12
 # The tiling chooser's knobs, module-level so that tests can patch them.
 STAGING_BUDGET_BYTES = 2**30  # device staging one chain launch may take
 BAND_PIXELS = 4096  # centre pixels of one band, at most
+HALO = 2  # rows a band stages above and below its own (the net's two 3x3 convs)
 
-# Kernel launches per chain; one per flow step launched on the card.
+
+@dataclass(frozen=True)
+class Slab:
+    """Where a row slab lies in its image: its first row (`origin`) and
+    the image's height (`image_rows`).  A slab-form step takes the slab
+    padded with HALO rows of each neighbour."""
+
+    origin: int
+    image_rows: int
+
+# Kernel launches per chain; one per flow step launched on the card.  The
+# band chain's launches in slab form (spatial sharding) count apart.
 launches = {"forward": 0, "reverse": 0, "backward": 0,
-            "band_forward": 0, "band_reverse": 0, "band_backward": 0}
+            "band_forward": 0, "band_reverse": 0, "band_backward": 0,
+            "slab_forward": 0, "slab_reverse": 0, "slab_backward": 0}
 
 
 def reset_launches() -> None:
@@ -522,39 +547,48 @@ def step_backward_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.
 # ---------------------------------------------------------------------------
 
 
-def _band_plan(direction: str, z: torch.Tensor, hidden: int, affine: bool):
-    """(R, T bands per image, G bands per group, number of bands) for z."""
+def _band_plan(direction: str, z: torch.Tensor, hidden: int, affine: bool,
+               slab: Slab | None = None):
+    """(R, T bands per image, G bands per group, number of bands) for z (in
+    slab form, for its centre rows)."""
     b, h, w, c = z.shape
+    if slab is not None:
+        h -= 2 * HALO
     r = band_rows(h, w)
     return r, h // r, bands_per_launch(direction, b, h, w, c, hidden, affine), b * (h // r)
 
 
-def _band_regions(x: torch.Tensor, r: int, first: int, count: int):
+def _band_regions(x: torch.Tensor, r: int, first: int, count: int, slab: Slab | None = None):
     """Bands first .. first+count-1 of NHWC x, each with its 2 rows above and
     below: ((count, r+4, W, C) f32 with rows outside the image zero, the
-    rows' in-image mask (count, r+4))."""
-    _, h, _, _ = x.shape
+    rows' in-image mask (count, r+4)).  With a slab, x is the slab padded
+    with HALO rows of each neighbour and the mask is on the image's rows."""
+    lead = 0 if slab is None else HALO
+    h = x.shape[1] - 2 * lead
+    origin, image = (0, h) if slab is None else (slab.origin, slab.image_rows)
     t = h // r
     bands = torch.arange(first, first + count, device=x.device)
-    rows = ((bands % t) * r - 2)[:, None] + torch.arange(r + 4, device=x.device)
-    valid = (rows >= 0) & (rows < h)
-    ext = x.float()[(bands // t)[:, None], rows.clamp(0, h - 1)]
+    rel = ((bands % t) * r - 2)[:, None] + torch.arange(r + 4, device=x.device)
+    valid = (rel + origin >= 0) & (rel + origin < image)
+    ext = x.float()[(bands // t)[:, None], (rel + lead).clamp(0, x.shape[1] - 1)]
     return torch.where(valid[..., None, None], ext, 0.0), valid
 
 
 def step_forward_band_ref(weights, z: torch.Tensor, affine: bool,
-                          dtype: torch.dtype = COUPLING_DTYPE):
+                          dtype: torch.dtype = COUPLING_DTYPE, slab: Slab | None = None):
     """`step_forward_ref` over row bands, as K4 computes it: each group of
     bands staged with its halo (rows outside the image zero, taps masked on
     absolute rows), the step run on the staged rows, the centre rows kept;
-    logdet over centre rows, each image's bands summed in band order."""
-    b, h, w, c = z.shape
-    r, t, g, nbands = _band_plan("forward", z, weights[3].shape[0], affine)
+    logdet over centre rows, each image's bands summed in band order.  With
+    a slab, z is the padded slab and the outputs are the slab's rows and
+    its logdet partial."""
+    b, _, w, c = z.shape
+    r, t, g, nbands = _band_plan("forward", z, weights[3].shape[0], affine, slab)
     out = torch.empty(nbands, r, w, c, dtype=torch.float32, device=z.device)
     parts = []
     for first in range(0, nbands, g):
         count = min(g, nbands - first)
-        ext, valid = _band_regions(z, r, first, count)
+        ext, valid = _band_regions(z, r, first, count, slab)
         z_next, logsig = _forward_parts(weights, ext, affine, dtype, valid)
         out[first:first + count] = z_next[:, 2:r + 2]
         if logsig is not None:
@@ -564,35 +598,43 @@ def step_forward_band_ref(weights, z: torch.Tensor, affine: bool,
         per_band = torch.cat(parts).view(b, t)
         for i in range(t):
             ld = ld + per_band[:, i]
-    return out.view(b, h, w, c), ld
+    return out.view(b, t * r, w, c), ld
 
 
 def step_reverse_band_ref(weights, z: torch.Tensor, affine: bool,
-                          dtype: torch.dtype = COUPLING_DTYPE) -> torch.Tensor:
+                          dtype: torch.dtype = COUPLING_DTYPE,
+                          slab: Slab | None = None) -> torch.Tensor:
     """`step_reverse_ref` over row bands, as K4's reverse computes it: f()
     on the staged input bands, the coupling inverse, the W^-1 mix and the
-    actnorm inverse on the centre rows."""
-    b, h, w, c = z.shape
-    r, _, g, nbands = _band_plan("reverse", z, weights[3].shape[0], affine)
+    actnorm inverse on the centre rows (the slab's rows, with a slab)."""
+    b, _, w, c = z.shape
+    r, t, g, nbands = _band_plan("reverse", z, weights[3].shape[0], affine, slab)
     out = torch.empty(nbands, r, w, c, dtype=torch.float32, device=z.device)
     for first in range(0, nbands, g):
         count = min(g, nbands - first)
-        ext, valid = _band_regions(z, r, first, count)
+        ext, valid = _band_regions(z, r, first, count, slab)
         coupled = _reverse_coupling(weights, ext, affine, dtype, valid)
         out[first:first + count] = _reverse_mix(weights, coupled[:, 2:r + 2])
-    return out.view(b, h, w, c)
+    return out.view(b, t * r, w, c)
 
 
 def step_backward_band_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
-                           affine: bool, dtype: torch.dtype = COUPLING_DTYPE):
+                           affine: bool, dtype: torch.dtype = COUPLING_DTYPE,
+                           slab: Slab | None = None):
     """`step_backward_ref` over row bands, as K5 computes it: per group of
     bands, the backward on the staged rows with the output cotangent zero on
     the halo rows (those outputs belong to the neighbouring bands) and g_ld
     on the centre rows only; each band's g_z keeps its centre rows, and its
     2 top and 2 bottom halo rows fold into the neighbouring bands of the
-    same image; the weight grads are summed over groups in group order."""
-    b, h, w, c = z.shape
-    r, t, g, nbands = _band_plan("backward", z, weights[3].shape[0], affine)
+    same image; the weight grads are summed over groups in group order.
+
+    With a slab, z is the padded slab and g_zn the slab's rows: g_z is the
+    padded slab's cotangent, its HALO rows above and below the slab's own
+    outer halo rows (the first band's top, the last band's bottom), which
+    belong to the neighbouring slabs; the weight grads are the slab's
+    partials."""
+    b, _, w, c = z.shape
+    r, t, g, nbands = _band_plan("backward", z, weights[3].shape[0], affine, slab)
     dev = z.device
     g_z = torch.empty(nbands, r, w, c, dtype=torch.float32, device=dev)
     tops = torch.empty(nbands, 2, w, c, dtype=torch.float32, device=dev)
@@ -602,7 +644,7 @@ def step_backward_band_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: t
     grads = None
     for first in range(0, nbands, g):
         count = min(g, nbands - first)
-        ext, valid = _band_regions(z, r, first, count)
+        ext, valid = _band_regions(z, r, first, count, slab)
         g_ext = torch.where(centre[:, None, None], _band_regions(g_zn, r, first, count)[0], 0.0)
         bands = torch.arange(first, first + count, device=dev)
         g_ld_rows = torch.where(centre, g_ld.float()[bands // t][:, None], 0.0)
@@ -614,7 +656,11 @@ def step_backward_band_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: t
     g_z = g_z.view(b, t, r, w, c)
     g_z[:, 1:, :2] += bottoms.view(b, t, 2, w, c)[:, :-1]
     g_z[:, :-1, r - 2:] += tops.view(b, t, 2, w, c)[:, 1:]
-    return g_z.view(b, h, w, c), grads
+    g_z = g_z.view(b, t * r, w, c)
+    if slab is not None:
+        g_z = torch.cat([tops.view(b, t, 2, w, c)[:, 0], g_z,
+                         bottoms.view(b, t, 2, w, c)[:, -1]], dim=1)
+    return g_z, grads
 
 
 # ---------------------------------------------------------------------------
@@ -689,11 +735,26 @@ def _launch(weights, z: torch.Tensor, affine: bool, reverse: bool):
     return out, ld
 
 
-def _launch_band(weights, z: torch.Tensor, affine: bool, reverse: bool):
-    """K4: the step over row bands, G bands staged per group."""
+def _slab_geometry(z: torch.Tensor, slab: Slab | None) -> tuple[int, int, int, int]:
+    """(centre rows per image, lead rows, origin, image rows) of a band
+    chain's input, as the C entries take them."""
+    if slab is None:
+        return z.shape[1], 0, 0, z.shape[1]
+    h = z.shape[1] - 2 * HALO
+    if h < 1 or slab.origin < 0 or slab.origin + h > slab.image_rows:
+        raise ValueError(f"a slab of {h} rows at row {slab.origin} does not fit an image of "
+                         f"{slab.image_rows} rows")
+    return h, HALO, slab.origin, slab.image_rows
+
+
+def _launch_band(weights, z: torch.Tensor, affine: bool, reverse: bool,
+                 slab: Slab | None = None):
+    """K4: the step over row bands, G bands staged per group; in slab form
+    over the padded slab's own rows."""
     hidden, cout = _check_operands(weights, z, affine)
     lib = _build.library()
-    b, h, w, c = z.shape
+    b, _, w, c = z.shape
+    h, lead, origin, image = _slab_geometry(z, slab)
     direction = "reverse" if reverse else "forward"
     r = band_rows(h, w)
     g = bands_per_launch(direction, b, h, w, c, hidden, affine)
@@ -704,7 +765,7 @@ def _launch_band(weights, z: torch.Tensor, affine: bool, reverse: bool):
     def scratch(rows, cols, dtype=torch.float32):
         return torch.empty(rows, cols, dtype=dtype, device=dev)
 
-    out = torch.empty_like(z)
+    out = torch.empty(b, h, w, c, dtype=torch.float32, device=dev)
     ld = torch.empty(b, dtype=torch.float32, device=dev)
     zext = scratch(me, c)
     v = zext if reverse else scratch(me, c)
@@ -715,14 +776,14 @@ def _launch_band(weights, z: torch.Tensor, affine: bool, reverse: bool):
     ld_band = torch.empty(b * (h // r), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         status = lib.glow_flowstep_band(
-            int(reverse), int(affine), b, h, w, c, hidden, r, g,
+            int(reverse), int(affine), b, h, w, c, hidden, r, g, lead, origin, image,
             z.data_ptr(), *(wt.data_ptr() for wt in _kernel_weights(weights)),
             out.data_ptr(), ld.data_ptr(), zext.data_ptr(), v.data_ptr(), p1.data_ptr(),
             h1.data_ptr(), h2.data_ptr(), y.data_ptr(), tmp.data_ptr(), ld_band.data_ptr(),
             _stream(dev),
         )
     _build.check(lib, status, "glow_flowstep_band")
-    launches["band_" + direction] += 1
+    launches[("band_" if slab is None else "slab_") + direction] += 1
     return out, ld
 
 
@@ -737,12 +798,14 @@ def transposed_weights(weights) -> list[torch.Tensor]:
 
 
 def _backward_operands(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
-                       affine: bool):
+                       affine: bool, slab: Slab | None = None):
     """Checked, contiguous backward operands, the bf16 transposes of w1, w2,
-    w3 and the outputs: (hidden, z, g_zn, g_ld, transposed, g_z, grads)."""
+    w3 and the outputs: (hidden, z, g_zn, g_ld, transposed, g_z, grads);
+    in slab form g_zn and g_z hold the slab's own rows."""
     hidden, _ = _check_operands(weights, z, affine)
-    b = z.shape[0]
-    if g_zn.shape != z.shape or g_ld.shape != (b,):
+    b, _, w, c = z.shape
+    h = _slab_geometry(z, slab)[0]
+    if g_zn.shape != (b, h, w, c) or g_ld.shape != (b,):
         raise ValueError(f"cotangents {tuple(g_zn.shape)}, {tuple(g_ld.shape)} do not match "
                          f"z {tuple(z.shape)}")
     if g_zn.device != z.device or g_ld.device != z.device:
@@ -750,7 +813,8 @@ def _backward_operands(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch
     z = z.contiguous()
     grads = [torch.empty(wt.shape, dtype=torch.float32, device=z.device) for wt in weights]
     return (hidden, z, g_zn.float().contiguous(), g_ld.float().contiguous(),
-            transposed_weights(weights), torch.empty_like(z), grads)
+            transposed_weights(weights),
+            torch.empty(g_zn.shape, dtype=torch.float32, device=z.device), grads)
 
 
 def _launch_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
@@ -775,26 +839,33 @@ def _launch_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.T
 
 
 def _launch_band_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
-                          affine: bool):
-    """K5: the backward over row bands, G bands staged per group."""
+                          affine: bool, slab: Slab | None = None):
+    """K5: the backward over row bands, G bands staged per group; in slab
+    form g_z is the padded slab's cotangent (the outer halo rows' from the
+    entry's halo buffers)."""
     hidden, z, g_zn, g_ld, transposed, g_z, grads = _backward_operands(
-        weights, z, g_zn, g_ld, affine)
+        weights, z, g_zn, g_ld, affine, slab)
     lib = _build.library()
-    b, h, w, c = z.shape
+    b, _, w, c = z.shape
+    h, lead, origin, image = _slab_geometry(z, slab)
     dev = z.device
     r = band_rows(h, w)
     g = bands_per_launch("backward", b, h, w, c, hidden, affine)
     nbytes = lib.glow_flowstep_band_bwd_workspace(int(affine), b, h, w, c, hidden, r, g)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    halos = [torch.empty(b, lead, w, c, dtype=torch.float32, device=dev) for _ in range(2)]
     with torch.cuda.device(dev):
         status = lib.glow_flowstep_band_bwd(
-            int(affine), b, h, w, c, hidden, r, g,
+            int(affine), b, h, w, c, hidden, r, g, lead, origin, image,
             z.data_ptr(), *(wt.data_ptr() for wt in _kernel_weights(weights)),
             *(wt.data_ptr() for wt in transposed), g_zn.data_ptr(), g_ld.data_ptr(),
-            g_z.data_ptr(), *(gr.data_ptr() for gr in grads), workspace.data_ptr(), _stream(dev),
+            g_z.data_ptr(), *(gr.data_ptr() for gr in grads),
+            *(t.data_ptr() if lead else None for t in halos), workspace.data_ptr(), _stream(dev),
         )
     _build.check(lib, status, "glow_flowstep_band_bwd")
-    launches["band_backward"] += 1
+    launches["band_backward" if slab is None else "slab_backward"] += 1
+    if slab is not None:
+        g_z = torch.cat([halos[0], g_z, halos[1]], dim=1)
     return g_z, grads
 
 
@@ -859,39 +930,54 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, trans: bool, m: int, n: int,
     return out
 
 
-def _band(direction: str, weights, z: torch.Tensor, affine: bool) -> bool:
+def _band(direction: str, weights, z: torch.Tensor, affine: bool,
+          slab: Slab | None = None) -> bool:
+    if slab is not None:  # the slab form is the band chain's
+        return True
     b, h, w, c = z.shape
     return tiling(direction, b, h, w, c, weights[3].shape[0], affine) == "band"
 
 
-def step_forward(weights, z: torch.Tensor, affine: bool):
+def step_forward(weights, z: torch.Tensor, affine: bool, slab: Slab | None = None):
     """NHWC z -> (z_next, coupling logdet (B,)); `weights` from
-    `pack_weights(..., reverse=False)`."""
-    band = _band("forward", weights, z, affine)
+    `pack_weights(..., reverse=False)`.  With a slab, z is the padded slab
+    and the results the slab's rows and logdet partial."""
+    band = _band("forward", weights, z, affine, slab)
     if z.device.type == "cpu":
-        ref = step_forward_band_ref if band else step_forward_ref
-        return ref(weights, z, affine, weights[3].dtype)
-    return (_launch_band if band else _launch)(weights, z, affine, reverse=False)
+        if band:
+            return step_forward_band_ref(weights, z, affine, weights[3].dtype, slab)
+        return step_forward_ref(weights, z, affine, weights[3].dtype)
+    if band:
+        return _launch_band(weights, z, affine, False, slab)
+    return _launch(weights, z, affine, reverse=False)
 
 
-def step_reverse(weights, z: torch.Tensor, affine: bool) -> torch.Tensor:
-    """Inverse step; `weights` from `pack_weights(..., reverse=True)`."""
-    band = _band("reverse", weights, z, affine)
+def step_reverse(weights, z: torch.Tensor, affine: bool,
+                 slab: Slab | None = None) -> torch.Tensor:
+    """Inverse step; `weights` from `pack_weights(..., reverse=True)`.  With
+    a slab, z is the padded slab and the result the slab's rows."""
+    band = _band("reverse", weights, z, affine, slab)
     if z.device.type == "cpu":
-        ref = step_reverse_band_ref if band else step_reverse_ref
-        return ref(weights, z, affine, weights[3].dtype)
-    out, _ = (_launch_band if band else _launch)(weights, z, affine, reverse=True)
-    return out
+        if band:
+            return step_reverse_band_ref(weights, z, affine, weights[3].dtype, slab)
+        return step_reverse_ref(weights, z, affine, weights[3].dtype)
+    if band:
+        return _launch_band(weights, z, affine, True, slab)[0]
+    return _launch(weights, z, affine, reverse=True)[0]
 
 
 def step_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tensor,
-                  affine: bool):
-    """Backward of `step_forward` at input z: (g_z, [12 f32 weight grads])."""
-    band = _band("backward", weights, z, affine)
+                  affine: bool, slab: Slab | None = None):
+    """Backward of `step_forward` at input z: (g_z, [12 f32 weight grads]);
+    with a slab, g_z is the padded slab's cotangent."""
+    band = _band("backward", weights, z, affine, slab)
     if z.device.type == "cpu":
-        ref = step_backward_band_ref if band else step_backward_ref
-        return ref(weights, z, g_zn, g_ld, affine, weights[3].dtype)
-    return (_launch_band_backward if band else _launch_backward)(weights, z, g_zn, g_ld, affine)
+        if band:
+            return step_backward_band_ref(weights, z, g_zn, g_ld, affine, weights[3].dtype, slab)
+        return step_backward_ref(weights, z, g_zn, g_ld, affine, weights[3].dtype)
+    if band:
+        return _launch_band_backward(weights, z, g_zn, g_ld, affine, slab)
+    return _launch_backward(weights, z, g_zn, g_ld, affine)
 
 
 # ---------------------------------------------------------------------------
@@ -900,43 +986,50 @@ def step_backward(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: torch.Tens
 
 
 class FusedStep(torch.autograd.Function):
-    """(z, affine, *packed) -> (z_next, logdet): the forward kernel, and a
-    backward that recomputes the step inside the backward kernel from the
-    saved input, as the JAX package's custom VJP does.  Weight grads come
-    back in the packed dtypes (bf16 for w1, w2, w3, as the JAX package
+    """(z, affine, slab, *packed) -> (z_next, logdet): the forward kernel,
+    and a backward that recomputes the step inside the backward kernel from
+    the saved input, as the JAX package's custom VJP does.  Weight grads
+    come back in the packed dtypes (bf16 for w1, w2, w3, as the JAX package
     rounds them); `pack_weights`' own autograd maps them to the parameters.
+    With a `Slab` (None for whole images), z is the padded slab, the
+    results the slab's rows and logdet partial (K4 / K5 in slab form), and
+    the backward returns the padded slab's cotangent, whose halo rows the
+    halo exchange (`parallel/spatial.py`) sends back to their owners.
     Under `torch.no_grad()` apply records no graph and keeps no residuals."""
 
     @staticmethod
-    def forward(ctx, z, affine, *weights):
-        ctx.affine = affine
+    def forward(ctx, z, affine, slab, *weights):
+        ctx.affine, ctx.slab = affine, slab
         ctx.save_for_backward(z, *weights)
-        return step_forward(weights, z, affine)
+        return step_forward(weights, z, affine, slab)
 
     @staticmethod
     def backward(ctx, g_zn, g_ld):
         z, *weights = ctx.saved_tensors
-        g_z, grads = step_backward(weights, z, g_zn, g_ld, ctx.affine)
-        return (g_z, None, *(g.to(wt.dtype) for g, wt in zip(grads, weights)))
+        g_z, grads = step_backward(weights, z, g_zn, g_ld, ctx.affine, ctx.slab)
+        return (g_z, None, None, *(g.to(wt.dtype) for g, wt in zip(grads, weights)))
 
 
 class FusedStepReverse(torch.autograd.Function):
-    """(z, affine, *packed reverse) -> z_prev: the reverse kernel, and
+    """(z, affine, slab, *packed reverse) -> z_prev: the reverse kernel
+    (with a `Slab`, over the padded slab, giving the slab's rows), and
     autograd over the plain version for the backward (sampling is not
     trained through, so no kernel; the JAX package differentiates its XLA
     math there too)."""
 
     @staticmethod
-    def forward(ctx, z, affine, *weights):
-        ctx.affine = affine
+    def forward(ctx, z, affine, slab, *weights):
+        ctx.affine, ctx.slab = affine, slab
         ctx.save_for_backward(z, *weights)
-        return step_reverse(weights, z, affine)
+        return step_reverse(weights, z, affine, slab)
 
     @staticmethod
     def backward(ctx, g):
         z, *weights = (t.detach().requires_grad_() for t in ctx.saved_tensors)
         with torch.enable_grad():
-            out = step_reverse_ref(weights, z, ctx.affine, weights[3].dtype)
+            if ctx.slab is None:
+                out = step_reverse_ref(weights, z, ctx.affine, weights[3].dtype)
+            else:
+                out = step_reverse_band_ref(weights, z, ctx.affine, weights[3].dtype, ctx.slab)
             grads = torch.autograd.grad(out, [z, *weights], g)
-        return (grads[0], None, *grads[1:])
-
+        return (grads[0], None, None, *grads[1:])

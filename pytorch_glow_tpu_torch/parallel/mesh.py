@@ -12,6 +12,14 @@ Counterpart of `pytorch_glow_tpu/parallel/mesh.py`.  The mesh is a
   (its weight's output dim 0 and its actnorm sharded), conv2 row-parallel
   (its weight's input dim 1 sharded, the partial products sum-reduced);
   everything else is replicated.  model=1 (pure DP) is the default.
+  Or, with `glow.shard_spatial` (`make_mesh(..., spatial=True)`), spatial
+  sharding: each level's image rows over "model" (`parallel/spatial.py`).
+
+TP and SP share the "model" axis.  JAX applies both at once; the port,
+as a layout choice, keeps the coupling nets replicated under spatial
+sharding (`Mesh.spatial`: `tp` is then False and no parameter is
+sharded).  The numbers are the same either way, and snapshots hold
+gathered, mesh-independent tensors in both.
 
 The rules name the port's `state_dict` keys: the flow steps' coupling nets
 `flow.layers.{j}.f.0` (conv1) and `f.2` (conv2); the variational
@@ -58,6 +66,7 @@ class Mesh:
     model_rank: int
     data_group: object
     model_group: object
+    spatial: bool = False  # image rows over "model" (glow.shard_spatial), no TP
 
     @property
     def shape(self) -> dict[str, int]:
@@ -70,12 +79,13 @@ class Mesh:
 
     @property
     def tp(self) -> bool:
-        return self.model > 1
+        return self.model > 1 and not self.spatial
 
 
-def make_mesh(cfg: MeshConfig | None = None) -> Mesh:
+def make_mesh(cfg: MeshConfig | None = None, spatial: bool = False) -> Mesh:
     """The mesh of `cfg.shape(world size)` over the initialised default
-    process group (data=-1: world // model)."""
+    process group (data=-1: world // model); `spatial`: its model group
+    shards image rows instead of the coupling nets' hidden channels."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
@@ -87,7 +97,8 @@ def make_mesh(cfg: MeshConfig | None = None) -> Mesh:
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     dm = init_device_mesh(device_type, (data, model), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
     d, m = dm.get_coordinate()
-    return Mesh(dm, data, model, d, m, dm.get_group(DATA_AXIS), dm.get_group(MODEL_AXIS))
+    return Mesh(dm, data, model, d, m, dm.get_group(DATA_AXIS), dm.get_group(MODEL_AXIS),
+                spatial)
 
 
 def param_pspec(name: str, tp: bool) -> int | None:
@@ -177,8 +188,10 @@ def put_global(tensors: Iterable[torch.Tensor]) -> None:
 def shard_model(model, mesh: Mesh) -> None:
     """Put `model` (full, identical on every rank) on the mesh: its
     tensor-parallel parameters keep this rank's slice, its coupling nets
-    reduce over the model group, its DDI and fused path see the mesh."""
-    model.mesh = mesh
+    reduce over the model group, its DDI and fused path see the mesh;
+    under spatial sharding its sharded levels run on row slabs
+    (`Glow.set_mesh`)."""
+    model.set_mesh(mesh)
     if not mesh.tp:
         return
     local = shard_params(dict(model.named_parameters()), mesh)

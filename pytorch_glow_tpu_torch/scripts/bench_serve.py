@@ -21,6 +21,19 @@ Env: BENCH_PRESET (celeba64), BENCH_BATCH (64), BENCH_ITERS (10),
 BENCH_K (the preset's K: the export depth; a cut depth is printed),
 BENCH_PROFILE (0; 1 adds torch.profiler's table of host and device time by
 op for one call of each route, and the op count of each exported graph).
+
+SPMD mode (BENCH_SPMD=1, under `torch.distributed.run --nproc_per_node N`,
+one card a rank, each rank seeing its card alone as cuda:0 (an exported
+CUDA program keeps the device index it was exported on), NCCL;
+`scripts/perf_multi.py` runs it): every rank builds
+the same model; rank 0 exports a kernel artifact of sample and nll for one
+device and one with a data axis of N (`serve.export_artifact(mesh=)`) into
+BENCH_SPMD_DIR; every rank loads the SPMD one, which serves each rank's
+batch / N rows and gathers the outputs.  Rank 0 checks the SPMD sample
+bitwise and its nll within rtol 1e-5 against the one-device artifact's,
+then times, in turns for `ROUNDS` rounds, the one-device artifact alone
+and the SPMD artifact on all ranks (CUDA events on rank 0 around each
+call, a barrier between), and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -85,13 +98,85 @@ def _profile(calls: dict, served: dict) -> None:
             print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12))
 
 
+def _model(cfg, batch: int):
+    """The preset's model (random weights from seed 0, DDI on one batch) and
+    that batch."""
+    from pytorch_glow_tpu_torch.models.glow import init_glow
+
+    model = init_glow(cfg, torch.Generator().manual_seed(0), "cuda")
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randint(0, 256, (batch, *cfg.image_shape), dtype=torch.uint8,
+                           generator=gen).cuda()
+    model.ddi_init(model.dequantize(model.preprocess(images),
+                                    torch.Generator(device="cuda").manual_seed(2)))
+    return model, images
+
+
+def spmd_main(cfg, batch: int, iters: int, card: str) -> dict:
+    """The SPMD mode (module docstring)."""
+    import torch.distributed as dist
+
+    from pytorch_glow_tpu_torch import serve
+    from pytorch_glow_tpu_torch.parallel import distributed as pd
+
+    pd.maybe_initialize(pd.local_device())
+    n, rank = dist.get_world_size(), dist.get_rank()
+    out = os.environ["BENCH_SPMD_DIR"]
+    model, images = _model(cfg, batch)
+    if rank == 0:
+        for name, mesh in (("one", None), ("spmd", {"data": n})):
+            serve.export_artifact(model, cfg, os.path.join(out, name), batch, ("sample", "nll"),
+                                  keep_kernels=True, mesh=mesh)
+    del model
+    dist.barrier()
+    spmd = serve.load_artifact(os.path.join(out, "spmd"))
+    one = serve.load_artifact(os.path.join(out, "one")) if rank == 0 else None
+    got_s, got_n = spmd.sample(seed=3, temperature=0.7), spmd.nll(images)
+    check = None
+    if rank == 0:
+        want_s, want_n = one.sample(seed=3, temperature=0.7), one.nll(images)
+        check = {"sample_bitwise": bool(torch.equal(got_s, want_s)),
+                 "nll_max_rel": float(((got_n - want_n).abs() / want_n.abs()).max())}
+        print(f"SPMD artifact on {n} ranks against one device: {check}", flush=True)
+    routes = {"one": {"sample": lambda: one.sample(seed=0, temperature=0.7),
+                      "nll": lambda: one.nll(images)},
+              f"spmd{n}": {"sample": lambda: spmd.sample(seed=0, temperature=0.7),
+                           "nll": lambda: spmd.nll(images)}}
+    ms = {f"{route} {what}": [] for route in routes for what in ("sample", "nll")}
+    for _ in range(ROUNDS):
+        for route, fns in routes.items():
+            for what, fn in fns.items():
+                if route == "one" and rank != 0:
+                    dist.barrier()
+                    continue
+                t = _events_ms(fn, iters)
+                if rank == 0:
+                    ms[f"{route} {what}"].append(t)
+                dist.barrier()
+    dist.destroy_process_group()
+    rows = {key: {"ms": v, "images_per_s": [batch / (t / 1e3) for t in v]}
+            for key, v in ms.items()}
+    result = {"preset": "spmd", "batch": batch, "K": cfg.K, "ranks": n, "card": card,
+              "check": check, "rows": rows}
+    if rank == 0:
+        for key, row in rows.items():
+            print(f"{key}: " + " / ".join(f"{t:.3f}" for t in row["ms"]) + " ms, "
+                  + " / ".join(f"{v:.1f}" for v in row["images_per_s"]) + " img/s")
+        print(f"card for these times: {card}")
+        print(json.dumps(result))
+    return result
+
+
 def main() -> dict:
+    if os.environ.get("BENCH_SPMD", "0") == "1" and "LOCAL_RANK" in os.environ:
+        # An exported CUDA program runs on the device index it was exported
+        # on: each rank sees its own card as cuda:0 (set before CUDA starts).
+        os.environ["CUDA_VISIBLE_DEVICES"] = os.environ["LOCAL_RANK"]
     if not torch.cuda.is_available():
         raise SystemExit("bench_serve needs a CUDA card")
     from pytorch_glow_tpu_torch import serve
     from pytorch_glow_tpu_torch.config import PRESETS
     from pytorch_glow_tpu_torch.inference import Inferer
-    from pytorch_glow_tpu_torch.models.glow import init_glow
     from pytorch_glow_tpu_torch.ops import _build
     from pytorch_glow_tpu_torch.ops import flowstep as fs
 
@@ -111,12 +196,9 @@ def main() -> dict:
         print(f"# export depth cut: K={depth} of the preset's {cfg.K}")
         cfg = dataclasses.replace(cfg, K=depth)
     _build.library()
-    model = init_glow(cfg, torch.Generator().manual_seed(0), "cuda")
-    gen = torch.Generator().manual_seed(1)
-    images = torch.randint(0, 256, (batch, *cfg.image_shape), dtype=torch.uint8,
-                           generator=gen).cuda()
-    model.ddi_init(model.dequantize(model.preprocess(images),
-                                    torch.Generator(device="cuda").manual_seed(2)))
+    if os.environ.get("BENCH_SPMD", "0") == "1":
+        return spmd_main(cfg, batch, iters, card)
+    model, images = _model(cfg, batch)
     live = Inferer(model)
     print(f"# {preset} b{batch} K={cfg.K} L={cfg.L} hidden {cfg.hidden_channels} "
           f"{cfg.flowstep_impl} {cfg.compute_dtype}, torch {torch.__version__}")

@@ -54,7 +54,23 @@ it is loaded.  Nothing falls back.
 An exported graph does not carry PyTorch's global flags, so every served
 call runs with f32 convs and products pinned to true f32 (`ops/math.
 true_f32`) and cuDNN pinned to deterministic algorithms, as the live model
-pins its f32 ops.  Not ported: the JAX package's `mesh` (SPMD) export.
+pins its f32 ops.
+
+SPMD serving (`mesh=`, the JAX package's pod serving): a mesh with a
+"data" axis, given as {axis name: size}.  The
+manifest records it ("mesh": {"shape", "axis_names"}) and per function
+the argument specs ("arg_specs": ["data"] for a batch argument, [] for a
+scalar, which is replicated); each program is exported at the batch of
+one data coordinate, batch_size / data.  `ServedModel` then runs on a
+`torch.distributed` group of exactly the mesh's device count (the ranks
+form the mesh, row-major): each rank runs the program on its data
+coordinate's rows of every batch argument and the outputs are
+all-gathered over the data axis, so every rank returns the whole batch.
+Random draws are made from the seed for the whole batch and
+sliced, so a sharded call gives the one-device artifact's draws.  A CUDA
+program runs on the device index it was exported on (the graph holds
+it), so ranks on several cards each see their own card as cuda:0
+(`CUDA_VISIBLE_DEVICES`, as `scripts/bench_serve.py`'s SPMD mode sets it).
 """
 
 from __future__ import annotations
@@ -65,11 +81,14 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pytorch_glow_tpu_torch.ops import library  # noqa: F401  (registers the kernels' ops)
 from pytorch_glow_tpu_torch.ops.math import true_f32
+from pytorch_glow_tpu_torch.parallel import distributed as pd
 
 FORMAT_VERSION = 1
 MANIFEST = "manifest.json"
@@ -174,15 +193,16 @@ def _example(spec: dict, batch: int, device: torch.device) -> torch.Tensor:
 
 def export_artifact(model, cfg=None, out_dir: str = "artifact", batch_size: int | str = 16,
                     functions: tuple[str, ...] | None = None,
-                    keep_kernels: bool = False) -> dict:
+                    keep_kernels: bool = False, mesh=None) -> dict:
     """Export serving entry points of `model` (its parameters as they are)
     to `out_dir`; returns the manifest.
 
     cfg: the model's config (default `model.cfg`).  batch_size: a fixed
-    serving batch, or "dynamic" for a symbolic batch dimension.
-    functions: a subset of the entry points (default: all the model
-    serves).  keep_kernels: export the config's hand-written kernels as
-    their ops instead of the portable unfused path."""
+    serving batch, or "dynamic" for a symbolic batch dimension (not with a
+    mesh).  functions: a subset of the entry points (default: all the
+    model serves).  keep_kernels: export the config's hand-written kernels
+    as their ops instead of the portable unfused path.  mesh: {axis name:
+    size} with a "data" axis, for SPMD serving (module docstring)."""
     from pytorch_glow_tpu_torch.models.glow import Glow
 
     cfg = cfg or model.cfg
@@ -199,6 +219,16 @@ def export_artifact(model, cfg=None, out_dir: str = "artifact", batch_size: int 
                          f"y-conditional model: serve sample_y / nll_y")
     if batch_size != "dynamic" and (not isinstance(batch_size, int) or batch_size < 1):
         raise ValueError(f"batch_size must be a positive int or 'dynamic', got {batch_size!r}")
+    axes = None if mesh is None else {str(k): int(v) for k, v in mesh.items()}
+    if axes is not None:
+        if batch_size == "dynamic":
+            raise ValueError("batch_size='dynamic' is incompatible with mesh export (each data "
+                             "coordinate's program needs a concrete batch)")
+        if "data" not in axes:
+            raise ValueError(f"mesh {list(axes)} has no 'data' axis")
+        if batch_size % axes["data"]:
+            raise ValueError(f"batch_size {batch_size} must divide over the data axis of size "
+                             f"{axes['data']}")
     device = model.device
     if model.cfg != cfg:
         state = model.state_dict()
@@ -217,10 +247,12 @@ def export_artifact(model, cfg=None, out_dir: str = "artifact", batch_size: int 
         "device": device.type,
         "keep_kernels": keep_kernels,
         "glow_config": dataclasses.asdict(cfg),
+        "mesh": None if axes is None else {"shape": list(axes.values()),
+                                           "axis_names": list(axes)},
         "functions": {},
     }
     dynamic = batch_size == "dynamic"
-    example_batch = 2 if dynamic else batch_size
+    example_batch = 2 if dynamic else batch_size // (axes or {}).get("data", 1)
     for name in functions:
         specs = _arg_specs(model, name)
         args = tuple(_example(s, example_batch, device) for s in specs)
@@ -240,6 +272,9 @@ def export_artifact(model, cfg=None, out_dir: str = "artifact", batch_size: int 
                      for s in specs]
         manifest["functions"][name] = {"file": f"{name}.pt2", "args": specs,
                                        "bytes": os.path.getsize(path), "seconds": seconds}
+        if axes is not None:  # batch arguments over "data", scalars replicated
+            manifest["functions"][name]["arg_specs"] = [["data"] if s["shape"] else []
+                                                        for s in specs]
     manifest = json.loads(json.dumps(manifest))  # tuples -> lists, as loaded
     with open(os.path.join(out_dir, MANIFEST), "w") as f:
         json.dump(manifest, f, indent=1)
@@ -289,6 +324,34 @@ class ServedModel:
 
                 _build.library()  # raises where the kernels cannot be built
         self._fns: dict = {}
+        self._shard = self._join_mesh(self.manifest.get("mesh"))
+
+    def _join_mesh(self, mesh: dict | None):
+        """(data coordinate, data axis size, data group) of this rank on an
+        SPMD artifact's mesh; None without one.  Collective: every rank of
+        the group constructs its ServedModel."""
+        if mesh is None:
+            return None
+        shape, names = mesh["shape"], mesh["axis_names"]
+        n = int(np.prod(shape))
+        world = pd.world_size()
+        if world != n:
+            raise ValueError(f"artifact was exported for a {shape} mesh ({n} devices); this "
+                             f"process group has {world}: serve it on exactly {n} ranks")
+        axis = names.index("data")
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        mine, group = None, None
+        others = [i for i in range(len(shape)) if i != axis]
+        for fixed in np.ndindex(*[shape[i] for i in others]):  # one data group each
+            ranks = []
+            for d in range(shape[axis]):
+                coord = list(fixed)
+                coord.insert(axis, d)
+                ranks.append(int(np.ravel_multi_index(coord, shape)))
+            g = dist.new_group(ranks) if world > 1 else None
+            if rank in ranks:
+                mine, group = ranks.index(rank), g
+        return mine, shape[axis], group
 
     @property
     def functions(self) -> list[str]:
@@ -306,8 +369,26 @@ class ServedModel:
 
     def call(self, name: str, inputs: dict, batch: int, seed: int = 0):
         """Run entry point `name` on `inputs` (by argument name), drawing its
-        random arguments from a generator seeded `seed`, in order."""
+        random arguments from a generator seeded `seed`, in order; on an
+        SPMD artifact's mesh each data coordinate runs its rows and the
+        outputs are gathered (module docstring)."""
         fn = self.fn(name)
+        args = self._args(name, inputs, batch, seed)
+        if self._shard is None:
+            return self._run(fn, args)
+        coord, data, group = self._shard
+        batched = [bool(spec) for spec in self.manifest["functions"][name]["arg_specs"]]
+        per = batch // data
+        rows = [a[coord * per:(coord + 1) * per] if b else a for a, b in zip(args, batched)]
+        out = self._run(fn, rows)
+        return out if group is None else pd.all_gather_cat(out, 0, group)
+
+    @staticmethod
+    def _run(fn, args):
+        with torch.no_grad(), _pinned():
+            return fn(*args)
+
+    def _args(self, name: str, inputs: dict, batch: int, seed: int) -> list[torch.Tensor]:
         gen = None
         args = []
         for spec in self.manifest["functions"][name]["args"]:
@@ -326,8 +407,7 @@ class ServedModel:
             shape = [batch if d == "b" else d for d in spec["shape"]]
             draw = torch.randn if spec["kind"] == "normal" else torch.rand
             args.append(draw(shape, generator=gen, dtype=dtype, device=self.device))
-        with torch.no_grad(), _pinned():
-            return fn(*args)
+        return args
 
     def _batch(self, n: int | None) -> int:
         if self.batch_size != "dynamic":

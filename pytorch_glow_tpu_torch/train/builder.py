@@ -35,7 +35,10 @@ rank's tensor-parallel slices.  Each rank's streams give its data
 coordinate's rows of each global batch (model peers read the same rows);
 DDI runs on those rows with the global batch's statistics; the train and
 eval steps reduce over the data group.  The eval copy holds full
-(gathered) weights.
+(gathered) weights.  With `glow.shard_spatial` the model group shards
+image rows instead of the coupling nets (`parallel/spatial.py`): the
+train step, DDI and the eval copy (eval, samples, reconstructions, SWD)
+all run their sharded levels on row slabs.
 """
 
 from __future__ import annotations
@@ -85,6 +88,8 @@ class Built:
         if self.eval_model is None:
             gen = torch.Generator().manual_seed(self.profile.train.seed)
             self.eval_model = init_glow(self.serve_cfg, gen, self.device)
+            if self.mesh is not None and self.mesh.spatial:
+                self.eval_model.set_mesh(self.mesh)
         self.eval_model.load_state_dict(state_dict)
         return self.eval_model
 
@@ -146,7 +151,8 @@ def build(profile: Profile, device: torch.device | str = "cuda",
     device = torch.device(device)
     if restore not in ("latest", "best"):
         raise ValueError(f"unknown restore: {restore!r} (latest | best)")
-    mesh = meshlib.make_mesh(profile.mesh) if dist.is_initialized() else None
+    mesh = (meshlib.make_mesh(profile.mesh, spatial=g.shard_spatial) if dist.is_initialized()
+            else None)
     shard = mesh.shard if mesh is not None else (0, 1)
     tx = make_optimizer(profile.optim, t)
     model = init_glow(g, torch.Generator().manual_seed(t.seed), device)

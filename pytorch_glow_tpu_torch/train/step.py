@@ -25,7 +25,12 @@ sharded global array, so N ranks compute what one rank does on the global
 batch.  The flat gradient is mean-all-reduced over the data group before
 the optimizer (the counterpart of GSPMD's gradient psum and of the fused
 backward's in-kernel psum), and the metrics are data-group means, equal
-on every rank; the eval nll likewise.
+on every rank; the eval nll likewise.  Under spatial sharding
+(`parallel/spatial.py`) model peers hold the same rows and each computes
+the gradient of its image rows' slab for the sharded levels' parameters:
+those entries (`spatial.partial_mask`) are summed over the model group
+first, so that every rank holds the whole gradient before the data mean
+and the global-norm clip.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from pytorch_glow_tpu_torch.config import GlowConfig
 from pytorch_glow_tpu_torch.models.glow import Glow
 from pytorch_glow_tpu_torch.ops.math import true_f32
 from pytorch_glow_tpu_torch.parallel import distributed as pd
+from pytorch_glow_tpu_torch.parallel import spatial
 from pytorch_glow_tpu_torch.parallel.mesh import Mesh
 from pytorch_glow_tpu_torch.train.optim import Optimizer
 
@@ -113,8 +119,26 @@ def data_mean(values: dict[str, torch.Tensor], mesh: Mesh | None) -> dict[str, t
     return dict(zip(values, stacked.unbind()))
 
 
+def row_partial_index(model: Glow, named) -> torch.Tensor | None:
+    """The flat gradient's row-partial entries (`spatial.partial_mask`) as an
+    index tensor, None without any (one device sync, at the first step)."""
+    mask = spatial.partial_mask(model, named)
+    return None if mask is None else mask.nonzero().squeeze(1)
+
+
+def sum_row_partials(flat: torch.Tensor, index: torch.Tensor | None, mesh: Mesh | None) -> None:
+    """The flat gradient's row-partial entries (`index`) summed in place over
+    the model group."""
+    if mesh is None or index is None:
+        return
+    part = pd.all_reduce_(flat.index_select(0, index), mesh.model_group)
+    flat.index_copy_(0, index, part)
+
+
 def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
                         schedule=None, augment_flip: bool = False, mesh: Mesh | None = None):
+    partials: dict[int, torch.Tensor | None] = {}  # id(model) -> its row-partial index
+
     def train_step(state: State, batch: torch.Tensor, y_onehot: torch.Tensor | None = None):
         model: Glow = state["model"]
         _check_model(model, cfg)
@@ -140,6 +164,9 @@ def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         flat = tx.flatten(params, grads)
         if mesh is not None:
+            if id(model) not in partials:
+                partials[id(model)] = row_partial_index(model, names_params)
+            sum_row_partials(flat, partials[id(model)], mesh)
             pd.mean_(flat, mesh.data_group)
         updates, opt_state = tx.update(flat, state["opt_state"])
         tx.apply(params, updates)

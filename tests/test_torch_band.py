@@ -333,7 +333,7 @@ def test_fused_step_grads_on_bands_match_jax_custom_vjp(small_bands, force_halo,
     export_step("s", jax.tree.map(np.asarray, g_sp), want)
 
     zt = torch.from_numpy(z).requires_grad_()
-    zn, ld = tfs.FusedStep.apply(zt, affine, *tfs.pack_weights(step, affine, False, f32_coupling))
+    zn, ld = tfs.FusedStep.apply(zt, affine, None, *tfs.pack_weights(step, affine, False, f32_coupling))
     ((zn * torch.from_numpy(gzn)).sum() + (ld * torch.from_numpy(gld)).sum()).backward()
     _assert_scaled_close(zt.grad.numpy(), np.asarray(fsp.from_t(g_zt, z.shape)), 3e-5, what="z")
     for name, p in step.named_parameters():

@@ -129,7 +129,8 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
         ref, ref_ld = tfs.step_forward_ref(tfs.pack_weights(step, True, False), z, True)
     assert torch.equal(out, ref) and torch.equal(ld, ref_ld)
     assert tfs.launches == {"forward": 0, "reverse": 0, "backward": 0,
-                            "band_forward": 0, "band_reverse": 0, "band_backward": 0}
+                            "band_forward": 0, "band_reverse": 0, "band_backward": 0,
+                            "slab_forward": 0, "slab_reverse": 0, "slab_backward": 0}
 
 
 @pytest.mark.parametrize("reverse", [False, True])

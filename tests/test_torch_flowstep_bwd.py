@@ -124,7 +124,7 @@ def test_fused_step_function_grads_match_jax_custom_vjp(f32_coupling, mode):
 
     zt = torch.from_numpy(z).requires_grad_()
     packed = tfs.pack_weights(step, affine, False, f32_coupling)
-    zn, ld = tfs.FusedStep.apply(zt, affine, *packed)
+    zn, ld = tfs.FusedStep.apply(zt, affine, None, *packed)
     ((zn * torch.from_numpy(gzn)).sum() + (ld * torch.from_numpy(gld)).sum()).backward()
     _assert_scaled_close(zt.grad.numpy(), np.asarray(fsp.from_t(g_zt, z.shape)), 3e-5, what="z")
     checked = 0
@@ -148,7 +148,7 @@ def test_saturated_scales_give_finite_grads():
         conv3.bias[1::2] = -200.0  # the raw channels of the cross split
     z = torch.from_numpy(_z((b, h, w, c))).requires_grad_()
     gzn, gld = (torch.from_numpy(a) for a in _cotangents(b, h, w, c))
-    zn, ld = tfs.FusedStep.apply(z, True, *tfs.pack_weights(step, True, False))
+    zn, ld = tfs.FusedStep.apply(z, True, None, *tfs.pack_weights(step, True, False))
     assert torch.isfinite(zn).all() and torch.isfinite(ld).all()
     ((zn * gzn).sum() + (ld * gld).sum()).backward()
     assert torch.isfinite(z.grad).all()
@@ -167,7 +167,8 @@ def test_backward_on_cpu_takes_plain_version_and_counts_no_launch():
         r_z, r_grads = tfs.step_backward_ref(weights, z, gzn, gld, True)
     assert torch.equal(g_z, r_z) and all(torch.equal(a, r) for a, r in zip(grads, r_grads))
     assert tfs.launches == {"forward": 0, "reverse": 0, "backward": 0,
-                            "band_forward": 0, "band_reverse": 0, "band_backward": 0}
+                            "band_forward": 0, "band_reverse": 0, "band_backward": 0,
+                            "slab_forward": 0, "slab_reverse": 0, "slab_backward": 0}
 
 
 def test_backward_kernel_entry_raises_on_cpu_tensor():
@@ -187,7 +188,7 @@ def test_fused_reverse_function_grads_match_layer_autograd(mode):
     step.compute_dtype = torch.float32
     z = torch.from_numpy(_z((2, 3, 5, 6))).requires_grad_()
     g = torch.from_numpy(_cotangents(2, 3, 5, 6)[0])
-    out = tfs.FusedStepReverse.apply(z, mode == "affine",
+    out = tfs.FusedStepReverse.apply(z, mode == "affine", None,
                                      *tfs.pack_weights(step, mode == "affine", True, torch.float32))
     got = torch.autograd.grad(out, [z, *step.parameters()], g)
     want = torch.autograd.grad(step.reverse(z), [z, *step.parameters()], g)

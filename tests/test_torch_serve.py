@@ -19,6 +19,7 @@ from pytorch_glow_tpu.config import GlowConfig as JaxGlowConfig
 from pytorch_glow_tpu.models import glow as jglow
 from pytorch_glow_tpu_torch import GlowConfig, Inferer, init_glow, serve
 from test_torch_model import _port
+from test_torch_parallel import _run
 
 SMALL = dict(image_shape=(8, 8, 3), hidden_channels=16, K=1, L=2)
 B = 4
@@ -251,3 +252,52 @@ def test_explicit_noise_gives_the_live_draws(dequant):
         assert torch.equal(got, model.nll_bound(x, _gen(9), 2, "iwae"))
         assert torch.equal(model.log_prob(x, noise=u[0])["objective"],
                            model.log_prob(x, _gen(9))["objective"])
+
+
+# -- SPMD serving (tests/test_serve.py:146-170, :191-197) ------------------------
+
+
+def test_spmd_export_records_the_mesh_and_refuses_what_jax_refuses(tiny, tmp_path):
+    """A mesh export records the mesh and per-argument specs (batch
+    arguments over "data", scalars replicated); a dynamic batch, a mesh
+    with no "data" axis and a batch that does not divide the data axis are
+    refused, as JAX refuses them; a process with a world smaller than the
+    mesh's device count refuses the artifact."""
+    out = str(tmp_path / "spmd")
+    man = serve.export_artifact(tiny[2], None, out, batch_size=B, functions=("sample", "nll"),
+                                mesh={"data": 2})
+    assert man["mesh"] == {"shape": [2], "axis_names": ["data"]}
+    assert man["functions"]["sample"]["arg_specs"] == [[], ["data"], ["data"]]
+    assert man["functions"]["nll"]["arg_specs"] == [["data"]]
+    assert man["functions"]["nll"]["args"][0]["shape"] == [B, 8, 8, 3]  # the global batch
+    with pytest.raises(ValueError, match="dynamic"):
+        serve.export_artifact(tiny[2], None, str(tmp_path / "a"), batch_size="dynamic",
+                              mesh={"data": 2})
+    with pytest.raises(ValueError, match="no 'data' axis"):
+        serve.export_artifact(tiny[2], None, str(tmp_path / "b"), batch_size=B,
+                              mesh={"model": 2})
+    with pytest.raises(ValueError, match="divide"):
+        serve.export_artifact(tiny[2], None, str(tmp_path / "c"), batch_size=3,
+                              functions=("sample",), mesh={"data": 2})
+    with pytest.raises(ValueError, match="2 devices"):
+        serve.load_artifact(out)
+
+
+@pytest.mark.multiprocess
+def test_spmd_artifact_served_by_two_ranks(tiny, artifact, served, tmp_path):
+    """A data=2 artifact served by two gloo ranks, each on its half of the
+    batch with the outputs gathered: every rank returns the whole batch,
+    nll within rtol 1e-5 of the live JAX log_prob, encode and the sample
+    (its draws made for the whole batch, then sliced) bitwise the
+    one-device artifact's."""
+    params, jcfg, model = tiny
+    out = str(tmp_path / "spmd")
+    serve.export_artifact(model, None, out, batch_size=B, functions=("sample", "nll", "encode"),
+                          mesh={"data": 2})
+    x = _images()
+    ranks = _run("serve", {"path": out, "x": torch.from_numpy(x)}, 2, tmp_path)
+    want = np.asarray(jglow.log_prob(params, jglow.preprocess(jnp.asarray(x), jcfg), jcfg)["nll"])
+    for got in ranks:
+        np.testing.assert_allclose(got["nll"].numpy(), want, rtol=1e-5)
+        assert torch.equal(got["encode"], served.encode(x))
+        assert torch.equal(got["sample"], served.sample(seed=7, temperature=0.5))

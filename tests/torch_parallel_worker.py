@@ -18,6 +18,13 @@ Tasks:
                EMA after them.
   build_train  `build(profile)` then `train(num_steps)`: the build's resume
                state, the result, the params and the stream position.
+  spatial      spatial sharding (`shard_spatial`, a mesh made with
+               spatial=True): DDI, log_prob, reconstruct and sample (from
+               explicit noise and from a generator) of `cfg` on the rank's
+               rows; the same for `fused_cfg` without DDI; and the halo
+               exchange's forward and backward on slabs of `slab_x`.
+  serve        load the SPMD artifact at `path` (no mesh of its own) and
+               serve `x`: nll, encode and a sample, whole on every rank.
 """
 
 from __future__ import annotations
@@ -108,7 +115,51 @@ def build_train(inp: dict, mesh) -> dict:
     return out
 
 
-TASKS = {"ddi_loss": ddi_loss, "steps": steps, "build_train": build_train}
+def spatial(inp: dict, mesh) -> dict:
+    import torch
+
+    from pytorch_glow_tpu_torch.parallel import distributed as pd
+    from pytorch_glow_tpu_torch.parallel import spatial as sp
+
+    def gathered(t):
+        return pd.all_gather_cat(t.detach(), 0, mesh.data_group)
+
+    out = {"mesh": (mesh.data, mesh.model, mesh.data_rank, mesh.model_rank)}
+    for key in ("cfg", "fused_cfg"):
+        _, model = _model(inp[key], inp["sd" if key == "cfg" else "fused_sd"], mesh)
+        x = _rows(inp["x"], mesh)
+        if key == "cfg":
+            model.ddi_init(x)
+            out["ddi"] = model.state_dict()
+        out[key] = {"sharded": list(model._sharded)}
+        with torch.no_grad():
+            out[key]["nll"] = gathered(model.log_prob(x)["nll"])
+            out[key]["recon"] = gathered(model.reconstruct(x))
+            noise = [_rows(n, mesh) for n in inp["noise"]]
+            out[key]["sample"] = gathered(model.sample(noise[0].shape[0], 0.7, noise=noise))
+            gen = torch.Generator().manual_seed(5)
+            out[key]["sample_gen"] = gathered(model.sample(x.shape[0], 0.7, gen))
+    results = []
+    for k, rows in inp["exchange"]:
+        whole = inp["slab_x"][:, :rows * mesh.model].clone().requires_grad_()
+        padded = sp.exchange(sp.shard_rows(whole, mesh), k, mesh)
+        cot = torch.randn(padded.shape, generator=torch.Generator().manual_seed(mesh.model_rank))
+        (grad,) = torch.autograd.grad(padded, whole, cot)
+        results.append({"padded": padded.detach(), "cot": cot, "grad": grad})
+    out["exchange"] = results
+    return out
+
+
+def serve(inp: dict, mesh) -> dict:
+    from pytorch_glow_tpu_torch import serve as servelib
+
+    m = servelib.load_artifact(inp["path"])
+    x = inp["x"]
+    return {"nll": m.nll(x), "encode": m.encode(x), "sample": m.sample(seed=7, temperature=0.5)}
+
+
+TASKS = {"ddi_loss": ddi_loss, "steps": steps, "build_train": build_train, "spatial": spatial,
+         "serve": serve}
 
 
 def main() -> None:
@@ -123,7 +174,8 @@ def main() -> None:
     from pytorch_glow_tpu_torch.parallel import mesh as meshlib
 
     inp = torch.load(os.path.join(io, "in.pt"), weights_only=False)
-    mesh = None if task == "build_train" else meshlib.make_mesh(MeshConfig(*inp["mesh"]))
+    mesh = None if task in ("build_train", "serve") else meshlib.make_mesh(MeshConfig(*inp["mesh"]),
+                                                                 inp.get("spatial", False))
     out = TASKS[task](inp, mesh)
     torch.save(out, os.path.join(io, f"out{args.rank}.pt"))
     dist.destroy_process_group()
