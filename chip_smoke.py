@@ -61,7 +61,24 @@
    step-5 sample PNG against the same samples drawn again; swd_x1e3 finite
    and above 0; best.json at the lowest eval_nll, `build(restore="best")`
    giving it again (rtol 1e-6), `cli.infer nll --best` with no fallback;
-   the profiler's trace and its kernel events.
+   the profiler's trace and its kernel events; the snapshots' times: each
+   rolling save's loop-visible `save_ms` and each eval's `best_save_ms`
+   from metrics.csv (the saves write in the background), beside a
+   synchronous `save(..., wait=True)` of the same state in this process.
+24. Runs right after 18, before 20: the asynchronous snapshots at
+   celeba64 full width (K=32, L=4, hidden 512, b=128, fused, K1/K3).
+   (a) `scripts/ckpt_stall_ab.py` for 2 reps, its JSON line printed.
+   (b) `build` of the preset (steps_per_call=1), a synchronous save at
+   step 0 (the manager's first: its buffers and pickled tensor entries),
+   one train step; a device clone of the state at step 1; the async `save`
+   of step 1 (into the buffers that held step 0), then train
+   steps on the kernels at once, while its writer is still writing (the
+   first is launched with the write in flight, checked); the drained file
+   bitwise equal, tensor by tensor, to the clone; a `build` that resumes
+   from it, whose next step's loss is bitwise the uninterrupted run's.
+   What the save cost the loop: the call and the 4 steps from it, less 4
+   steps with no write in flight (the capture's copy and the writer
+   thread's share of the GIL).
 19. Runs beside 18 and 20 in a process of its own (`--beside`, which
    then runs 22; its output is printed after 21, and the times of 18-22
    are taken while the two processes share the card and the host): the
@@ -92,7 +109,7 @@
    on the prefetcher's thread and in 4 worker processes, and the device's
    idle share over trainer steps 10-15 (the trainer's torch.profiler
    trace, in a run of its own).
-20. Runs after 18 (19 beside them): the conditional model, the imagenet64-cond preset
+20. Runs after 24 (19 beside them): the conditional model, the imagenet64-cond preset
    (K=48, L=4, hidden 512, 1000 classes, b=128, fused, remat) at full
    width.  (a) Writes an ImageNet-64 npz set from seed 0 (two train shards
    and val_data of 4000 textured images each, 'data' (N, 12288) CHW
@@ -369,6 +386,8 @@ MULTI_STEPS, TP_STEPS = 5, 3
 # of each arm, the SPMD artifact's data axis and functions (exported in 21).
 SPATIAL_MODEL, SPATIAL_STEPS = 2, 2
 SPMD_DATA, SPMD_FUNCTIONS, SPMD_SEED = 2, ("sample", "encode", "nll"), SEED + 23
+# Phase 24: the train steps timed from the async snapshot's save, and alone.
+ASYNC_STEPS = 4
 
 
 def require(ok: bool, what: str) -> None:
@@ -1084,6 +1103,110 @@ def check_training(torch, fs, card: str, out_dir: str, profiling: bool = False,
     return launches
 
 
+def check_async_snapshot(torch, card: str, out_root: str) -> None:
+    """Phase 24: the asynchronous snapshots at celeba64 full width on the
+    fused kernels (module docstring)."""
+    from pytorch_glow_tpu_torch import PRESETS, build
+    from pytorch_glow_tpu_torch.scripts import ckpt_stall_ab
+    from pytorch_glow_tpu_torch.utils.profiles import profile_to_dict
+
+    t_phase = time.perf_counter()
+    base = PRESETS["celeba64"]
+    profile = base.replace(data=dataclasses.replace(base.data, name="synthetic_textured"),
+                           train=dataclasses.replace(base.train, steps_per_call=1),
+                           out_dir=out_root)
+    b = profile.train.batch_size
+    built = build(profile)
+    batches = [next(built.data)["image"].clone() for _ in range(2 * ASYNC_STEPS + 1)]
+    built.data.close()
+    step_fn = built.train_step
+    ckpt = built.ckpt
+    # The manager's first save allocates its pinned buffers and pickles the
+    # tensor entries once: take it at step 0, so that step 1's is a later one.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(0, built.state, built.data.get_state(), profile_to_dict(profile), wait=True)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    state, _ = step_fn(built.state, batches[0])
+    torch.cuda.synchronize()
+    clone = {"model": {k: v.clone() for k, v in state["model"].state_dict().items()},
+             "opt_state": {k: v.clone() for k, v in state["opt_state"].items()},
+             "ema": [e.clone() for e in state["ema"]]}
+    data_state = built.data.get_state()
+
+    def timed_step(i):
+        nonlocal state
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        loss = float(m["loss"])  # a host read: the step's wall time
+        return 1e3 * (time.perf_counter() - t0), loss
+
+    # -- the async save of step 1, then train steps at once ---------------------
+    # What the save cost the loop: its call and the steps run from it, less
+    # as many steps with no write in flight.
+    t0 = time.perf_counter()
+    ckpt.save(1, state, data_state, profile_to_dict(profile))
+    call_ms = 1e3 * (time.perf_counter() - t0)
+    with_it, in_flight, losses = [], [], []
+    for i in range(ASYNC_STEPS):
+        in_flight.append(ckpt.writing)
+        ms, loss = timed_step(1 + i)
+        with_it.append(ms)
+        losses.append(loss)
+    require(in_flight[0], "the write of step 1 ended before the next step was launched")
+    t0 = time.perf_counter()
+    ckpt.wait()
+    drain_ms = 1e3 * (time.perf_counter() - t0)
+    alone = [timed_step(1 + ASYNC_STEPS + i)[0] for i in range(ASYNC_STEPS)]
+    cost_ms = call_ms + sum(with_it) - sum(alone)
+    print(f"the manager's first save (step 0, buffers allocated, tensor entries pickled), "
+          f"save(wait=True): {first_ms:.3f} ms")
+    print(f"async save of step 1, celeba64 b={b}: the call {call_ms:.3f} ms, then {ASYNC_STEPS} "
+          f"train steps {', '.join(f'{x:.3f}' for x in with_it)} ms (the write in flight at "
+          f"the start of {sum(in_flight)}), the rest of the write {drain_ms:.3f} ms, then "
+          f"{ASYNC_STEPS} steps with none {', '.join(f'{x:.3f}' for x in alone)} ms: the save "
+          f"cost the loop {cost_ms:.3f} ms; card: {card}")
+
+    # -- the file against the state at step 1, bitwise ----------------------------
+    snap = torch.load(ckpt.path(1), map_location="cuda", weights_only=True)
+    require(snap["step"] == 1 and snap["data_state"] == data_state,
+            f"snapshot step {snap['step']}, data_state {snap['data_state']}")
+    pairs = ([(f"model.{k}", snap["model"].get(k), v) for k, v in clone["model"].items()]
+             + [(f"opt_state.{k}", snap["opt_state"].get(k), v)
+                for k, v in clone["opt_state"].items()]
+             + [(f"ema.{i}", e, v) for i, (e, v) in enumerate(zip(snap["ema"], clone["ema"]))])
+    differ = [n for n, got, want in pairs
+              if got is None or got.dtype != want.dtype or not torch.equal(got, want)]
+    moved = sum(not torch.equal(p, clone["model"][n])
+                for n, p in state["model"].state_dict().items())
+    print(f"step-1 snapshot written under {sum(in_flight)} later steps: {len(pairs)} tensors, "
+          f"{len(differ)} differ from the device clone taken at step 1 ({moved} model tensors "
+          f"moved since)")
+    require(len(snap["model"]) == len(clone["model"]) and len(snap["ema"]) == len(clone["ema"])
+            and sorted(snap["opt_state"]) == sorted(clone["opt_state"]) and not differ
+            and moved > 0, f"snapshot differs from the step-1 state: {differ[:5]}")
+    del snap, clone, state, built, step_fn
+    torch.cuda.empty_cache()
+
+    # -- resume from it: the next step's loss bitwise --------------------------------
+    resumed = build(profile)
+    require(resumed.resumed and resumed.start_step == 1,
+            f"resume {resumed.resumed} at {resumed.start_step}")
+    resumed.data.close()
+    _, m = resumed.train_step(resumed.state, batches[1])
+    loss = float(m["loss"])
+    print(f"resumed from the step-1 snapshot: step-2 loss {loss!r}, uninterrupted {losses[0]!r}")
+    require(loss == losses[0], f"resumed step-2 loss {loss!r} vs {losses[0]!r}")
+    resumed.ckpt.close()
+    del resumed, batches, m
+    torch.cuda.empty_cache()
+
+    # -- the stall tool ------------------------------------------------------------------
+    ckpt_stall_ab.main(["celeba64", "--reps", "2", "--dir", out_root,
+                        "--imgs-per-sec", str(b * 1e3 / statistics.median(alone))])
+    print(f"phase 24 (asynchronous snapshots): {time.perf_counter() - t_phase:.2f} s")
+
+
 def add_counts(*dicts) -> dict:
     return {k: sum(d[k] for d in dicts) for k in dicts[0]}
 
@@ -1240,6 +1363,22 @@ def check_boundaries(torch, fs, card: str, out_root: str) -> dict:
     print(f"build(restore='best'): step {best.start_step}, eval_nll on its EMA weights {again:.7f} "
           f"(rel {abs(again - info['metric']) / abs(info['metric']):.2e})")
     require(abs(again - info["metric"]) <= 1e-6 * abs(info["metric"]), f"best eval_nll {again}")
+
+    # -- the snapshots' loop-visible times against a synchronous save ----------
+    saves = [float(r["save_ms"]) for r in rows if r.get("save_ms")]
+    best_ms = [float(evals[s]["best_save_ms"]) for s in sorted(evals)]
+    require(len(saves) == 2 and all(math.isfinite(x) and x > 0 for x in saves + best_ms),
+            f"save_ms {saves}, best_save_ms {best_ms}")
+    yardstick = CheckpointManager(os.path.join(out_root, "sync-yardstick"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yardstick.save(best.start_step, best.state, None, {}, wait=True)
+    sync_ms = 1e3 * (time.perf_counter() - t0)
+    yardstick.close()
+    print(f"snapshot times celeba64 b={b} (metrics.csv): rolling save loop-visible "
+          f"{', '.join(f'{x:.3f}' for x in saves)} ms (steps 5, 10), best_save_ms "
+          f"{', '.join(f'{x:.3f}' for x in best_ms)} ms (evals 5, 10); a synchronous "
+          f"save(wait=True) of the same state in this process {sync_ms:.3f} ms; card: {card}")
     del best, best_model
     torch.cuda.empty_cache()
     err = io.StringIO()
@@ -3760,6 +3899,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
         boundary_launches = check_boundaries(torch, fs, card,
                                              os.path.join(out_root, "boundaries"))
         print(f"phase 18 (the trainer's boundaries): {time.perf_counter() - t0:.2f} s")
+        check_async_snapshot(torch, card, os.path.join(out_root, "async"))
         cond_launches = check_conditional(torch, fs, card, os.path.join(out_root, "conditional"))
         until(os.path.join(out_root, "data.done"))
         check_serving_artifacts(torch, fs, icf, card, os.path.join(out_root, "serving"),

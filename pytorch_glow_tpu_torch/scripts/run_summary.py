@@ -9,8 +9,8 @@ best.json under out_dir/name.  Prints one JSON object: the median ms of a
 train step between boundaries (from the images/sec of the scalar-log
 windows that hold no boundary's time; the first window, which pays the
 warm-up, is left out), each plot, eval and SWD boundary as logged (its
-ms, flow-step launches and host parts), the eval and SWD metrics, and the
-best snapshot.  The times are those of the machine that trained.
+ms, flow-step launches and host parts), each rolling snapshot's loop-visible
+`save_ms`, the eval and SWD metrics, and the best snapshot.  The times are those of the machine that trained.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ HOST_PARTS = {"eval": "best_save_ms", "swd": "swd_host_ms"}
 
 def summarize_run(rows: list[dict], batch_size: int, scalar_log_gap: int) -> dict:
     """The summary of a run's metrics.csv rows."""
-    marks = {int(r["step"]) for r in rows if any(r.get(f"{k}_ms") for k in KINDS)}
+    marks = {int(r["step"]) for r in rows if any(r.get(f"{k}_ms") for k in (*KINDS, "save"))}
     # A window (s - gap, s] holds a boundary's time when one ran at its start.
     step_ms = [1e3 * batch_size / float(r["images_per_sec"]) for r in rows
                if r.get("images_per_sec") and float(r["images_per_sec"]) > 0
@@ -46,6 +46,8 @@ def summarize_run(rows: list[dict], batch_size: int, scalar_log_gap: int) -> dic
     return {"median_step_ms": statistics.median(step_ms) if step_ms else None,
             "step_windows": len(step_ms),
             "boundaries": boundaries,
+            "saves": [{"step": int(r["step"]), "save_ms": float(r["save_ms"])}
+                      for r in rows if r.get("save_ms")],
             "evals": [{"step": int(r["step"]), **{m: float(r[m]) for m in metrics if r.get(m)}}
                       for r in rows if r.get("eval_nll") or r.get("swd_x1e3")]}
 

@@ -90,7 +90,7 @@ def do_import(args) -> dict:
         print(f"[import] warning: {ckpt.directory} already has step {latest}; a resume "
               f"restores the highest step, and the import lands at step {step}",
               file=sys.stderr)
-    saved = ckpt.save(step, state, None, profile_to_dict(prof))
+    saved = ckpt.save(step, state, None, profile_to_dict(prof), wait=True)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"imported {path} ({len(sd)} tensors, snapshot step {snap_step}) -> {saved} "
           f"({n_params / 1e6:.2f}M params; optimizer state fresh)")

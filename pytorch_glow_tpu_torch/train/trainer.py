@@ -17,6 +17,17 @@ watchdog (`_StepWatchdog`, armed by `step_timeout_s`).  The device syncs
 only after the first call, at log boundaries, snapshots and the
 boundaries below.
 
+Snapshots are written as the JAX trainer writes them: the rolling one and
+the eval's best one return once the state is captured (a copy into host
+buffers on the stream) and are written by the manager's writer thread
+while the loop goes on; the final one waits for its file, and then
+`ckpt.wait()` drains the best saves, so a clean return or a SIGTERM stop
+leaves its snapshots on disk.  A failed call takes no new snapshot but
+drains the writes in flight before the failure propagates, so a retry
+resumes from the newest one.  The watchdog never waits for a write: its
+re-exec abandons the write in flight, whose temporary file never replaces
+a snapshot.
+
 After the rolling snapshot of a step, in the JAX order, each on the eval
 copy of the model (`Built.serving`):
 
@@ -44,8 +55,10 @@ Each boundary logs its wall time, `plot_ms` / `eval_ms` / `swd_ms` (the
 device synced before it; each ends on a host read), and the flow-step
 kernel launches it made, `plot_launches` / `eval_launches` /
 `swd_launches` (0 on the CPU, where no kernel runs); the host parts apart
-as `swd_host_ms` (the numpy SWD) and `best_save_ms` (the eval's
-best-snapshot check and write).
+as `swd_host_ms` (the numpy SWD) and `best_save_ms` (what the loop waits
+for of the eval's best-snapshot check and save: the decision, the capture
+and its copy, not the write).  A rolling snapshot logs `save_ms`, the same
+for its save (the device synced before it).
 
 `profile_step` traces `profile_num_steps` steps with `torch.profiler` (CPU,
 and CUDA on the card) into out_dir/name/profile/.  A SIGTERM stops the loop
@@ -162,8 +175,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _save(built: Built, state: dict, step: int) -> None:
-    built.ckpt.save(step, state, built.data.get_state(), profile_to_dict(built.profile))
+def _save(built: Built, state: dict, step: int, wait: bool = False) -> None:
+    built.ckpt.save(step, state, built.data.get_state(), profile_to_dict(built.profile),
+                    wait=wait)
+
+
+def _timed_save(built: Built, state: dict, step: int) -> dict:
+    """The rolling snapshot, and `save_ms`: the wall time the loop spends
+    on it, the capture's copy included."""
+    _sync(built.device)
+    t0 = time.perf_counter()
+    _save(built, state, step)
+    _sync(built.device)
+    return {"save_ms": 1e3 * (time.perf_counter() - t0)}
 
 
 def _writer(built: Built) -> bool:
@@ -285,6 +309,7 @@ def _eval(built: Built, state: dict, step: int) -> dict:
     if math.isfinite(ev["eval_nll"]) and built.ckpt.maybe_save_best(
             step, state, ev["eval_nll"], built.data.get_state(), profile_to_dict(built.profile)):
         ev["best_eval_nll"] = ev["eval_nll"]
+        _sync(built.device)  # the capture's copy
     ev["best_save_ms"] = 1e3 * (time.perf_counter() - t0)
     return ev
 
@@ -384,7 +409,7 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
             # The snapshot comes before the boundary's other work, so a
             # failure there keeps it.
             if t.checkpoint_gap and step % t.checkpoint_gap == 0:
-                _save(built, state, step)
+                logger.scalars(step, _timed_save(built, state, step))
             # The last micro-batch feeds the grids and SWD.
             plot = t.plot_gap and step % t.plot_gap == 0
             swd = t.swd_gap and step % t.swd_gap == 0
@@ -397,8 +422,16 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
             if swd:
                 logger.scalars(step, _boundary("swd", _swd, built, state, step, last, y))
     except BaseException:
+        # No snapshot follows a failure, but the writes in flight land
+        # before it propagates (a retry resumes from the newest), still
+        # under the watchdog; no barrier, as the other ranks may not come.
+        try:
+            built.ckpt.wait(barrier=False)
+        except Exception as e:
+            print(f"[train] a snapshot write in flight also failed: {type(e).__name__}: {e}",
+                  file=sys.stderr, flush=True)
         if watchdog is not None:
-            watchdog.stop()  # no snapshot follows a failure
+            watchdog.stop()
         if profiler.active:
             # After a device error the profiler's sync raises again: report
             # that, and let the original failure propagate.
@@ -424,7 +457,8 @@ def train(built: Built, num_steps: int | None = None, quiet: bool = False) -> di
         # trip it.
         watchdog.beat()
     try:
-        _save(built, state, step)  # only after a call that did not fail
+        _save(built, state, step, wait=True)  # only after a call that did not fail
+        built.ckpt.wait()  # the best saves in flight
     finally:
         if watchdog is not None:
             watchdog.stop()  # teardown done; do not police the caller

@@ -193,6 +193,8 @@ def test_best_checkpoint_tracks_min_metric(tmp_path):
     assert not ckpt.maybe_save_best(30, _state(30), 2.8, None, {})
     assert not ckpt.maybe_save_best(31, _state(31), 2.5, None, {})  # ties keep the first
     assert ckpt.best_info() == {"step": 20, "metric": 2.5}
+    ckpt.wait()  # the saves are asynchronous
+    assert ckpt.best_info() == {"step": 20, "metric": 2.5}
     assert sorted(os.listdir(tmp_path / "ck-best")) == ["20.pt", "best.json"]
 
     ckpt2 = CheckpointManager(str(tmp_path / "ck"), keep=2)  # fresh instance
@@ -209,6 +211,7 @@ def test_restore_best_falls_back_when_sidecar_step_missing(tmp_path, capsys):
     file there, with a printed warning."""
     ckpt = CheckpointManager(str(tmp_path / "ck"))
     assert ckpt.maybe_save_best(10, _state(10), 3.0, None, {})
+    ckpt.wait()  # the save is asynchronous: let it land before the sidecar is edited
     (tmp_path / "ck-best" / "best.json").write_text(json.dumps({"step": 999, "metric": 2.0}))
     restored = ckpt.restore_best("cpu")
     assert restored is not None and restored["step"] == 10
@@ -217,9 +220,12 @@ def test_restore_best_falls_back_when_sidecar_step_missing(tmp_path, capsys):
 
 def test_crash_before_best_json_leaves_the_old_pair(tmp_path, monkeypatch):
     """The new best's snapshot lands first, then best.json, then the old
-    file goes: a crash between the first two leaves the old pair intact."""
+    file goes: a crash between the first two leaves the old pair intact.
+    The save is asynchronous, so the failure surfaces when the manager
+    joins its writer (logged, on `last_best_error`), not at the call."""
     ckpt = CheckpointManager(str(tmp_path / "ck"))
     assert ckpt.maybe_save_best(10, _state(10), 3.0, None, {})
+    ckpt.wait()
     real = tcheckpoint._write_atomic
 
     def crash_on_json(path, write):
@@ -228,13 +234,16 @@ def test_crash_before_best_json_leaves_the_old_pair(tmp_path, monkeypatch):
         real(path, write)
 
     monkeypatch.setattr(tcheckpoint, "_write_atomic", crash_on_json)
-    with pytest.raises(OSError):
-        ckpt.maybe_save_best(20, _state(20), 2.0, None, {})
+    assert ckpt.maybe_save_best(20, _state(20), 2.0, None, {})
+    ckpt.wait()
     monkeypatch.undo()
+    assert isinstance(ckpt.last_best_error, OSError)
+    assert "disk full" in str(ckpt.last_best_error)
     assert ckpt.best_info() == {"step": 10, "metric": 3.0}
     assert ckpt.restore_best("cpu")["step"] == 10
     assert not [n for n in os.listdir(tmp_path / "ck-best") if n.endswith(".tmp")]
     assert ckpt.maybe_save_best(30, _state(30), 2.0, None, {})  # the next save cleans up
+    ckpt.wait()
     assert sorted(os.listdir(tmp_path / "ck-best")) == ["30.pt", "best.json"]
 
 

@@ -316,9 +316,15 @@ def test_snapshots_restore_across_meshes(tmp_path):
     snap["data_states"] = [{"next_index": 11}, {"next_index": 13}]
     torch.save(snap, path)
     p2 = _profile(out, mesh=(2, 1), num_steps=8)
-    runs2 = _run("build_train", {"profile": profile_to_dict(p2), "num_steps": 8}, 2, tmp_path,
-                 tag="-two")
+    runs2 = _run("build_train", {"profile": profile_to_dict(p2), "num_steps": 8,
+                                 "async_save": True}, 2, tmp_path, tag="-two")
     assert all(r["resumed"] and r["start_step"] == 6 for r in runs2)
+    # A background save on the mesh, restored on every rank.
+    for r in runs2:
+        got = r["async_restore"]
+        assert got["step"] == 100 and len(got["data_states"]) == 2
+        for name, t in runs2[0]["params"].items():
+            assert torch.equal(got["model"][name], t), name
     assert [r["start_data_state"] for r in runs2] == snap["data_states"]
     assert len({r["result"]["loss"] for r in runs2}) == 1
     assert all(r["result"]["final_step"] == 8 for r in runs2)

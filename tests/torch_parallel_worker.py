@@ -17,7 +17,9 @@ Tasks:
                mesh): each step's loss, grad_norm and lr, the params and the
                EMA after them.
   build_train  `build(profile)` then `train(num_steps)`: the build's resume
-               state, the result, the params and the stream position.
+               state, the result, the params and the stream position; with
+               `async_save`, then a background save of the trained state on
+               the mesh and a restore of it on every rank.
   spatial      spatial sharding (`shard_spatial`, a mesh made with
                spatial=True): DDI, log_prob, reconstruct and sample (from
                explicit noise and from a generator) of `cfg` on the rank's
@@ -112,6 +114,15 @@ def build_train(inp: dict, mesh) -> dict:
     out["result"] = train(built, num_steps=inp["num_steps"], quiet=True)
     out["params"] = meshlib.gather_params(built.state["model"].state_dict(), built.mesh)
     out["mesh"] = (built.mesh.data, built.mesh.model, built.mesh.data_rank, built.mesh.model_rank)
+    if inp.get("async_save"):
+        from pytorch_glow_tpu_torch.utils.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(os.path.join(built.profile.out_dir, "async"), mesh=built.mesh)
+        ckpt.save(100, built.state, built.data.get_state(), {})
+        snap = ckpt.restore("cpu")  # drains rank 0's write, then a barrier
+        out["async_restore"] = {"step": snap["step"], "model": snap["model"],
+                                "data_states": snap["data_states"]}
+        ckpt.close()
     return out
 
 
