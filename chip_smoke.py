@@ -188,15 +188,29 @@
    their halo rows added on the neighbour and their weight grads summed
    against `step_backward_ref` at the bounds of 6; each timed beside its
    plain slab version, the library yardstick on the padded slab and the
-   bound of the slab's own rows.  (b) `cli.train` not distributed,
-   `--steps 0` (DDI, a step-0 snapshot) then SPATIAL_STEPS steps; the
-   same steps from that snapshot under `torch.distributed.run
+   bound of the slab's own rows.  (a') The same on one-row slabs at
+   level 5 (b=64, 4 rows of 4, C=384) under a model group of 4: each of
+   the four slabs, padded to 5 rows, through K4 forward and reverse (R=1)
+   against its plain slab version (the bounds of 3), their rows
+   concatenated bitwise equal to the whole chain's (K1 / K2, which the
+   unsharded path runs there), the logdets' sum within 1e-6 relative;
+   K5 on each, the g_z of the padded slabs added at their rows (halo rows
+   reaching two slabs away) against `step_backward_ref` at the bounds of
+   6, the weight grads summed and held by 8's rule, as K3 is at this
+   width (phase 6's elementwise 5e-2 missed w2's grad by its sum order:
+   35.94 against 5 % of its largest magnitude).  (b) `cli.train` not
+   distributed, `--steps 0` (DDI, a step-0 snapshot) then SPATIAL_STEPS
+   steps; the same steps from that snapshot under `torch.distributed.run
    --nproc_per_node 2` on gloo as (data=1, model=2) with the preset's
-   `shard_spatial`: at every step (step 2 after the update) the loss
+   `shard_spatial`, the coupling nets tensor-parallel over the same model
+   group: at every step (step 2 after the update) the loss
    within 1e-5 relative and grad_norm within 1e-4 of the unsharded run's,
    phase 22's step-1 bounds, K*L slab-form K4 and K5 launches a step on
-   each rank, no whole-chain or unsharded band launch; each arm's
-   step ms.  (c) On the same two ranks, from the step-0 snapshot: the
+   each rank, no whole-chain or unsharded band launch; each rank's
+   shards of hidden / 2 (conv1's weight and actnorm, conv2's weight, K*L
+   of each) and its flat optimizer vectors and EMA as long as its
+   trainables; each rank's and the unsharded run's peak
+   `max_memory_allocated`; each arm's step ms.  (c) On the same two ranks, from the step-0 snapshot: the
    sharded encode's z and split halves bitwise equal to the unsharded
    chain's (the parent's, K4 bands at level 0 and K1 below), its logdet
    within 1e-6 relative, decode(encode(x)) bitwise equal to the unsharded
@@ -3518,6 +3532,73 @@ def check_slab(torch, fs, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def check_one_row_slabs(torch, fs, results: dict) -> None:
+    """Phase 23 (a'), module docstring: K4 / K5 in slab form on one-row
+    slabs, celebahq256 level 5 (b=64, 4 rows of 4, C=384, additive) under
+    a model group of 4, against their plain slab versions and the whole
+    chain K1 / K2."""
+    b, (h, w, c), n = BATCH, HQ_WHOLE_SHAPES[-1], 4
+    k = fs.HALO
+    gen = torch.Generator().manual_seed(SEED + 42)
+    step = noisy_step(c, "additive", gen, torch)
+    z, gzn = (torch.randn(b, h, w, c, generator=gen).cuda() for _ in range(2))
+    gld = torch.randn(b, generator=gen).cuda()
+    tag = f"{b}x1(+{2 * k})x{w}x{c} additive slabs of {h} rows (R={fs.band_rows(1, w)})"
+    slabs = padded_slabs(torch, fs, z, n)
+    with torch.no_grad():
+        wf = fs.pack_weights(step, False, reverse=False)
+        wr = fs.pack_weights(step, False, reverse=True)
+        zw, ldw = fs._launch(wf, z, False, False)
+        xw = fs._launch(wr, zw, False, True)[0]
+        outs = [fs._launch_band(wf, zp, False, False, slab) for zp, slab in slabs]
+        back_slabs = padded_slabs(torch, fs, zw, n)
+        backs = [fs._launch_band(wr, zp, False, True, slab)[0] for zp, slab in back_slabs]
+        for (zp, slab), (zk, _), (zq, sq), xk in zip(slabs, outs, back_slabs, backs):
+            require(zp.shape[1] == 1 + 2 * k and zk.shape[1] == 1, f"{tag}: slab shapes")
+            hold_outputs(torch, tag, "slab_forward", zk,
+                         fs.step_forward_band_ref(wf, zp, False, slab=slab)[0], results)
+            hold_outputs(torch, tag, "slab_reverse", xk,
+                         fs.step_reverse_band_ref(wr, zq, False, slab=sq), results)
+        g_pad = torch.zeros(b, h + 2 * k, w, c, device=z.device)
+        grads = None
+        for m, (zp, slab) in enumerate(slabs):
+            g, part = fs._launch_band_backward(wf, zp, gzn[:, m:m + 1], gld, False, slab)
+            g_pad[:, m:m + 1 + 2 * k] += g
+            grads = part if grads is None else [a + p_ for a, p_ in zip(grads, part)]
+        rz, rgrads = fs.step_backward_ref(wf, z, gzn, gld, False)
+    torch.cuda.synchronize()
+    require(torch.equal(torch.cat([o for o, _ in outs], dim=1), zw)
+            and torch.equal(torch.cat(backs, dim=1), xw),
+            f"{tag}: the one-row slabs' rows differ from the whole chain's (K1 / K2)")
+    ld_rel = float((sum(ld for _, ld in outs) - ldw).abs().max()) / max(float(ldw.abs().max()),
+                                                                        1e-30)
+    require(ld_rel <= 1e-6, f"{tag}: the slabs' logdet sum rel {ld_rel}")
+    require(not g_pad[:, :k].any() and not g_pad[:, -k:].any(),
+            f"{tag} slab_backward: a cotangent beyond the image")
+    err, scale = hold_gz(torch, tag, "slab_backward", g_pad[:, k:-k], rz, results)
+    # The weight grads by phase 8's rule, which K3 is held to at this width:
+    # phase 6's elementwise 5e-2 moves with the plain version's sum order.
+    with torch.no_grad():
+        w32 = fs.pack_weights(step, False, False, torch.float32)
+        _, fgrads = fs.step_backward_ref(w32, z, gzn, gld, False, torch.float32)
+    rows, rel = [], []
+    for i, (g, r, f) in enumerate(zip(grads, rgrads, fgrads)):
+        kl2, pl2 = rel_l2(g, f), rel_l2(r, f)
+        require(bool(torch.isfinite(g).all()) and kl2 <= 1.5 * pl2 + 1e-3,
+                f"{tag} slab_backward: weight grad {i} relative l2 to f32 {kl2}, plain bf16 {pl2}")
+        rows.append(f"{kl2:.2e}/{pl2:.2e}")
+        rel.append(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30))
+    print(f"slab kernel {tag}: K4 forward and reverse on each of the {n} one-row slabs within "
+          f"the bounds of 3 of their plain slab versions, their rows bitwise the whole chain's "
+          f"(K1 / K2), logdet sum rel {ld_rel:.3e}; K5's g_z (halo rows added two slabs away) "
+          f"against step_backward_ref max {float(err.max()):.3e} mean {float(err.mean()):.3e} "
+          f"scale {scale:.3f} (the bounds of 6); summed weight grads relative l2 to f32 "
+          f"coupling, kernel / plain bf16: {', '.join(rows)} (phase 8's rule; max |diff| to the "
+          f"plain bf16 grads rel to its largest {max(rel):.2e})")
+    del step, z, gzn, slabs, outs, backs, g_pad, grads, rz, rgrads, fgrads
+    torch.cuda.empty_cache()
+
+
 def check_spatial(torch, fs, card: str, out_root: str, spmd: str) -> dict:
     """Phase 23 (module docstring); returns rank 0's slab-form launches."""
     from pytorch_glow_tpu_torch.cli import train as train_cli
@@ -3548,7 +3629,9 @@ def check_spatial(torch, fs, card: str, out_root: str, spmd: str) -> dict:
     run_cli(train_cli.main, argv("u", 0))
     snap = os.path.join(run_dir("u"), "checkpoints", "0.pt")
     fs.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     run_cli(train_cli.main, argv("u", SPATIAL_STEPS))
+    u_peak = torch.cuda.max_memory_allocated()
     unsharded = dict(fs.launches)
     ref = step_rows(run_dir("u"))
     print(f"(u) cli.train celebahq256 b={b}, not distributed: {time.perf_counter() - t0:.2f} s, "
@@ -3611,6 +3694,12 @@ def check_spatial(torch, fs, card: str, out_root: str, spmd: str) -> dict:
         sv = o["serve"]
         require(sv["sample_equal"] and sv["encode_equal"] and sv["nll_rel"] <= 1e-5
                 and sv["launches"] == serve_want, f"rank {r}: SPMD serving {sv}")
+    shares = [hold_shares(q["stored"], cfg, r) for r, q in enumerate(ranks)]
+    print("(s) tensor-parallel shards beside the row slabs: " + "; ".join(shares))
+    print(f"(s) peak device memory per rank (max_memory_allocated over the train CLI run, two "
+          f"ranks sharing one card): "
+          + ", ".join(f"rank {r} {q['peak_bytes'] / 2**30:.3f} GiB" for r, q in enumerate(ranks))
+          + f"; (u) unsharded in-process {u_peak / 2**30:.3f} GiB; card: {card}")
     o = ranks[0]
     print(f"(s) 2 gloo ranks (data=1, model={SPATIAL_MODEL}, shard_spatial) from (u)'s step-0 "
           f"snapshot, {SPATIAL_STEPS} steps: {wall:.2f} s with start-up, {step_ms('s')}; "
@@ -3633,6 +3722,38 @@ def check_spatial(torch, fs, card: str, out_root: str, spmd: str) -> dict:
             for k in ("slab_forward", "slab_reverse", "slab_backward")}
 
 
+def stored_shares(built, meshlib) -> dict:
+    """What a rank of `built` stores: its tensor-parallel parameters' shapes
+    (each sharded dim) and the elements of its trainables, of each flat
+    optimizer vector and of the EMA, beside the whole model's trainables."""
+    model, mesh = built.state["model"], built.mesh
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    shards = {n: list(p.shape) for n, p in named if meshlib.param_pspec(n, mesh.tp) is not None}
+    local = sum(p.numel() for _, p in named)
+    whole = local + sum(p.numel() for n, p in named if n in shards) * (mesh.model - 1)
+    return {"model": mesh.model, "shards": shards, "trainables": local, "whole": whole,
+            "ema": sum(e.numel() for e in built.state["ema"]),
+            "opt": {k: v.numel() for k, v in built.state["opt_state"].items() if v.dim() == 1}}
+
+
+def hold_shares(stored: dict, cfg, rank: int) -> str:
+    """Phase 23 (b): a rank's shards hold hidden / model of each coupling
+    net's conv1 weight and actnorm and conv2 weight (K*L of each), and its
+    optimizer vectors and EMA as many elements as its trainables."""
+    n, hidden, shards = stored["model"], cfg.hidden_channels, stored["shards"]
+    for name, shape in shards.items():
+        dim = 1 if name.endswith(("f.2.weight", "actnorm.bias", "actnorm.logs")) else 0
+        require(shape[dim] == hidden // n, f"rank {rank}: {name} holds {shape}")
+    require(len(shards) == 4 * cfg.K * cfg.L, f"rank {rank}: {len(shards)} sharded tensors")
+    local = stored["trainables"]
+    require(stored["ema"] == local and set(stored["opt"].values()) == {local},
+            f"rank {rank}: EMA {stored['ema']}, optimizer vectors {stored['opt']}, "
+            f"trainables {local}")
+    return (f"rank {rank}: {len(shards)} shards of {hidden // n} of {hidden} hidden channels; "
+            f"{local} of {stored['whole']} trainables ({local / stored['whole']:.4f}), each "
+            f"of its {len(stored['opt'])} flat optimizer vectors and its EMA as many")
+
+
 def rank_spatial(argv: list[str]) -> int:
     """One rank of phase 23: `chip_smoke.py --rank-spatial gloo OUT SPEC`.
     Joins the gloo group, then (b) `cli.train.main` on SPEC's arguments,
@@ -3651,6 +3772,7 @@ def rank_spatial(argv: list[str]) -> int:
     from pytorch_glow_tpu_torch.ops import flowstep as fs
     from pytorch_glow_tpu_torch.parallel import distributed
     from pytorch_glow_tpu_torch.parallel import mesh as meshlib
+    from pytorch_glow_tpu_torch.train import builder
 
     pin_backends(torch)
     backend, out, spec_path = argv
@@ -3659,11 +3781,23 @@ def rank_spatial(argv: list[str]) -> int:
     require(distributed.maybe_initialize(distributed.local_device(), backend),
             "torchrun's environment is missing")
     res = {}
+    builds = []
+
+    def build(*args, **kwargs):  # the CLI's build, kept for its shards
+        builds.append(real_build(*args, **kwargs))
+        return builds[-1]
+
+    real_build, builder.build = builder.build, build
     try:
         fs.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         res["result"] = train_cli.main(spec["train"])
         torch.cuda.synchronize()
         res["train_launches"] = dict(fs.launches)
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["stored"] = stored_shares(builds[-1], meshlib)
+        builder.build = real_build
+        del builds[:]
 
         cfg = PRESETS["celebahq256"].glow
         model = init_glow(cfg, torch.Generator().manual_seed(SEED), "cuda")
@@ -3906,6 +4040,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
                                 os.path.join(out_root, "data"))
     t0 = time.perf_counter()
     check_slab(torch, fs, results)
+    check_one_row_slabs(torch, fs, results)
     print(f"phase 23 (a), the slab-form kernels: {time.perf_counter() - t0:.2f} s")
     slab_launches = check_spatial(torch, fs, card, os.path.join(out_root, "spatial"),
                                   os.path.join(out_root, "serving", "spmd"))

@@ -56,21 +56,27 @@ a standard normal for gaussian).  Draws taken outside from a generator in
 that order give the live call's result bit for bit.
 
 On a mesh (`self.mesh`, set by `parallel/mesh.shard_model`): DDI takes the
-global batch's statistics over the data group, and under tensor
-parallelism the unfused coupling nets reduce over the model group
-(`models/layers.CouplingNet`).  The fused kernels keep the whole hidden
-width, as the JAX kernels' partitioning keeps the weights replicated and
-shards only the batch: before packing, conv1 and conv2 are gathered over
-the model group (`_GatherFromModel`), and the backward hands each shard
-its slice of the kernel's gradient, so each model peer runs K1/K3 on the
-same rows with the full weights.
+global batch's statistics over the data group, and a model whose coupling
+nets hold tensor-parallel shards (`holds_shards`, model > 1) runs them
+over the model group (`models/layers.CouplingNet`: column / row parallel
+on a whole level, gathered on a spatially sharded one).  The fused
+kernels keep the whole hidden width, as the JAX kernels' partitioning
+keeps the weights replicated: before a level's steps, their conv1 and
+conv2 are gathered over the model group in one collective
+(`models/layers.gather_from_model`), and the backward hands each shard
+its slice of the kernel's gradient: on a
+whole level (every model peer runs K1/K3 on the same rows) the slice
+itself, on a sharded level (K4/K5 on each rank's slab) the slice of the
+peers' sum.  An eval copy on the mesh holds whole weights
+(`holds_shards` False) and gathers nothing.
 
 Spatial sharding (`cfg.shard_spatial` on a mesh with model > 1, set up
 by `set_mesh`; `parallel/spatial.py` says which levels and how gradients
 flow): at the start of each sharded level, encode and decode hold the
 rank's row slab of the level's activations, the counterpart of JAX's
 `_maybe_shard_spatial`.  On the fused path every step exchanges HALO rows
-with the neighbouring ranks and runs the band chain on the padded slab
+with the neighbouring ranks (a one-row slab takes them from the level
+all-gathered) and runs the band chain on the padded slab
 (`ops/flowstep.FusedStep` with a `Slab`, K4/K5 in slab form); on the unfused path
 the 3x3 convs exchange one row each (`models/layers`).  Every term that
 counts pixels of a sharded level (actnorm, 1x1 conv and coupling logdets,
@@ -105,6 +111,7 @@ from pytorch_glow_tpu_torch.models.layers import (
     LinearZeros,
     Split2d,
     Squeeze,
+    gather_from_model,
 )
 from pytorch_glow_tpu_torch.models.vardeq import VarDeq
 from pytorch_glow_tpu_torch.ops import flowstep as fs
@@ -117,27 +124,9 @@ from pytorch_glow_tpu_torch.ops.math import (
     num_dims,
 )
 from pytorch_glow_tpu_torch.ops.reshape import split_channel, squeeze2d, unsqueeze2d
-from pytorch_glow_tpu_torch.parallel import distributed as pd
 from pytorch_glow_tpu_torch.parallel import spatial
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-class _GatherFromModel(torch.autograd.Function):
-    """A tensor-parallel shard -> the full tensor, concatenated over the
-    model group along `dim`.  Every model peer computes the same gradient
-    of the full tensor (same rows, same weights), so the backward keeps
-    this rank's slice of it: an all-gather's own backward would sum the
-    peers' identical gradients and scale it by the group's size."""
-
-    @staticmethod
-    def forward(ctx, t: torch.Tensor, dim: int, group) -> torch.Tensor:
-        ctx.dim, ctx.rank, ctx.n = dim, torch.distributed.get_rank(group), t.shape[dim]
-        return pd.all_gather_cat(t, dim, group)
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
 
 
 class _FlowNet(nn.Module):
@@ -180,6 +169,7 @@ class Glow(nn.Module):
             self.vardeq = VarDeq(cfg, generator)
         self._ddi = False
         self.mesh = None  # parallel.mesh.Mesh, set by set_mesh
+        self.holds_shards = False  # conv1 / conv2 hold tensor-parallel shards (shard_model)
         self._sharded = [False] * cfg.L  # per level: on row slabs over the model group
 
     @property
@@ -188,8 +178,10 @@ class Glow(nn.Module):
 
     def set_mesh(self, mesh) -> "Glow":
         """Run on `mesh` (`parallel/mesh.shard_model` calls it): DDI's
-        statistics over its data group, and under spatial sharding the
-        levels `spatial.level_sharded` picks on row slabs, their 3x3 convs
+        statistics over its data group; the coupling nets of a model that
+        holds shards over its model group, each told whether its level
+        runs on row slabs; and under spatial sharding the levels
+        `spatial.level_sharded` picks on row slabs, their 3x3 convs
         exchanging halo rows."""
         self.mesh = mesh
         self._sharded = [spatial.level_sharded(self.cfg, mesh, h)
@@ -198,22 +190,29 @@ class Glow(nn.Module):
         if any(self._sharded):
             def halo(x, k):
                 return spatial.exchange(x, k, mesh)
+        group = mesh.model_group if mesh is not None and self.holds_shards else None
         for (steps, split), sharded in zip(self._levels, self._sharded):
             for step in steps:
                 step.f[0].halo = step.f[4].halo = halo if sharded else None
+                step.f.model_group, step.f.rows_sharded = group, sharded
             if split is not None:
                 split.conv.halo = halo if sharded else None
         return self
 
-    def sharded_modules(self) -> list[nn.Module]:
-        """The flow steps and split priors of the spatially sharded levels:
-        their parameters' gradients are the rank's rows' partials."""
-        out: list[nn.Module] = []
+    def row_partial_parameters(self) -> list[nn.Parameter]:
+        """The parameters whose gradient on this rank is its rows' partial:
+        those of the spatially sharded levels' flow steps and split priors,
+        but for the gathered shards, whose backward sums over the model
+        group itself (`models/layers.gather_from_model`)."""
+        out: list[nn.Parameter] = []
         for (steps, split), sharded in zip(self._levels, self._sharded):
-            if sharded:
-                out.extend(steps)
-                if split is not None:
-                    out.append(split)
+            if not sharded:
+                continue
+            for step in steps:
+                gathered = {id(p) for p, _ in step.f.shards()} if self.holds_shards else set()
+                out.extend(p for p in step.parameters() if id(p) not in gathered)
+            if split is not None:
+                out.extend(split.parameters())
         return out
 
     def _slab(self, level: int) -> fs.Slab | None:
@@ -228,14 +227,15 @@ class Glow(nn.Module):
     def _fused(self) -> bool:
         return self.cfg.flowstep_impl == "pallas" and not self._ddi
 
-    def _pack(self, step: FlowStep, affine: bool, reverse: bool) -> list[torch.Tensor]:
-        gather = None
-        if self.mesh is not None and self.mesh.tp:
-            group = self.mesh.model_group
-
-            def gather(t, dim):
-                return _GatherFromModel.apply(t, dim, group)
-        return fs.pack_weights(step, affine, reverse, fs.COUPLING_DTYPE, gather)
+    def _full_weights(self, steps: list[FlowStep], slab: fs.Slab | None) -> list:
+        """Per step, the full tensors of its tensor-parallel shards for the
+        fused kernels (None without shards): one collective for the level,
+        whose backward reduce-scatters on a sharded level (`slab`)."""
+        if not self.holds_shards:
+            return [None] * len(steps)
+        shards = [pair for step in steps for pair in step.f.shards()]
+        full = gather_from_model(shards, self.mesh.model_group, partial=slab is not None)
+        return [full[4 * i:4 * i + 4] for i in range(len(steps))]
 
     def _steps_forward(self, steps: list[FlowStep], z: torch.Tensor, logdet: torch.Tensor,
                        slab: fs.Slab | None = None):
@@ -252,8 +252,8 @@ class Glow(nn.Module):
         affine = self.cfg.flow_coupling == "affine"
         z = z.float().contiguous()
         exporting = torch.compiler.is_exporting()
-        for step in steps:
-            packed = self._pack(step, affine, False)
+        for step, full in zip(steps, self._full_weights(steps, slab)):
+            packed = fs.pack_weights(step, affine, False, fs.COUPLING_DTYPE, full)
             if slab is not None:
                 z = spatial.exchange(z, fs.HALO, self.mesh)
             if exporting:
@@ -273,8 +273,8 @@ class Glow(nn.Module):
         affine = self.cfg.flow_coupling == "affine"
         z = z.float().contiguous()
         exporting = torch.compiler.is_exporting()
-        for step in reversed(steps):
-            packed = self._pack(step, affine, True)
+        for step, full in reversed(list(zip(steps, self._full_weights(steps, slab)))):
+            packed = fs.pack_weights(step, affine, True, fs.COUPLING_DTYPE, full)
             if slab is not None:
                 z = spatial.exchange(z, fs.HALO, self.mesh)
             if exporting:

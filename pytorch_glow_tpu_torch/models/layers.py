@@ -35,17 +35,29 @@ rows), the conv runs on that and keeps the slab's own output rows.  DDI's
 statistics there reduce over the model group's pixels too
 (`ActNorm.groups`).
 
-Tensor parallelism (`CouplingNet.model_group`, set by
-`parallel/mesh.shard_model`): the coupling net's conv1 holds its slice of
-the hidden channels (column-parallel, its actnorm local) and conv2 its
-slice of their inputs (row-parallel): its partial products are summed over
-the model group in f32, then its actnorm and the zero conv run replicated.
+Tensor parallelism (`CouplingNet.model_group`, set by `Glow.set_mesh` on
+a model that holds shards): the coupling net's conv1 holds its slice of
+the hidden channels (its weight and actnorm) and conv2 its slice of their
+inputs.  On a level that runs whole (model peers hold the same rows)
+conv1 is column-parallel (its actnorm local) and conv2 row-parallel: its
+partial products are summed over the model group in f32, then its
+actnorm and the zero conv run replicated.  On a spatially sharded level
+(`CouplingNet.rows_sharded`: model peers hold different rows, so a sum of
+their partial products would mix rows) the net gathers conv1 and conv2's
+weight (`gather_from_model`, one collective for several shards) and runs
+the whole hidden width on the rank's rows; the gathered tensors' gradients are the rows' partials,
+which the backward sums over the model group and cuts to the rank's
+slice.  DDI there sets conv1's actnorm from the whole width's statistics
+over both groups, each rank keeping its slice.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -79,6 +91,11 @@ def _conv_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def _actnorm(x: torch.Tensor, bias: torch.Tensor, logs: torch.Tensor) -> torch.Tensor:
+    """(x + bias) * exp(logs) over x's last dim, in x's dtype."""
+    return (x + bias.view(-1).to(x.dtype)) * torch.exp(logs.view(-1).to(x.dtype))
+
+
 class ActNorm(nn.Module):
     """y = (x + bias) * exp(logs); logdet += H*W*sum(logs)."""
 
@@ -91,9 +108,12 @@ class ActNorm(nn.Module):
         self.groups = ()  # the groups DDI's statistics reduce over
 
     @torch.no_grad()
-    def ddi_(self, x: torch.Tensor) -> None:
+    def ddi_(self, x: torch.Tensor, slice_group=None) -> None:
         """bias = -mean, logs = log(scale / (std + eps)) over (B, H, W), of
-        the global batch under its groups (as many pixels on every rank)."""
+        the global batch under its groups (as many pixels on every rank).
+        With `slice_group`, x holds every channel and the module its rank's
+        slice of them (a gathered tensor-parallel shard): it keeps that
+        slice of the statistics."""
         x32 = x.float()
         mean = x32.mean(dim=(0, 1, 2))
         for group in self.groups:
@@ -101,16 +121,17 @@ class ActNorm(nn.Module):
         var = torch.square(x32 - mean).mean(dim=(0, 1, 2))
         for group in self.groups:
             pd.mean_(var, group)
-        std = torch.sqrt(var)
-        self.bias.copy_((-mean).view_as(self.bias))
-        self.logs.copy_(torch.log(self.scale / (std + ACTNORM_EPS)).view_as(self.logs))
+        bias, logs = -mean, torch.log(self.scale / (torch.sqrt(var) + ACTNORM_EPS))
+        if slice_group is not None:
+            n = self.bias.numel()
+            bias, logs = (t.narrow(0, dist.get_rank(slice_group) * n, n) for t in (bias, logs))
+        self.bias.copy_(bias.view_as(self.bias))
+        self.logs.copy_(logs.view_as(self.logs))
 
     def forward(self, x: torch.Tensor, logdet: torch.Tensor | None = None):
         if self.ddi:
             self.ddi_(x)
-        bias = self.bias.view(-1).to(x.dtype)
-        logs = self.logs.view(-1).to(x.dtype)
-        y = (x + bias) * torch.exp(logs)
+        y = _actnorm(x, self.bias, self.logs)
         if logdet is not None:
             logdet = logdet + x.shape[1] * x.shape[2] * self.logs.sum()
         return y, logdet
@@ -252,11 +273,72 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """Tensor-parallel shards -> their full tensors, each concatenated over
+    the model group along its dim, all in one all-gather.  Shards of one
+    shape and dim (a level's K steps' conv1 weights, say) travel stacked,
+    so the host's work does not grow with K.  Backward: where every model
+    peer computed the same gradient of a full tensor (same rows, same
+    weights), this rank's slice of it (an all-gather's own backward would
+    sum the peers' identical gradients); with `partial` (peers on
+    different rows), each peer's gradient is its rows' partial, so the sum
+    over the group, then this rank's slice (one reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, group, partial: bool, dims: tuple[int, ...], *shards: torch.Tensor):
+        n = dist.get_world_size(group)
+        kinds: dict = {}  # (shape, dim) -> indices of its shards
+        for i, (t, dim) in enumerate(zip(shards, dims)):
+            kinds.setdefault((tuple(t.shape), dim), []).append(i)
+        ctx.group, ctx.partial, ctx.n, ctx.kinds = group, partial, n, kinds
+        flat = torch.cat([torch.stack([shards[i] for i in idx]).reshape(-1)
+                          for idx in kinds.values()])
+        parts = torch.split(pd.all_gather_cat(flat, 0, group).view(n, -1),
+                            [len(idx) * math.prod(shape) for (shape, _), idx in kinds.items()],
+                            dim=1)
+        out: list = [None] * len(shards)
+        for ((shape, dim), idx), p in zip(kinds.items(), parts):
+            # (n, m, *shape) -> (m, ..., n, shape[dim], ...) -> (m, *full shape)
+            full = p.reshape(n, len(idx), *shape).movedim(0, dim + 1)
+            full = full.reshape(len(idx), *shape[:dim], n * shape[dim], *shape[dim + 1:])
+            for i, t in zip(idx, full.unbind(0)):
+                out[i] = t
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor):
+        n, rows = ctx.n, []
+        for (shape, dim), idx in ctx.kinds.items():
+            g = torch.stack([grads[i] for i in idx])
+            g = g.reshape(len(idx), *shape[:dim], n, *shape[dim:]).movedim(dim + 1, 0)
+            rows.append(g.reshape(n, -1))
+        rows = torch.cat(rows, dim=1)
+        if ctx.partial:
+            mine = pd.reduce_scatter(rows, ctx.group)[0]
+        else:
+            mine = rows[dist.get_rank(ctx.group)]
+        out: list = [None] * len(grads)
+        sizes = [len(idx) * math.prod(shape) for (shape, _), idx in ctx.kinds.items()]
+        for ((shape, _), idx), p in zip(ctx.kinds.items(), torch.split(mine, sizes)):
+            for i, t in zip(idx, p.reshape(len(idx), *shape).unbind(0)):
+                out[i] = t
+        return (None, None, None, *out)
+
+
+def gather_from_model(shards, group, partial: bool) -> list[torch.Tensor]:
+    """The full tensors of tensor-parallel shards, given as (shard, the dim
+    it is sharded on over `group`) pairs, in one collective; `partial`:
+    model peers use them on different rows (`_GatherFromModel`)."""
+    tensors, dims = zip(*shards)
+    return list(_GatherFromModel.apply(group, partial, dims, *tensors))
+
+
 class CouplingNet(nn.Sequential):
     """The coupling net f: Conv(3x3) -> ReLU -> Conv(1x1) -> ReLU ->
     Conv2dZeros(3x3), keys 0 / 2 / 4; it runs in its input's dtype.  With
     a `model_group` its conv1 and conv2 hold their shards of the hidden
-    channels (module docstring)."""
+    channels, and `rows_sharded` says whether its level runs on row slabs
+    (module docstring)."""
 
     def __init__(self, c_in: int, hidden: int, c_out: int,
                  generator: torch.Generator | None = None):
@@ -266,14 +348,40 @@ class CouplingNet(nn.Sequential):
             Conv2dZeros(hidden, c_out),
         )
         self.model_group = None
+        self.rows_sharded = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.model_group is None:
             return super().forward(x)
+        if self.rows_sharded:
+            return self._gathered(x)
         conv1, conv2, conv3 = self[0], self[2], self[4]
         h = F.relu(conv1(_CopyToModel.apply(x, self.model_group)))
         h = _ReduceFromModel.apply(_conv_nhwc(h, conv2.weight), self.model_group)
         h, _ = conv2.actnorm(h)
+        return conv3(F.relu(h))
+
+    def shards(self) -> list[tuple[nn.Parameter, int]]:
+        """The tensor-parallel parameters, each with the dim it is sharded
+        on: conv1's weight and actnorm, conv2's weight."""
+        conv1, conv2 = self[0], self[2]
+        return [(conv1.weight, 0), (conv1.actnorm.bias, 1), (conv1.actnorm.logs, 1),
+                (conv2.weight, 1)]
+
+    def _gathered(self, x: torch.Tensor) -> torch.Tensor:
+        """The net with conv1 and conv2's weight gathered, on the rank's
+        row slab: the whole net's math, its gathered gradients summed over
+        the model group backward.  Under DDI conv1's actnorm is set first,
+        from the whole width's statistics, then gathered."""
+        conv1, conv2, conv3 = self[0], self[2], self[4]
+        group, an, shards = self.model_group, conv1.actnorm, self.shards()
+        (w1,) = gather_from_model(shards[:1], group, partial=True)
+        h = _halo_conv(lambda t: _conv_nhwc(t, w1), x, conv1.halo)
+        if an.ddi:
+            an.ddi_(h, group)
+        b1, l1, w2 = gather_from_model(shards[1:], group, partial=True)
+        h = F.relu(_actnorm(h, b1, l1))
+        h, _ = conv2.actnorm(_conv_nhwc(h, w2))
         return conv3(F.relu(h))
 
 

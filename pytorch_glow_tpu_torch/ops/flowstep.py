@@ -40,8 +40,10 @@ the slab's own rows, R dividing the slab height.  Taps mask on the
 absolute image row, so the rows the exchange leaves unfilled at the
 image's top and bottom never count.  The outputs are the slab's rows,
 its logdet partial and, backward, the padded slab's cotangent: the slab's
-rows, and the HALO rows above and below, which belong to the neighbours.
-`FusedStep` / `FusedStepReverse` take the slab as their third argument.
+rows, and the HALO rows above and below, which belong to the neighbours
+(on a slab of one row, to ranks up to two away).  A slab may be a single
+row: one band of R = 1 over 1 + 2 HALO staged rows.  `FusedStep` /
+`FusedStepReverse` take the slab as their third argument.
 
 The plain version computes the kernel's math, not the layer math of
 `models/layers.py`: f32 actnorm and f32 mix; coupling-net operands rounded
@@ -99,18 +101,17 @@ def _cross_perm(rows: torch.Tensor, affine: bool) -> torch.Tensor:
 
 def pack_weights(step, affine: bool, reverse: bool,
                  coupling_dtype: torch.dtype = COUPLING_DTYPE,
-                 gather=None) -> list[torch.Tensor]:
+                 full=None) -> list[torch.Tensor]:
     """One `FlowStep` module -> the 12 kernel operands, in the JAX kernel's
     order, shapes and dtypes (column vectors are (r, 1) f32).  The mix is
     the step's permutation as a (C, C) matrix, whatever its kind (LU or
-    plain 1x1 conv, or a fixed permutation's 0/1 matrix).  `gather(t,
-    dim)`, where given, makes the full tensor of a tensor-parallel shard
-    of conv1 (sharded on its hidden dim 0, its actnorm on dim 1) and conv2
-    (on its input dim 1)."""
+    plain 1x1 conv, or a fixed permutation's 0/1 matrix).  `full`, where
+    given, holds the full tensors of a tensor-parallel step's shards, in
+    `CouplingNet.shards` order: conv1's weight and actnorm bias and logs,
+    conv2's weight."""
     conv1, conv2, conv3 = step.f[0], step.f[2], step.f[4]
-    w1, b1, l1, w2 = conv1.weight, conv1.actnorm.bias, conv1.actnorm.logs, conv2.weight
-    if gather is not None:
-        w1, b1, l1, w2 = gather(w1, 0), gather(b1, 1), gather(l1, 1), gather(w2, 1)
+    w1, b1, l1, w2 = full or (conv1.weight, conv1.actnorm.bias, conv1.actnorm.logs,
+                              conv2.weight)
     hidden = w1.shape[0]
     cout = conv3.weight.shape[0]
     # (cout, hid, 3, 3) -> rows (tap, cout in [shift | raw] order), cols hid
@@ -654,8 +655,9 @@ def step_backward_band_ref(weights, z: torch.Tensor, g_zn: torch.Tensor, g_ld: t
         bottoms[first:first + count] = g_ext_z[:, r + 2:]
         grads = part if grads is None else [a + p for a, p in zip(grads, part)]
     g_z = g_z.view(b, t, r, w, c)
-    g_z[:, 1:, :2] += bottoms.view(b, t, 2, w, c)[:, :-1]
-    g_z[:, :-1, r - 2:] += tops.view(b, t, 2, w, c)[:, 1:]
+    if t > 1:  # then r >= 4 (`band_rows`): each halo row folds into one neighbour
+        g_z[:, 1:, :2] += bottoms.view(b, t, 2, w, c)[:, :-1]
+        g_z[:, :-1, r - 2:] += tops.view(b, t, 2, w, c)[:, 1:]
     g_z = g_z.view(b, t * r, w, c)
     if slab is not None:
         g_z = torch.cat([tops.view(b, t, 2, w, c)[:, 0], g_z,

@@ -129,3 +129,21 @@ def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's `t` over `group`, whose dim 0 holds one
+    equal slice per rank (the layout `all_gather_cat` puts together along
+    dim 0): this rank's slice.  NCCL reduce-scatters; gloo has no
+    reduce-scatter, so there the whole sum is all-reduced (through the
+    host for a CUDA tensor) and sliced."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    size = t.shape[0] // n
+    if dist.get_backend(group) == "gloo":
+        total = all_reduce_(t.detach().clone(), group)
+        return total[dist.get_rank(group) * size:(dist.get_rank(group) + 1) * size]
+    out = t.new_empty(size, *t.shape[1:])
+    dist.reduce_scatter_tensor(out, t.detach().contiguous(), group=group)
+    return out

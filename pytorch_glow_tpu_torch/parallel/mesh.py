@@ -6,20 +6,26 @@ Counterpart of `pytorch_glow_tpu/parallel/mesh.py`.  The mesh is a
 * "data": each data coordinate trains on its rows of the global batch;
   the gradient is mean-all-reduced over the data group (the counterpart
   of GSPMD's gradient psum, and of the fused backward's in-kernel psum).
-  Model peers (one data coordinate) read the same rows.
-* "model": Megatron-style tensor parallelism over the coupling net's
-  hidden channels (`models/layers.CouplingNet`): conv1 column-parallel
-  (its weight's output dim 0 and its actnorm sharded), conv2 row-parallel
-  (its weight's input dim 1 sharded, the partial products sum-reduced);
-  everything else is replicated.  model=1 (pure DP) is the default.
-  Or, with `glow.shard_spatial` (`make_mesh(..., spatial=True)`), spatial
-  sharding: each level's image rows over "model" (`parallel/spatial.py`).
+* "model": with model > 1 (`Mesh.tp`), Megatron-style tensor
+  parallelism over the coupling net's hidden channels, as JAX's
+  `param_pspec` shards them: conv1's weight on its output dim 0 and its
+  actnorm, conv2's weight on its input dim 1; everything else is
+  replicated, and so are the optimizer's moments and the EMA of each
+  entry as its parameter is.  model=1 (pure DP) is the default.
 
-TP and SP share the "model" axis.  JAX applies both at once; the port,
-as a layout choice, keeps the coupling nets replicated under spatial
-sharding (`Mesh.spatial`: `tp` is then False and no parameter is
-sharded).  The numbers are the same either way, and snapshots hold
-gathered, mesh-independent tensors in both.
+With `glow.shard_spatial` (`make_mesh(..., spatial=True)`, `Mesh.spatial`)
+the same "model" axis also shards the image rows of every level whose
+height divides it (`parallel/spatial.py`), as JAX applies both at once.
+The two uses collide in the coupling nets of a sharded level, where
+model peers hold different rows: there the nets gather their shards and
+run the whole hidden width on the rank's rows, and the backward
+reduce-scatters the shards' gradients (`models/layers.gather_from_model`,
+GSPMD's resolution of the same conflict; the fused path gathers a level's
+shards in one collective).  On a level that runs whole, model peers hold
+the same rows and the nets stay column / row parallel
+(`models/layers.CouplingNet`).  Only a model that holds shards
+(`Glow.holds_shards`, set by `shard_model`) gathers: an eval copy holding
+whole weights on a spatial mesh (`Glow.set_mesh` alone) does not.
 
 The rules name the port's `state_dict` keys: the flow steps' coupling nets
 `flow.layers.{j}.f.0` (conv1) and `f.2` (conv2); the variational
@@ -66,7 +72,7 @@ class Mesh:
     model_rank: int
     data_group: object
     model_group: object
-    spatial: bool = False  # image rows over "model" (glow.shard_spatial), no TP
+    spatial: bool = False  # image rows over "model" too (glow.shard_spatial)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -79,13 +85,13 @@ class Mesh:
 
     @property
     def tp(self) -> bool:
-        return self.model > 1 and not self.spatial
+        return self.model > 1
 
 
 def make_mesh(cfg: MeshConfig | None = None, spatial: bool = False) -> Mesh:
     """The mesh of `cfg.shape(world size)` over the initialised default
     process group (data=-1: world // model); `spatial`: its model group
-    shards image rows instead of the coupling nets' hidden channels."""
+    shards image rows as well as the coupling nets' hidden channels."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
@@ -187,21 +193,18 @@ def put_global(tensors: Iterable[torch.Tensor]) -> None:
 
 def shard_model(model, mesh: Mesh) -> None:
     """Put `model` (full, identical on every rank) on the mesh: its
-    tensor-parallel parameters keep this rank's slice, its coupling nets
-    reduce over the model group, its DDI and fused path see the mesh;
-    under spatial sharding its sharded levels run on row slabs
-    (`Glow.set_mesh`)."""
+    tensor-parallel parameters keep this rank's slice (`model.holds_shards`),
+    then `Glow.set_mesh` wires the coupling nets to the model group, DDI
+    and the fused path to the mesh, and under spatial sharding the sharded
+    levels to row slabs."""
+    if mesh.tp:
+        local = shard_params(dict(model.named_parameters()), mesh)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if param_pspec(name, True) is not None:
+                    p.data = local[name]
+        model.holds_shards = True
     model.set_mesh(mesh)
-    if not mesh.tp:
-        return
-    local = shard_params(dict(model.named_parameters()), mesh)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if param_pspec(name, True) is not None:
-                p.data = local[name]
-    for steps, _ in model._levels:
-        for step in steps:
-            step.f.model_group = mesh.model_group
 
 
 def global_norm_fn(mesh: Mesh, named: list[tuple[str, torch.Tensor]]):
@@ -212,8 +215,10 @@ def global_norm_fn(mesh: Mesh, named: list[tuple[str, torch.Tensor]]):
                                  dtype=torch.bool, device=p.device) for n, p in named])
 
     def norm(g: torch.Tensor) -> torch.Tensor:
+        # `where`, not boolean indexing: an index by mask waits for the
+        # device (its size), twice a call, and the step calls this twice.
         sq = g.float().square()
-        sharded = pd.all_reduce_(sq[mask].sum(), mesh.model_group)
-        return torch.sqrt(sharded + sq[~mask].sum())
+        sharded = pd.all_reduce_(torch.where(mask, sq, 0.0).sum(), mesh.model_group)
+        return torch.sqrt(sharded + torch.where(mask, 0.0, sq).sum())
 
     return norm

@@ -8,15 +8,15 @@ functions of this module.
 
 Which levels (`level_sharded`): with `cfg.shard_spatial`, a mesh made for
 it (`parallel/mesh.make_mesh(..., spatial=True)`) whose model group has
-n > 1 ranks, and a level of H rows with H % n == 0, as in
-JAX, and besides H / n >= HALO (2), the rows a flow step's band needs of
-each neighbour.  A slab shorter than the halo would need the neighbour's
-neighbour's rows; instead such a level (at L=6 with n=4, the deepest, one
-row a rank) runs whole on every rank: `gather_rows` before it and
-`shard_rows` after it in decode.  The sharded levels are the shallow ones
-(H halves each level), so encode leaves them once and decode enters them
-once.  Model rank m holds rows [m H/n, (m+1) H/n) of a sharded level;
-the batch stays on "data".
+n > 1 ranks, every level of H rows with H % n == 0, as JAX's
+`_maybe_shard_spatial` decides: at celebahq256 (L=6) with n=4 all six
+levels, the deepest on one-row slabs.  A level whose rows do not divide
+runs whole on every rank: `gather_rows` before it and `shard_rows` after
+it in decode.  The sharded levels are the shallow ones (H halves each
+level), so encode leaves them once and decode enters them once.  Model
+rank m holds rows [m H/n, (m+1) H/n) of a sharded level; the batch stays
+on "data".  The coupling nets of a sharded level gather their
+tensor-parallel shards (`parallel/mesh.py`).
 
 Autograd convention: a tensor every model peer holds whole is computed
 identically by each, and its cotangent on each rank is the whole, true
@@ -39,20 +39,27 @@ A parameter used on a slab (a sharded level's flow steps and split prior)
 gets the gradient of the rank's rows only; `partial_mask` marks those
 entries of the flat gradient, which the train step sums over the model
 group (`train/step.py`), as K3's in-kernel psum sums the row partials in
-JAX.  Every other parameter's gradient is already whole on every rank.
+JAX.  The coupling nets' gathered shards are not among them: their
+backward already summed the partials and kept the rank's slice.  Every
+other parameter's gradient is already whole on every rank.
 
 Transport: point-to-point, `dist.batch_isend_irecv` with each neighbour;
 under gloo a CUDA tensor is staged through the host (gloo sends CPU
 tensors), as `parallel/distributed.py` stages its collectives.  A failed
-send or receive raises.
+send or receive raises.  A slab shorter than k (the fused step's HALO = 2
+rows on a one-row slab) needs rows of ranks beyond its neighbours: there
+the level is all-gathered and the padded slab cut from it, and the
+backward puts each padded slab's cotangent at its rows of a zero whole
+tensor, all-reduces it and keeps the rank's rows.  Such levels are the
+deepest and smallest (celebahq256's 4x4x384 at b=64).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
-from pytorch_glow_tpu_torch.ops.flowstep import HALO
 from pytorch_glow_tpu_torch.parallel import distributed as pd
 
 
@@ -61,7 +68,7 @@ def level_sharded(cfg, mesh, rows: int) -> bool:
     group (module docstring)."""
     if mesh is None or not cfg.shard_spatial or not mesh.spatial or mesh.model < 2:
         return False
-    return rows % mesh.model == 0 and rows // mesh.model >= HALO
+    return rows % mesh.model == 0
 
 
 def own_rows(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -149,8 +156,9 @@ class _Exchange(torch.autograd.Function):
     def forward(ctx, x: torch.Tensor, k: int, mesh) -> torch.Tensor:
         ctx.k, ctx.mesh = k, mesh
         s = x.shape[1]
-        if s < k:
-            raise ValueError(f"a slab of {s} rows cannot give its neighbours {k} rows")
+        if s < k:  # rows beyond the neighbours: the whole level's
+            padded = F.pad(pd.all_gather_cat(x, 1, mesh.model_group), (0, 0, 0, 0, k, k))
+            return padded[:, mesh.model_rank * s:mesh.model_rank * s + s + 2 * k].contiguous()
         b, _, w, c = x.shape
         out = x.new_zeros(b, s + 2 * k, w, c)
         out[:, k:k + s] = x
@@ -172,6 +180,12 @@ class _Exchange(torch.autograd.Function):
         k, mesh = ctx.k, ctx.mesh
         s = g.shape[1] - 2 * k
         b, _, w, c = g.shape
+        if s < k:
+            o = mesh.model_rank * s
+            whole = g.new_zeros(b, mesh.model * s + 2 * k, w, c)
+            whole[:, o:o + s + 2 * k] = g
+            pd.all_reduce_(whole, mesh.model_group)
+            return whole[:, k + o:k + o + s].contiguous(), None, None
         grad = g[:, k:k + s].clone()
         up, down = _neighbours(mesh)
         sends, recvs = {}, {}
@@ -196,12 +210,10 @@ def exchange(x: torch.Tensor, k: int, mesh) -> torch.Tensor:
 
 def partial_mask(model, named: list[tuple[str, torch.Tensor]]) -> torch.Tensor | None:
     """A bool mask over the flat gradient of `named` (the trainable
-    parameters, in order): True where the parameter is used on a slab, so
-    that its gradient is the rank's rows' partial; None when no level of
-    `model` is sharded."""
-    modules = model.sharded_modules()
-    if not modules:
+    parameters, in order): True where the gradient is the rank's rows'
+    partial (`Glow.row_partial_parameters`); None when there is none."""
+    ids = {id(p) for p in model.row_partial_parameters()}
+    if not ids:
         return None
-    ids = {id(p) for m in modules for p in m.parameters()}
     return torch.cat([torch.full((p.numel(),), id(p) in ids, dtype=torch.bool, device=p.device)
                       for _, p in named])

@@ -21,12 +21,16 @@ Layouts, N the number of visible cards (N >= 2, even):
              with a data axis of N against the one-device artifact, b=64
 run in turns for `--rounds` rounds (the training layouts), each
 `cli.train <preset> --synthetic textured` for `--steps` steps with
-steps_per_call 1 and a scalar log every step.  Each run's median step ms
-and images/s over steps 2.. come from rank 0's metrics.csv (images/s of
-the global batch); step 1's loss of each layout is printed beside the
-one-rank layout's of the same preset and batch (the same weights and
-batch; only DDI's sum order differs).  Prints the card line, then one
-JSON object.  About 40 s a celeba64 run on H100s.
+steps_per_call 1 and a scalar log every step, each rank running the CLI
+in-process through this module (`--rank-train`), which then writes the
+rank's `torch.cuda.max_memory_allocated` over the run.  Each run's median
+step ms and images/s over steps 2.. come from rank 0's metrics.csv
+(images/s of the global batch), its peak GiB per rank from the ranks'
+files; step 1's loss of each layout is printed beside the one-rank
+layout's of the same preset and batch (the same weights and batch; only
+DDI's sum order differs).  Prints the card line, then one JSON object.
+About 40 s a celeba64 run on H100s.  To measure another checkout, copy
+this file into it and run it there.
 """
 
 from __future__ import annotations
@@ -52,8 +56,8 @@ def card_line() -> str:
 def run(tag: str, nproc: int, preset: str, sets: list[str], steps: int, out: str) -> dict:
     """One launch -> {"step_ms", "images_per_sec", "step1_loss", ...}."""
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-            str(nproc), "-m", "pytorch_glow_tpu_torch.cli.train", preset, "--synthetic",
-            "textured", "--quiet", "--steps", str(steps), "--out-dir", out,
+            str(nproc), "-m", "pytorch_glow_tpu_torch.scripts.perf_multi", "--rank-train", out,
+            preset, "--synthetic", "textured", "--quiet", "--steps", str(steps), "--out-dir", out,
             "--set", "train.steps_per_call=1", "--set", "train.scalar_log_gap=1",
             "--set", "train.plot_gap=0", "--set", "train.eval_gap=0", "--set", "train.swd_gap=0"]
     for s in sets:
@@ -67,13 +71,36 @@ def run(tag: str, nproc: int, preset: str, sets: list[str], steps: int, out: str
     rates = [float(r["images_per_sec"]) for r in rows[1:]]
     batch = int(next(s for s in sets if s.startswith("train.batch_size=")).split("=")[1])
     med = statistics.median(rates)
+    peaks = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"peak.rank{r}.json")) as f:
+            peaks.append(json.load(f)["peak_bytes"] / 2**30)
     return {"ranks": nproc, "preset": preset, "sets": sets, "batch": batch,
             "step_ms": 1e3 * batch / med,
             "images_per_sec": med, "step_ms_all": [1e3 * batch / r for r in rates],
-            "step1_loss": float(rows[0]["loss"])}
+            "step1_loss": float(rows[0]["loss"]), "peak_gib": peaks}
+
+
+def rank_train(argv: list[str]) -> int:
+    """One rank of a launch: `cli.train.main(argv[1:])`, then the rank's
+    peak device memory over it into argv[0]/peak.rank<RANK>.json."""
+    import torch
+
+    from pytorch_glow_tpu_torch.cli import train as train_cli
+
+    out, rank = argv[0], int(os.environ.get("RANK", "0"))
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.reset_peak_memory_stats()
+    train_cli.main(argv[1:])
+    with open(os.path.join(out, f"peak.rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+    return 0
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank-train"]:
+        return rank_train(argv[1:])
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -110,7 +137,8 @@ def main(argv=None) -> int:
             results[tag].append(res)
             print(f"round {r} {tag}: {nproc} ranks, {preset}, global batch {res['batch']}, "
                   f"median step {res['step_ms']:.3f} ms, {res['images_per_sec']:.3f} images/s, "
-                  f"step-1 loss {res['step1_loss']!r}", flush=True)
+                  f"step-1 loss {res['step1_loss']!r}, peak GiB per rank "
+                  f"{[round(x, 3) for x in res['peak_gib']]}", flush=True)
     ones = {(rs[0]["preset"], rs[0]["batch"]): rs[0]["step1_loss"]
             for rs in results.values() if rs[0]["ranks"] == 1}
     summary = {}
@@ -119,6 +147,7 @@ def main(argv=None) -> int:
         summary[tag] = {"ranks": rs[0]["ranks"], "preset": rs[0]["preset"],
                         "global_batch": rs[0]["batch"], "step_ms": [x["step_ms"] for x in rs],
                         "images_per_sec": [x["images_per_sec"] for x in rs],
+                        "peak_gib_per_rank": [x["peak_gib"] for x in rs],
                         "step1_loss_rel_to_one_rank": (None if ref is None else
                                                        abs(rs[0]["step1_loss"] - ref) / abs(ref))}
     if "serve" in layouts:

@@ -194,8 +194,9 @@ def _example(spec: dict, batch: int, device: torch.device) -> torch.Tensor:
 def export_artifact(model, cfg=None, out_dir: str = "artifact", batch_size: int | str = 16,
                     functions: tuple[str, ...] | None = None,
                     keep_kernels: bool = False, mesh=None) -> dict:
-    """Export serving entry points of `model` (its parameters as they are)
-    to `out_dir`; returns the manifest.
+    """Export serving entry points of `model` (its parameters as they are,
+    whole: a model on a mesh gathers its shards, so every rank of its model
+    group calls this) to `out_dir`; returns the manifest.
 
     cfg: the model's config (default `model.cfg`).  batch_size: a fixed
     serving batch, or "dynamic" for a symbolic batch dimension (not with a
@@ -230,8 +231,14 @@ def export_artifact(model, cfg=None, out_dir: str = "artifact", batch_size: int 
             raise ValueError(f"batch_size {batch_size} must divide over the data axis of size "
                              f"{axes['data']}")
     device = model.device
-    if model.cfg != cfg:
+    if model.cfg != cfg or model.mesh is not None:
+        # A model on a mesh is exported as a whole, mesh-free copy: its
+        # tensor-parallel shards gathered (collective over its model group).
         state = model.state_dict()
+        if model.holds_shards:
+            from pytorch_glow_tpu_torch.parallel.mesh import gather_params
+
+            state = gather_params(state, model.mesh)
         model = Glow(cfg).to(device)
         model.load_state_dict(state)
     model.eval()

@@ -36,9 +36,10 @@ coordinate's rows of each global batch (model peers read the same rows);
 DDI runs on those rows with the global batch's statistics; the train and
 eval steps reduce over the data group.  The eval copy holds full
 (gathered) weights.  With `glow.shard_spatial` the model group shards
-image rows instead of the coupling nets (`parallel/spatial.py`): the
+image rows as well as the coupling nets (`parallel/spatial.py`): the
 train step, DDI and the eval copy (eval, samples, reconstructions, SWD)
-all run their sharded levels on row slabs.
+all run their sharded levels on row slabs, the eval copy on its whole
+weights.
 """
 
 from __future__ import annotations

@@ -26,11 +26,12 @@ batch.  The flat gradient is mean-all-reduced over the data group before
 the optimizer (the counterpart of GSPMD's gradient psum and of the fused
 backward's in-kernel psum), and the metrics are data-group means, equal
 on every rank; the eval nll likewise.  Under spatial sharding
-(`parallel/spatial.py`) model peers hold the same rows and each computes
-the gradient of its image rows' slab for the sharded levels' parameters:
-those entries (`spatial.partial_mask`) are summed over the model group
-first, so that every rank holds the whole gradient before the data mean
-and the global-norm clip.
+(`parallel/spatial.py`) model peers hold the same images and each computes
+the gradient of its slab of a sharded level's rows for that level's
+replicated parameters: those entries (`spatial.partial_mask`) are summed
+over the model group first, so that every rank holds the whole gradient
+(of its tensor-parallel shards, their slice, which their gathers' backward
+already summed) before the data mean and the global-norm clip.
 """
 
 from __future__ import annotations

@@ -15,11 +15,18 @@ Tasks:
                DDI'd model (all ranks' rows gathered).
   steps        `len(batches)` train steps from `sd` (make_train_step on the
                mesh): each step's loss, grad_norm and lr, the params and the
-               EMA after them.
+               EMA after them, and the elements this rank stores of the
+               trainables, of each flat optimizer vector and of the EMA.
   build_train  `build(profile)` then `train(num_steps)`: the build's resume
-               state, the result, the params and the stream position; with
-               `async_save`, then a background save of the trained state on
-               the mesh and a restore of it on every rank.
+               state (with `restored`, also its model, optimizer state and
+               EMA gathered), the result, the params and the stream
+               position; with `async_save`, then a background save of the
+               trained state on the mesh and a restore of it on every rank.
+  collectives  on the model group: `gather_from_model` of this rank's
+               slices of the (tensor, dim) pairs `full`, whole (`partial`
+               False) and sharded (True), with the gradients of
+               rank-seeded cotangents; the halo exchange of `rows`-row slabs of `slab_x`
+               with k rows of each side for each (k, rows) of `exchange`.
   spatial      spatial sharding (`shard_spatial`, a mesh made with
                spatial=True): DDI, log_prob, reconstruct and sample (from
                explicit noise and from a generator) of `cfg` on the rank's
@@ -27,6 +34,8 @@ Tasks:
                exchange's forward and backward on slabs of `slab_x`.
   serve        load the SPMD artifact at `path` (no mesh of its own) and
                serve `x`: nll, encode and a sample, whole on every rank.
+  export       `export_artifact` of `cfg` on the mesh (its shards and row
+               slabs) into `dir`/rank<R>, `functions` at batch `batch`.
 """
 
 from __future__ import annotations
@@ -96,14 +105,18 @@ def steps(inp: dict, mesh) -> dict:
     for batch in inp["batches"]:
         state, m = train_step(state, _rows(batch, mesh))
         metrics.append({k: float(v) for k, v in m.items()})
+    stored = {"params": sum(p.numel() for _, p in steplib.trainable(model)),
+              "ema": sum(e.numel() for e in state["ema"]),
+              **{f"opt.{k}": v.numel() for k, v in state["opt_state"].items() if v.dim() == 1}}
     return {"metrics": metrics,
             "params": meshlib.gather_params(model.state_dict(), mesh),
             "ema": meshlib.gather_params(steplib.ema_params(state), mesh),
-            **_mesh_info(model, mesh)}
+            "stored": stored, **_mesh_info(model, mesh)}
 
 
 def build_train(inp: dict, mesh) -> dict:
     from pytorch_glow_tpu_torch.parallel import mesh as meshlib
+    from pytorch_glow_tpu_torch.train import step as steplib
     from pytorch_glow_tpu_torch.train.builder import build
     from pytorch_glow_tpu_torch.train.trainer import train
     from pytorch_glow_tpu_torch.utils.profiles import profile_from_dict
@@ -111,6 +124,16 @@ def build_train(inp: dict, mesh) -> dict:
     built = build(profile_from_dict(inp["profile"]), device="cpu")
     out = {"resumed": built.resumed, "start_step": built.start_step,
            "start_data_state": built.data.get_state()}
+    if inp.get("restored"):  # copies: training updates the unsharded tensors in place
+        st, mesh = built.state, built.mesh
+        named = steplib.trainable(st["model"])
+        out["restored"] = {
+            "model": {k: t.clone() for k, t in
+                      meshlib.gather_params(st["model"].state_dict(), mesh).items()},
+            "opt_state": {k: (meshlib.gather_flat(v, named, mesh) if v.dim() == 1 else v).clone()
+                          for k, v in st["opt_state"].items()},
+            "ema": [t.clone() for t in meshlib.gather_params(
+                dict(zip([n for n, _ in named], st["ema"])), mesh).values()]}
     out["result"] = train(built, num_steps=inp["num_steps"], quiet=True)
     out["params"] = meshlib.gather_params(built.state["model"].state_dict(), built.mesh)
     out["mesh"] = (built.mesh.data, built.mesh.model, built.mesh.data_rank, built.mesh.model_rank)
@@ -130,6 +153,7 @@ def spatial(inp: dict, mesh) -> dict:
     import torch
 
     from pytorch_glow_tpu_torch.parallel import distributed as pd
+    from pytorch_glow_tpu_torch.parallel import mesh as meshlib
     from pytorch_glow_tpu_torch.parallel import spatial as sp
 
     def gathered(t):
@@ -141,8 +165,8 @@ def spatial(inp: dict, mesh) -> dict:
         x = _rows(inp["x"], mesh)
         if key == "cfg":
             model.ddi_init(x)
-            out["ddi"] = model.state_dict()
-        out[key] = {"sharded": list(model._sharded)}
+            out["ddi"] = meshlib.gather_params(model.state_dict(), mesh)
+        out[key] = {"sharded": list(model._sharded), **_mesh_info(model, mesh)}
         with torch.no_grad():
             out[key]["nll"] = gathered(model.log_prob(x)["nll"])
             out[key]["recon"] = gathered(model.reconstruct(x))
@@ -161,6 +185,45 @@ def spatial(inp: dict, mesh) -> dict:
     return out
 
 
+def collectives(inp: dict, mesh) -> dict:
+    import torch
+
+    from pytorch_glow_tpu_torch.models.layers import gather_from_model
+    from pytorch_glow_tpu_torch.parallel import spatial as sp
+
+    gen = torch.Generator().manual_seed(mesh.model_rank)
+    cots = [torch.randn(t.shape, generator=gen) for t, _ in inp["full"]]
+    out = {"mesh": (mesh.data, mesh.model, mesh.data_rank, mesh.model_rank), "cots": cots}
+    for partial in (False, True):
+        shards = [(t.chunk(mesh.model, dim)[mesh.model_rank].clone().requires_grad_(), dim)
+                  for t, dim in inp["full"]]
+        full = gather_from_model(shards, mesh.model_group, partial)
+        grads = torch.autograd.grad(full, [t for t, _ in shards], cots)
+        out["partial" if partial else "whole"] = {"full": [f.detach() for f in full],
+                                                  "grads": list(grads)}
+    results = []
+    for k, rows in inp["exchange"]:
+        whole = inp["slab_x"][:, :rows * mesh.model].clone().requires_grad_()
+        padded = sp.exchange(sp.shard_rows(whole, mesh), k, mesh)
+        pcot = torch.randn(padded.shape,
+                           generator=torch.Generator().manual_seed(10 + mesh.model_rank))
+        (grad,) = torch.autograd.grad(padded, whole, pcot)
+        results.append({"padded": padded.detach(), "cot": pcot, "grad": grad})
+    out["exchange"] = results
+    return out
+
+
+def export(inp: dict, mesh) -> dict:
+    import torch.distributed as dist
+
+    from pytorch_glow_tpu_torch import serve as servelib
+
+    _, model = _model(inp["cfg"], inp["sd"], mesh)
+    out = os.path.join(inp["dir"], f"rank{dist.get_rank()}")
+    servelib.export_artifact(model, None, out, inp["batch"], tuple(inp["functions"]))
+    return {"dir": out, "holds_shards": model.holds_shards, **_mesh_info(model, mesh)}
+
+
 def serve(inp: dict, mesh) -> dict:
     from pytorch_glow_tpu_torch import serve as servelib
 
@@ -170,7 +233,7 @@ def serve(inp: dict, mesh) -> dict:
 
 
 TASKS = {"ddi_loss": ddi_loss, "steps": steps, "build_train": build_train, "spatial": spatial,
-         "serve": serve}
+         "collectives": collectives, "export": export, "serve": serve}
 
 
 def main() -> None:
