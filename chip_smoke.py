@@ -198,7 +198,10 @@
    reaching two slabs away) against `step_backward_ref` at the bounds of
    6, the weight grads summed and held by 8's rule, as K3 is at this
    width (phase 6's elementwise 5e-2 missed w2's grad by its sum order:
-   35.94 against 5 % of its largest magnitude).  (b) `cli.train` not
+   35.94 against 5 % of its largest magnitude); K4 forward and reverse
+   and K5 on an interior slab timed beside the library yardstick on the
+   padded slab and the bound of the slab's row (printed; the kernels
+   line keeps (a)'s times).  (b) `cli.train` not
    distributed, `--steps 0` (DDI, a step-0 snapshot) then SPATIAL_STEPS
    steps; the same steps from that snapshot under `torch.distributed.run
    --nproc_per_node 2` on gloo as (data=1, model=2) with the preset's
@@ -321,12 +324,25 @@
    value) plus twice that sum-order bound times e^logs; a second launch
    bitwise equal everywhere, each product timed.
 
+25. Runs last, after 16: the timing tools in-process at their smallest
+   settings.  `scripts/perf_fused_levels.py` at celebahq256 (b=64, N =
+   2 / 6): a line per level, 128x128 down to 4x4, each direction (K1 /
+   K4 forward, K2 / K4 reverse, K3 / K5 backward) with a finite positive
+   time and a share of its bound in (0, 1], level 0 on bands;
+   `scripts/perf_breakdown.py` (celeba64, b=128, N = 1 / 3 for the
+   components and the full paths): finite positive stream and host times
+   for every item, the device's own time positive where it was read;
+   `scripts/bench_train.py` at cifar10 (b=256, 2 steps a call, two-N over
+   1 and 3 calls): a line per impl (fused, unfused) with finite positive
+   times and a finite loss.
+
 With --profile, also prints torch.profiler's device time by kernel, and
 the device's idle share, for one fused and one unfused train step of
 celeba64 and celebahq256, and one cifar10 unfused step with and without
 the K6 kernels.
 
-Prints each phase's seconds, and a JSON line of per-kernel results (each
+Prints each phase's seconds, those of all phases from the build, and a
+JSON line of per-kernel results (each
 kernel's launches from the main-path run that drives it: K1/K2/K3 from
 18, K4 from 10, K5 from 11, K4 and K5 in slab form from 23 (rank 0's
 train run, and its encode and decode), K6a/K6b from 13, S1-S3 from 16c),
@@ -351,6 +367,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -3414,6 +3431,61 @@ def check_multi_device(torch, fs, card: str, out_root: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 25: the timing tools
+# ---------------------------------------------------------------------------
+
+
+def check_timing_tools(torch) -> None:
+    """Phase 25 (module docstring): `perf_fused_levels`, `perf_breakdown`
+    and `bench_train` in-process at their smallest settings."""
+    from pytorch_glow_tpu_torch import PRESETS
+    from pytorch_glow_tpu_torch.scripts import bench_train, perf_breakdown, perf_fused_levels
+
+    t_phase = time.perf_counter()
+
+    def positive(x) -> bool:
+        return x is not None and math.isfinite(x) and x > 0
+
+    levels = perf_fused_levels.main(["celebahq256", "--batch", "64", "--n1", "2", "--n2", "6"])
+    want = [list(s) for s in PRESETS["celebahq256"].glow.latent_shapes()]
+    require([r["shape"] for r in levels["levels"]] == want,
+            f"perf_fused_levels: levels {[r['shape'] for r in levels['levels']]}, want {want}")
+    for row in [*levels["levels"], levels["totals"]]:
+        for d in ("forward", "reverse", "backward"):
+            r = row[d]
+            require(positive(r["ms"]) and positive(r["bound_ms"]) and 0 < r["share"] <= 1,
+                    f"perf_fused_levels {row.get('shape', 'totals')} {d}: {r}")
+    require(levels["levels"][0]["forward"]["tiling"] == "band",
+            f"perf_fused_levels: level 0 forward tiling {levels['levels'][0]['forward']}")
+    t_levels = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    parts = perf_breakdown.main(["--n1", "1", "--n2", "3", "--full-n1", "1", "--full-n2", "3"])
+    items = [*parts["full"].items(), *parts["conv"].items(),
+             *((f"level {i} {k}", row[k]) for i, row in enumerate(parts["levels"])
+               for k in perf_breakdown.COMPONENTS)]
+    require(len(parts["levels"]) == 4, f"perf_breakdown: {len(parts['levels'])} levels")
+    for name, t in items:
+        require(positive(t["device_ms"]) and positive(t["host_ms"])
+                and (t["busy_ms"] is None or positive(t["busy_ms"])),
+                f"perf_breakdown {name}: {t}")
+    t_parts = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, AB_SPC="2"):
+        rows = bench_train.main(["cifar10"], n=(1, 3))
+    require([r["impl"] for r in rows] == ["pallas", "xla"], f"bench_train: {rows}")
+    for r in rows:
+        require(all(positive(r[k]) for k in ("train_images_per_sec", "ms_per_step",
+                                             "compile_s"))
+                and all(math.isfinite(r[k]) for k in ("loss0", "loss", "grad_norm")),
+                f"bench_train: {r}")
+    t_bench = time.perf_counter() - t0
+    print(f"phase 25 (the timing tools): {time.perf_counter() - t_phase:.2f} s (perf_fused_levels "
+          f"{t_levels:.2f}, perf_breakdown {t_parts:.2f}, bench_train {t_bench:.2f})")
+
+
+# ---------------------------------------------------------------------------
 # Phase 23: spatial sharding and SPMD serving
 # ---------------------------------------------------------------------------
 
@@ -3595,7 +3667,32 @@ def check_one_row_slabs(torch, fs, results: dict) -> None:
           f"scale {scale:.3f} (the bounds of 6); summed weight grads relative l2 to f32 "
           f"coupling, kernel / plain bf16: {', '.join(rows)} (phase 8's rule; max |diff| to the "
           f"plain bf16 grads rel to its largest {max(rel):.2e})")
-    del step, z, gzn, slabs, outs, backs, g_pad, grads, rz, rgrads, fgrads
+    del g_pad, grads, rz, rgrads, fgrads
+    # Times on the second slab (an interior one, whose halo rows come one
+    # and two slabs away), as (a) times level 0's slab; not on the kernels
+    # line, which keeps (a)'s.
+    (zp, slab), (zq, sq) = slabs[1], back_slabs[1]
+    g1 = gzn[:, 1:2].contiguous()
+    zeros = torch.zeros(b, device=z.device)
+
+    def timed(fn):
+        return median_ms(fn, torch, reps=3, inner=2)
+
+    with torch.no_grad():
+        times = {
+            "slab_forward": (timed(lambda: fs._launch_band(wf, zp, False, False, slab)),
+                             timed(lambda: step(zp, zeros))),
+            "slab_reverse": (timed(lambda: fs._launch_band(wr, zq, False, True, sq)),
+                             timed(lambda: step.reverse(zq))),
+            "slab_backward": (
+                timed(lambda: fs._launch_band_backward(wf, zp, g1, gld, False, slab)),)}
+    g_lib = torch.randn(zp.shape, generator=gen).cuda()
+    times["slab_backward"] += (timed(library_backward(torch, step, zp, g_lib, gld)),)
+    for name, (ms, lib_ms) in times.items():
+        bound, by = fs.bound_ms(name.removeprefix("slab_"), b, 1, w, c, 512, False)
+        print(f"time step {name} {tag}, one-row slab 1: kernel {ms:.4f} ms, library (unfused "
+              f"FlowStep on the padded slab) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    del step, z, gzn, slabs, outs, backs, g_lib
     torch.cuda.empty_cache()
 
 
@@ -3989,7 +4086,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     pin_backends(torch)
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s")
 
@@ -3998,12 +4095,13 @@ def main() -> int:
                for d in [*fs.launches, *icf.launches, *an.launches]}
     out_root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        return run_phases(torch, fs, icf, card, results, out_root)
+        return run_phases(torch, fs, icf, card, results, out_root, t_start)
     finally:
         shutil.rmtree(out_root, ignore_errors=True)
 
 
-def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
+def run_phases(torch, fs, icf, card: str, results: dict, out_root: str,
+               t_start: float) -> int:
     from pytorch_glow_tpu_torch.ops import _build
 
     def done(what: str, since: float) -> float:
@@ -4075,6 +4173,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
     # -- the anatomy studies S1-S3 --------------------------------------------
     anatomy_launches = check_anatomy(torch, fs, results)
     done("phase 16 (the anatomy studies)", t0)
+    check_timing_tools(torch)
 
     # Launches: each kernel's count from the main-path run that drives it:
     # K1/K2/K3 from the celeba64 train CLI run through the boundaries (18),
@@ -4110,6 +4209,7 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str) -> int:
         for d in sources
     ]
     require(all(k["launches"] > 0 for k in kernels), f"a kernel never launched: {kernels}")
+    print(f"all phases, from the build: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -266,8 +266,10 @@ def main(argv=None) -> None:
         imgs = batch["image"][: args.num]
         rec = inferer.reconstruct(imgs).cpu().numpy()
         save_image_grid(args.output, _pairs(imgs, rec), ncol=2)
-        err = np.abs(imgs.astype(np.float32) - rec.astype(np.float32)).max()
-        print(f"wrote {args.output}; max |x - rec| = {err}")
+        err = np.abs(imgs.astype(np.float32) - rec.astype(np.float32))
+        per_image = err.reshape(len(err), -1).max(axis=1)
+        print(f"wrote {args.output}; max |x - rec| = {err.max()} ({int((per_image > 1).sum())} "
+              f"of {len(per_image)} images off by more than one bin)")
         return
 
     if args.op == "delta":

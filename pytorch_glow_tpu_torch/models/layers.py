@@ -579,9 +579,8 @@ class FlowStep(nn.Module):
     def _net(self, z1: torch.Tensor) -> torch.Tensor:
         return self.f(z1.to(self.compute_dtype))
 
-    def forward(self, z: torch.Tensor, logdet: torch.Tensor):
-        z, logdet = self.actnorm(z, logdet)
-        z, logdet = self.permutation(z, logdet)
+    def coupling_forward(self, z: torch.Tensor, logdet: torch.Tensor):
+        """The coupling arm alone (the JAX package's `coupling_forward`)."""
         z1, z2 = split_channel(z, "simple")
         h = self._net(z1)
         if self.coupling == "additive":
@@ -592,7 +591,8 @@ class FlowStep(nn.Module):
             logdet = logdet + F.logsigmoid(raw + 2.0).sum(dim=(1, 2, 3))
         return cat_channel(z1, z2, "simple"), logdet
 
-    def reverse(self, z: torch.Tensor) -> torch.Tensor:
+    def coupling_reverse(self, z: torch.Tensor) -> torch.Tensor:
+        """The inverse of `coupling_forward` (the JAX `coupling_reverse`)."""
         z1, z2 = split_channel(z, "simple")
         h = self._net(z1)
         if self.coupling == "additive":
@@ -600,7 +600,15 @@ class FlowStep(nn.Module):
         else:
             shift, raw = split_channel(h, "cross")
             z2 = z2 / torch.sigmoid(raw + 2.0).to(z2.dtype) - shift.to(z2.dtype)
-        z = cat_channel(z1, z2, "simple")
+        return cat_channel(z1, z2, "simple")
+
+    def forward(self, z: torch.Tensor, logdet: torch.Tensor):
+        z, logdet = self.actnorm(z, logdet)
+        z, logdet = self.permutation(z, logdet)
+        return self.coupling_forward(z, logdet)
+
+    def reverse(self, z: torch.Tensor) -> torch.Tensor:
+        z = self.coupling_reverse(z)
         return self.actnorm.reverse(self.permutation.reverse(z))
 
 

@@ -1,8 +1,13 @@
 """Scripts of the port, run as `python -m pytorch_glow_tpu_torch.scripts.<name>`:
 on the card, the flow-step anatomy studies `perf_kernel_anatomy` (S1,
 forward), `perf_reverse_anatomy` (S2) and `perf_bwd_anatomy` (S3), sharing
-`_anatomy`, `perf_invconv`, the host and device time of the LU 1x1 conv
-calls (and of each kernel through its `torch.library` op), and
+`_anatomy` with the timing tools `perf_fused_levels` (each level's fused
+forward, reverse and backward against its bound), `perf_breakdown` (the
+celeba64 full paths and a step's components, device and host time) and
+`bench_train` (the fused against the unfused train step, in one process;
+these three also run on the CPU with `--cpu`, for the tests),
+`perf_invconv`, the host and device time of the LU 1x1 conv calls (and
+of each kernel through its `torch.library` op), and
 `bench_serve`, the serving artifacts' images/s against the live model,
 and `perf_multi`, training time on 1 to N cards under
 `torch.distributed.run` (data, tensor and spatial parallelism) and SPMD

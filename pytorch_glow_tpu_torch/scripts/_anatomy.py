@@ -1,6 +1,8 @@
 """What the three anatomy scripts share: the celeba64 level-0 step, the
 bound (`flowstep.bound_ms`), two-N differencing and the per-kernel split
-of a chain.
+of a chain.  The timing tools `perf_fused_levels`, `perf_breakdown` and
+`bench_train` take their knobs, the card line and two-N differencing from
+here too.
 
 Every variant is timed by two-N differencing: CUDA events around N1 and
 then N2 back-to-back launches on one stream, each count warmed up once and
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import os
 import subprocess
+import time
 
 import torch
 
@@ -40,12 +43,13 @@ VARIANTS = {"forward": (anatomy.FORWARD, anatomy.forward_variant),
 
 
 def knobs(batch: int | None, n1: int | None, n2: int | None, n1_default: int,
-          n2_default: int) -> tuple[int, int, int]:
-    """The batch and the two launch counts: arguments, else KA_BATCH /
-    KA_N1 / KA_N2 from the environment, else 128 and the defaults."""
-    batch = batch or int(os.environ.get("KA_BATCH", "128"))
-    n1 = n1 or int(os.environ.get("KA_N1", str(n1_default)))
-    n2 = n2 or int(os.environ.get("KA_N2", str(n2_default)))
+          n2_default: int, prefix: str = "KA") -> tuple[int, int, int]:
+    """The batch and the two launch counts: arguments, else <prefix>_BATCH /
+    <prefix>_N1 / <prefix>_N2 from the environment, else 128 and the
+    defaults."""
+    batch = batch or int(os.environ.get(f"{prefix}_BATCH", "128"))
+    n1 = n1 or int(os.environ.get(f"{prefix}_N1", str(n1_default)))
+    n2 = n2 or int(os.environ.get(f"{prefix}_N2", str(n2_default)))
     if n2 <= n1:
         raise ValueError(f"two-N differencing needs N2 > N1, got {n1}, {n2}")
     return batch, n1, n2
@@ -55,7 +59,7 @@ def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them; raises
     without a CUDA card."""
     if not torch.cuda.is_available():
-        raise RuntimeError("the anatomy scripts time the CUDA kernels and need a CUDA card")
+        raise RuntimeError("these scripts time the CUDA kernels and need a CUDA card")
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
@@ -82,8 +86,21 @@ def operands(direction: str, b: int) -> dict:
     return out
 
 
-def two_n_ms(fn, n1: int, n2: int) -> float:
-    """Device time per call of fn by two-N differencing (module docstring)."""
+def two_n_ms(fn, n1: int, n2: int, cuda: bool = True) -> float:
+    """Device time per call of fn by two-N differencing (module docstring).
+    With `cuda` False (a tool's CPU run, for the tests) the wall time of n2
+    calls over n2, best of 3: a CPU's wall clock under other load can read
+    fewer ms for more calls, so it is not differenced."""
+    if not cuda:
+        fn()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(n2):
+                fn()
+            best = min(best, 1e3 * (time.perf_counter() - t0) / n2)
+        return best
+
     def run(n: int) -> float:
         for _ in range(n):
             fn()

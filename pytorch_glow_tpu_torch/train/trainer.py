@@ -139,7 +139,14 @@ class _StepWatchdog:
             self._thread.start()
 
     def stop(self) -> None:
+        """Stop the thread and wait for it to end.  A daemon thread still
+        running when the interpreter finalizes is ended from inside
+        whatever torch op it is in, which aborts the process ("terminate
+        called without an active exception", exit code 134) after the
+        run's result."""
         self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
 
     def _watch(self) -> None:
         while not self._stop.wait(self.poll_s):

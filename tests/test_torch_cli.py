@@ -57,6 +57,7 @@ def test_infer_sample_recon_nll(trained, tmp_path, capsys):
     _infer(out, "nll", "--synthetic", "textured", "--batches", "2", "--ema")
     text = capsys.readouterr()
     assert "max |x - rec|" in text.out and "over 8 images" in text.out
+    assert "of 3 images off by more than one bin" in text.out
     nll = float(text.out.split("nll: ")[1].split()[0])
     assert 0 < nll < 16
     assert "warning" not in text.err
