@@ -14,7 +14,8 @@
    mean |diff| < 2e-3, logdet atol 2e-1 / rtol 2e-2; and the per-step
    round-trip under the kernel to 2e-5 (or to twice the plain f32
    version's own round-trip, where the C x C mix is wider and that is
-   larger).  Times each step beside its plain
+   larger), and a second launch bitwise equal (z, logdet and the
+   reverse).  Times each step beside its plain
    version and the library yardstick (one unfused bf16 `FlowStep` call).
 4. Serves the celeba64 preset at full width (K=32, L=4, hidden 512) with
    random weights from a seed: `init_glow`, DDI on a uint8 batch, then an
@@ -230,7 +231,10 @@
    f32-coupling grads by 7's rule
    (no further than 1.5x the plain bf16 version's distance plus 1e-3),
    since at these widths the plain version's own sum order moves w2's grad
-   by several percent of its largest magnitude.
+   by several percent of its largest magnitude.  Then K1/K2 and K3 at the
+   widest channel counts in both couplings at pixel counts no multiple of
+   the mix's or the coupling update's tiles (`WIDE_CASES`: 5x4x4x384,
+   3x7x9x192), by the rules of 3 and 6.
 9. Holds the row-band kernels (`csrc/flowstep_band.cu`, K4, and
    `csrc/flowstep_band_bwd.cu`, K5) at celebahq256's band levels,
    128x128x12 and 64x64x24 (b=64), affine and additive: K4 against its
@@ -328,7 +332,11 @@
    settings.  `scripts/perf_fused_levels.py` at celebahq256 (b=64, N =
    2 / 6): a line per level, 128x128 down to 4x4, each direction (K1 /
    K4 forward, K2 / K4 reverse, K3 / K5 backward) with a finite positive
-   time and a share of its bound in (0, 1], level 0 on bands;
+   time and a share of its bound in (0, 1] and a finite positive library
+   time (one unfused `FlowStep` call), level 0 on bands; then its
+   `--split` (N = 2 / 6): K1, K2 and K3 at celebahq256's 32x32x48 and
+   4x4x384 (b=64) and celeba64's 4x4x96 (b=128) split by kernel
+   (torch.profiler), each beside its library time, printed;
    `scripts/perf_breakdown.py` (celeba64, b=128, N = 1 / 3 for the
    components and the full paths): finite positive stream and host times
    for every item, the device's own time positive where it was read;
@@ -389,6 +397,9 @@ BAND_BWD_TPU_KERNEL = "pytorch_glow_tpu/ops/flowstep_pallas.py:886"
 # the levels K1/K2 (all but level 0) and K3 (levels 2-5) run.
 HQ_BAND_SHAPES = [(128, 128, 12), (64, 64, 24)]
 HQ_WHOLE_SHAPES = [(64, 64, 24), (32, 32, 48), (16, 16, 96), (8, 8, 192), (4, 4, 384)]
+# (b, h, w, c) at the widest channel counts whose pixel counts (80, 189) are
+# no multiple of the mix's row tile or the coupling update's pixel block.
+WIDE_CASES = [(5, 4, 4, 384), (3, 7, 9, 192)]
 ANATOMY_SOURCE = "pytorch_glow_tpu_torch/csrc/anatomy.cu"
 ANATOMY_TPU_KERNELS = {"anatomy_forward": "scripts/perf_kernel_anatomy.py:125",
                        "anatomy_reverse": "scripts/perf_reverse_anatomy.py:121",
@@ -524,8 +535,12 @@ def check_kernels(torch, fs, results: dict, cases=None, time_all: bool = False,
             xk = fs.step_reverse(wr, zk, affine)
             xr = fs.step_reverse_ref(wr, zk, affine)
             plain_rt = float((fs.step_reverse_ref(wr, zr, affine) - z).abs().max())
+            zk2, ldk2 = fs.step_forward(wf, z, affine)
+            xk2 = fs.step_reverse(wr, zk, affine)
         torch.cuda.synchronize()
         tag = f"{b}x{h}x{w}x{c} {mode}"
+        require(same(torch, (zk, ldk, xk), (zk2, ldk2, xk2)),
+                f"{tag}: a second forward or reverse launch differs")
         hold_outputs(torch, tag, "forward", zk, zr, results)
         hold_outputs(torch, tag, "reverse", xk, xr, results)
         rt_err = float((xk - z).abs().max())
@@ -3457,6 +3472,16 @@ def check_timing_tools(torch) -> None:
                     f"perf_fused_levels {row.get('shape', 'totals')} {d}: {r}")
     require(levels["levels"][0]["forward"]["tiling"] == "band",
             f"perf_fused_levels: level 0 forward tiling {levels['levels'][0]['forward']}")
+    for row in levels["levels"]:
+        require(all(positive(row[d]["library_ms"]) for d in ("forward", "reverse", "backward")),
+                f"perf_fused_levels {row['shape']}: library times {row}")
+    splits = perf_fused_levels.main(["--split", "--n1", "2", "--n2", "6"])["splits"]
+    for sp in splits:
+        for d in ("forward", "reverse", "backward"):
+            r = sp[d]
+            require(positive(r["ms"]) and positive(r["library_ms"])
+                    and (r["split"] is None or all(positive(t) for t in r["split"].values())),
+                    f"perf_fused_levels --split {sp['preset']} level {sp['level']} {d}: {r}")
     t_levels = time.perf_counter() - t_phase
 
     t0 = time.perf_counter()
@@ -4150,6 +4175,8 @@ def run_phases(torch, fs, icf, card: str, results: dict, out_root: str,
     check_kernels(torch, fs, results, hq_cases, time_all=True, modes=("additive",))
     check_backward(torch, fs, results, hq_cases[1:], time_all=True, modes=("additive",),
                    f32_rule=True)
+    check_kernels(torch, fs, results, WIDE_CASES)
+    check_backward(torch, fs, results, WIDE_CASES, f32_rule=True)
     check_band(torch, fs, _build.library(), results)
     hq_launches = check_serving(
         torch, fs, card, "celebahq256", want_nll=counts(fs, band_forward=32, forward=160),

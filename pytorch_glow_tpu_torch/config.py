@@ -27,7 +27,8 @@ How the port reads the knobs that name JAX machinery:
   conv, or a fixed shuffle / reverse (`models/layers.make_permutation`).
 * `shard_spatial`: on a mesh whose model axis is larger than 1, each
   level's image rows are split over it (`parallel/spatial.py`), with the
-  coupling nets kept replicated (`parallel/mesh.py`).
+  coupling nets tensor-parallel over the same model group, as without it
+  (`parallel/mesh.py`).
 * `invconv_precision`, `scan_unroll`: kept for field parity; the port
   reads neither.  The 1x1 mix and its backward always run in full f32,
   where the JAX package may drop the backward's MXU passes to "high".

@@ -30,7 +30,7 @@
 //                tensor, no patch staging; the zero-conv, gy, g_v1's col2im
 //                and (S3) the gW1 patches, staged from v, read their 9 taps
 //                at pixel m
-//   no_logdet    (S1) the coupling writes ld = 0, no log_sigmoid sum
+//   no_logdet    (S1) no log_sigmoid sum and no partials; ld_sum writes 0
 //   recip_exp    (S2) z2 * (1 + e^-(raw+2)) - shift: 1/sigmoid, same math
 //   split_mix    (S2) the coupling writes only z2' into an (M, ch) buffer
 //                and the W^-1 mix reads z1 from the input (no z1 copy);
@@ -76,7 +76,8 @@ namespace {
 
 enum MixVariant { MIX_PROD = 0, MIX_SPLIT = 1, MIX_NONE = 2 };
 
-// S1: mix, net (conv1 taps TAP1 or staged), coupling (zero-conv taps TAP3).
+// S1: mix, net (conv1 taps TAP1 or staged), coupling (zero-conv taps TAP3)
+// with its logdet partials in h1's storage, as glow_flowstep keeps them.
 template <int TAP1, int TAP3, bool STAGED, int FORM>
 cudaError_t forward_chain(int b, int hh, int ww, int c, int hidden, const float* z,
                           const StepWeights& sw, const void* patches, float* out, float* ld,
@@ -85,9 +86,8 @@ cudaError_t forward_chain(int b, int hh, int ww, int c, int hidden, const float*
   GLOW_CHECK(launch_mix<false>(M, c, z, sw.wmat, sw.anb, sw.anl, out, stream));
   GLOW_CHECK((launch_net<false, TAP1, STAGED>(M, hh, ww, c, hidden, c, out, sw, p1, h1, h2, y,
                                               stream, Band{}, patches)));
-  coupling_kernel<false, true, TAP3, FORM><<<b, ROW_THREADS, 0, stream>>>(hh, ww, c, out, y,
-                                                                          sw.b3, sw.l3, out, ld);
-  return cudaGetLastError();
+  return launch_coupling<false, false, TAP3, FORM>(1, b, hh, ww, c, Band{}, out, y, sw.b3, sw.l3,
+                                                   out, ld, (float*)h1, stream);
 }
 
 // S2: net on the input's z1, coupling into tmp (or out), then the mix.
@@ -99,9 +99,8 @@ cudaError_t reverse_chain(int b, int hh, int ww, int c, int hidden, const float*
   GLOW_CHECK((launch_net<false, TAP_MASKED, STAGED>(M, hh, ww, c, hidden, c, z, sw, p1, h1, h2, y,
                                                     stream, Band{}, patches)));
   float* dst = MIX == MIX_NONE ? out : tmp;
-  coupling_kernel<true, true, TAP3, FORM><<<b, ROW_THREADS, 0, stream>>>(hh, ww, c, z, y, sw.b3,
-                                                                         sw.l3, dst, nullptr);
-  GLOW_CHECK(cudaGetLastError());
+  GLOW_CHECK((launch_coupling<false, true, TAP3, FORM>(1, b, hh, ww, c, Band{}, z, y, sw.b3, sw.l3,
+                                                       dst, nullptr, nullptr, stream)));
   if constexpr (MIX == MIX_SPLIT)
     return launch_mix<true, true>(M, c, z, sw.wmat, sw.anb, sw.anl, out, stream, tmp);
   else if constexpr (MIX == MIX_PROD)

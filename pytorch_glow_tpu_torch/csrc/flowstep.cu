@@ -16,21 +16,23 @@
 //
 // Forward chain (`launch_net` and the rest in flowstep_common.cuh, shared
 // with the backward's recompute, the band chain and the anatomy variants):
-//   mix_kernel<fwd>       out = W @ ((z + b) * e^l)                     f32
+//   mix_tile_kernel<fwd>  out = W @ ((z + b) * e^l), a tiled f32 product
+//                         on the CUDA cores                             f32
 //   stage_patches_kernel  p1 = conv1's 3x3 patches of out[:, :ch], masked,
 //                         (M, padded(9*ch))                             bf16
 //   gemm_nt<actnorm-relu> h1 = relu((p1 @ w1^T + b1) * e^l1)            bf16
 //   gemm_nt<actnorm-relu> h2 = relu((h1 @ w2^T + b2) * e^l2)            bf16
 //   gemm_nt<f32>          y  = h2 @ w3^T (tap-packed zero-conv, (M, 9*cout))
-//   coupling_kernel       h = (sum_k y[p + off_k, k] + b3) * e^{3 l3};
-//                         out[:, ch:] = (z2 + shift) * sigmoid(raw + 2), and
-//                         per image sum log_sigmoid(raw + 2), one block per
-//                         image in a fixed order (no atomics).
+//   coupling_update_kernel  per (pixel, channel): h = (sum_k y[p + off_k, k]
+//                         + b3) * e^{3 l3}; out[:, ch:] = (z2 + shift) *
+//                         sigmoid(raw + 2), and per block of pixels a
+//                         partial sum of log_sigmoid(raw + 2)
+//   ld_sum_kernel         each image's partials summed in order (no atomics).
 // Reverse chain: the same f(z1) on the input's z1, z2 = z2 / s - shift into
-// a scratch, then mix_kernel<rev>: out = (W^-1 @ t) * e^-l - b.  The three
-// products run on the wgmma/TMA core of gemm_sm90.cuh (128 x 128 tiles, a
-// 3-stage TMA ring, two consumer warpgroups), the actnorm and ReLU in its
-// epilogue.
+// a scratch, then mix_tile_kernel<rev>: out = (W^-1 @ t) * e^-l - b.  The
+// three products run on the wgmma/TMA core of gemm_sm90.cuh (128 x 128
+// tiles, a 3-stage TMA ring, two consumer warpgroups), the actnorm and
+// ReLU in its epilogue.
 //
 // Every sum inside f() runs in a fixed order (each product's K slices in
 // one block, in order, no split-K; then taps k = 0..8), so encode and
@@ -78,9 +80,12 @@ int glow_flowstep(int reverse, int affine, int b, int hh, int ww, int c, int hid
   GLOW_TRY(launch_net(M, hh, ww, c, hidden, cout, z1_src, sw, p1, h1, h2, y, stream));
 
   if (!reverse) {
-    GLOW_TRY(launch_coupling<false>(affine, b, hh, ww, c, out, y, b3, l3, out, ld, stream));
+    // The logdet partials go to h1's storage, which conv2 has read.
+    GLOW_TRY((launch_coupling<false, false>(affine, b, hh, ww, c, Band{}, out, y, b3, l3, out, ld,
+                                            (float*)h1, stream)));
   } else {
-    GLOW_TRY(launch_coupling<true>(affine, b, hh, ww, c, z, y, b3, l3, tmp, ld, stream));
+    GLOW_TRY((launch_coupling<false, true>(affine, b, hh, ww, c, Band{}, z, y, b3, l3, tmp, nullptr,
+                                           nullptr, stream)));
     GLOW_TRY(launch_mix<true>(M, c, tmp, wmat, anb, anl, out, stream));
   }
   return 0;

@@ -18,14 +18,16 @@
 // and every tap masks on the absolute image row, so halo rows outside the
 // image read as zero.  Per group of G bands:
 //   gather_band        ext z, zero outside the image
-//   mix_kernel<fwd>    (forward only) v = W @ ((z + b) * e^l) on ext
+//   mix_tile_kernel    (forward only) v = W @ ((z + b) * e^l) on ext
 //   launch_net<band>   conv1's patches p1 (masked on absolute rows), then
 //                      h1, h2 and the tap-packed y on ext, the three
 //                      products on the wgmma/TMA core (gemm_sm90.cuh)
-//   coupling_band      the R centre rows: forward writes the output and one
-//                      logdet partial per band; reverse writes a scratch
-//   mix_kernel<rev>    (reverse only) on the centre rows into the output
-// then ld_sum adds each image's band partials in band order.  No atomics.
+//   coupling_update    the R centre rows, per (pixel, channel): forward
+//                      writes the output and one logdet partial per block
+//                      of pixels; reverse writes a scratch
+//   mix_tile_kernel    (reverse only) on the centre rows into the output
+// then ld_sum adds each image's partials in band and block order.  No
+// atomics.
 //
 // Slab form (spatial sharding, `pytorch_glow_tpu_torch/parallel/spatial.py`):
 // the input is one rank's row slab of each image with 2 rows of each
@@ -50,77 +52,6 @@
 
 #include "flowstep_common.cuh"
 
-namespace {
-
-// Coupling update on the centre rows of each staged band; one block per
-// band.  src: the ext mixed z (forward) or ext input z (reverse).  Forward
-// writes dst = the global output and ld_band[first + j]; reverse writes dst
-// = a (count * R * ww, c) scratch.
-template <bool REVERSE, bool AFFINE>
-__global__ void __launch_bounds__(ROW_THREADS)
-    coupling_band_kernel(int ww, int C, Band bd, const float* src, const float* y,
-                         const float* b3, const float* l3, float* dst, float* ld_band) {
-  __shared__ float red[ROW_THREADS];
-  const int j = blockIdx.x;
-  const int R = bd.rows, ext_rows = R + 4, ch = C / 2;
-  const int cout = AFFINE ? C : ch;
-  float part = 0.0f;
-  for (int q = threadIdx.x; q < R * ww; q += ROW_THREADS) {
-    const int py = 2 + q / ww, px = q % ww;
-    const float* row = src + ((size_t)(j * ext_rows + py) * ww + px) * C;
-    float* out = dst + ((size_t)(REVERSE ? j : bd.first + j) * R * ww + q) * C;
-    for (int i = 0; i < ch; ++i) {
-      const float z1 = row[i];
-      float z2 = row[ch + i];
-      const float h = zero_conv_at<true>(y, j, ext_rows, ww, py, px, cout, i, b3, l3, bd);
-      if (AFFINE) {
-        const float raw =
-            zero_conv_at<true>(y, j, ext_rows, ww, py, px, cout, ch + i, b3, l3, bd) + 2.0f;
-        const float s = 1.0f / (1.0f + expf(-raw));
-        z2 = REVERSE ? z2 / s - h : (z2 + h) * s;
-        if (!REVERSE) part += log_sigmoid(raw);
-      } else {
-        z2 = REVERSE ? z2 - h : z2 + h;
-      }
-      out[i] = z1;
-      out[ch + i] = z2;
-    }
-  }
-  if (REVERSE) return;
-  red[threadIdx.x] = part;
-  __syncthreads();
-  for (int s = ROW_THREADS / 2; s > 0; s /= 2) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) ld_band[bd.first + j] = red[0];
-}
-
-// ld[img] = sum over the image's T bands of ld_band, in band order.
-__global__ void ld_sum_kernel(int b, int T, const float* ld_band, float* ld) {
-  const int img = blockIdx.x * blockDim.x + threadIdx.x;
-  if (img >= b) return;
-  float s = 0.0f;
-  for (int t = 0; t < T; ++t) s += ld_band[(size_t)img * T + t];
-  ld[img] = s;
-}
-
-template <bool REVERSE>
-cudaError_t launch_coupling_band(int affine, int count, int ww, int C, const Band& bd,
-                                 const float* src, const float* y, const float* b3,
-                                 const float* l3, float* dst, float* ld_band,
-                                 cudaStream_t stream) {
-  if (affine)
-    coupling_band_kernel<REVERSE, true><<<count, ROW_THREADS, 0, stream>>>(ww, C, bd, src, y, b3,
-                                                                           l3, dst, ld_band);
-  else
-    coupling_band_kernel<REVERSE, false><<<count, ROW_THREADS, 0, stream>>>(ww, C, bd, src, y, b3,
-                                                                            l3, dst, ld_band);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
 // One flow step over row bands.  z: (b*(hh + 2*lead)*ww, c) f32 input,
@@ -133,7 +64,8 @@ extern "C" {
 // of (R+4)*ww staged pixels: zext and v (G*(R+4)*ww, c) f32 (v unused in
 // reverse), p1 (.., padded(9*ch)) bf16, h1, h2 (.., hidden) bf16,
 // y (.., 9*cout) f32, tmp (G*R*ww, c) f32 (reverse only), and ld_band
-// (b*hh/R,) f32.  out and ld hold the centre rows only.  Returns 0 or the
+// (b*hh*ww,) f32, room for every band's logdet partials.  out and ld hold
+// the centre rows only.  Returns 0 or the
 // first launch's cudaError_t.
 int glow_flowstep_band(int reverse, int affine, int b, int hh, int ww, int c, int hidden, int R,
                        int G, int lead, int origin, int image, const float* z, const float* wmat, const float* anb,
@@ -159,19 +91,17 @@ int glow_flowstep_band(int reverse, int affine, int b, int hh, int ww, int c, in
     GLOW_TRY(launch_net<true>(me, ext_rows, ww, c, hidden, cout, src, sw, p1, h1, h2, y, stream,
                               bd));
     if (!reverse) {
-      GLOW_TRY(launch_coupling_band<false>(affine, count, ww, c, bd, src, y, b3, l3, out, ld_band,
-                                           stream));
+      GLOW_TRY((launch_coupling<true, false>(affine, count, ext_rows, ww, c, bd, src, y, b3, l3,
+                                             out, nullptr, ld_band, stream)));
     } else {
-      GLOW_TRY(launch_coupling_band<true>(affine, count, ww, c, bd, src, y, b3, l3, tmp, ld_band,
-                                          stream));
+      GLOW_TRY((launch_coupling<true, true>(affine, count, ext_rows, ww, c, bd, src, y, b3, l3,
+                                            tmp, nullptr, nullptr, stream)));
       GLOW_TRY(launch_mix<true>(count * R * ww, c, tmp, wmat, anb, anl,
                                 out + (size_t)first * R * ww * c, stream));
     }
   }
-  if (!reverse) {
-    ld_sum_kernel<<<(b + 255) / 256, 256, 0, stream>>>(b, T, ld_band, ld);
-    GLOW_TRY(cudaGetLastError());
-  }
+  if (!reverse)
+    GLOW_TRY(ld_sum(b, affine ? T * coupling_parts(R * ww, c) : 0, ld_band, ld, stream));
   return 0;
 }
 

@@ -17,12 +17,14 @@
 //   gemm_nt          g_h1 = g_a2 @ w2; the same epilogue with h1
 //   gemm_nt          g_p1 = g_a1 @ w1 (f32)
 //   gv1_kernel       g_v1 = go1 + col2im(g_p1), the conv1 gather transposed
-//   mix_bwd          g_u = W^T g_v, g_z = g_u * e^{anl}, u recomputed
+//   mix_tile_kernel  g_u = W^T g_v, g_z = g_u * e^{anl}, u recomputed: the
+//                    forward's tiled f32 mix (flowstep_common.cuh), MIX_BWD
 //   weight_grad      gW2 = g_a2^T h1, gW1 = g_a1^T p1 (the recompute's
 //                    patches), gW3 = gy^T h2 on the core: "K = M" products
 //                    read pixel-major, one partial per chunk of pixels
 //   col_partial,     the bias/logs column sums and the C x C mix gradient,
-//   outer_partial    one partial per chunk of pixels
+//   outer_partials   one partial per chunk of pixels (the mix gradient's
+//                    on the tiled mix, MIX_OUTER, at C >= 32)
 //   reduce_partials  each partial set summed in chunk order
 //
 // The bf16 operands the core reads through TMA need row strides of a
@@ -161,22 +163,6 @@ __global__ void gv1_kernel(int M, int hh, int ww, int C, const float* gp1, float
   gv[m * C + i] = acc;
 }
 
-// g_u = W^T g_v, g_z = g_u * e^{anl}; u = (z + anb) * e^{anl} recomputed.
-__global__ void mix_bwd_kernel(int M, int C, const float* z, const float* w, const float* anb,
-                               const float* anl, const float* gv, float* gz, float* u,
-                               float* gu) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * C) return;
-  const int m = idx / C, i = idx - m * C;
-  const float* row = gv + m * C;
-  float acc = 0.0f;
-  for (int o = 0; o < C; ++o) acc = fmaf(w[o * C + i], row[o], acc);
-  const float el = expf(anl[i]);
-  gz[idx] = acc * el;
-  u[idx] = (z[idx] + anb[i]) * el;
-  gu[idx] = acc;
-}
-
 // Partial sums over pixel chunks of `chunk` pixels, cut at `split` as
 // gemm_sm90.cuh `chunk_range` cuts them (split = 0: plain chunks).
 
@@ -195,7 +181,9 @@ __global__ void col_partial_kernel(int M, int N, int chunk, int split, const flo
 }
 
 // part[chunk, o, i] = sum over the chunk's pixels of gv[p, o] * u[p, i]: the
-// mix gradient g_v u^T, in f32.
+// mix gradient g_v u^T, in f32, one thread per output, pixels in order.
+// At C >= OUTER_TILED_C the tiled mix kernel's MIX_OUTER form computes the
+// same sums (`outer_partials`).
 __global__ void outer_partial_kernel(int M, int C, int chunk, int split, const float* gv,
                                      const float* u, float* part) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -228,6 +216,24 @@ __global__ void reduce_partials_kernel(int parts, int N, const float* part, floa
     for (int k = 0; k < strands; ++k) t += red[k][threadIdx.x];
     out[n] = t * scale;
   }
+}
+
+// The mix gradient's chunk partials: below OUTER_TILED_C a chunk's C x C
+// outputs are too few for the tiles, so one thread per output (at C = 12
+// the tiles measured 3.4x slower, at 24 even, from 48 2.4x faster).
+constexpr int OUTER_TILED_C = 32;
+
+cudaError_t outer_partials(int M, int C, int split, const float* gv, const float* u, float* part,
+                           cudaStream_t stream) {
+  const int chunks = sm90::chunk_count(M, COL_CHUNK, split);
+  if (C >= OUTER_TILED_C) {
+    MixArgs g = {};
+    g.M = M; g.C = C; g.a = gv; g.a2 = u; g.out = part; g.chunk = COL_CHUNK; g.split = split;
+    return launch_mix_form<MIX_OUTER>(g, stream, chunks);
+  }
+  outer_partial_kernel<<<ceil_div(chunks * C * C, 256), 256, 0, stream>>>(M, C, COL_CHUNK, split,
+                                                                          gv, u, part);
+  return cudaGetLastError();
 }
 
 cudaError_t reduce(int parts, int N, const float* part, float scale, float* out,
@@ -393,9 +399,10 @@ cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden,
   gv1_kernel<BAND, V::tap><<<ceil_div(M * ch, 256), 256, 0, stream>>>(M, hh, ww, c, ws.gp1,
                                                                       ws.gv, bd);
   GLOW_CHECK(cudaGetLastError());
-  mix_bwd_kernel<<<ceil_div(M * c, 256), 256, 0, stream>>>(M, c, z, sw.wmat, sw.anb, sw.anl,
-                                                           ws.gv, gz, ws.u, ws.gu);
-  GLOW_CHECK(cudaGetLastError());
+  MixArgs mb = {};  // g_u = W^T g_v, g_z = g_u * e^{anl}; u = (z + anb) * e^{anl} recomputed
+  mb.M = M; mb.C = c; mb.a = ws.gv; mb.w = sw.wmat; mb.anb = sw.anb; mb.anl = sw.anl; mb.z = z;
+  mb.out = gz; mb.u = ws.u; mb.gu = ws.gu;
+  GLOW_CHECK(launch_mix_form<MIX_BWD>(mb, stream));
 
   // -- weight gradients -------------------------------------------------------
   // The variants that drop a gradient write it as zeros.
@@ -438,10 +445,7 @@ cudaError_t backward_chain(int affine, int M, int hh, int ww, int c, int hidden,
     for (int i : rowsums) GLOW_CHECK(zero(i));
   }
 
-  const int chunks = sm90::chunk_count(M, COL_CHUNK, split);
-  outer_partial_kernel<<<ceil_div(chunks * c * c, 256), 256, 0, stream>>>(
-      M, c, COL_CHUNK, split, ws.gv, ws.u, ws.part_col);
-  GLOW_CHECK(cudaGetLastError());
+  GLOW_CHECK(outer_partials(M, c, split, ws.gv, ws.u, ws.part_col, stream));
   GLOW_CHECK((reduce_from<V::accum>(M, COL_CHUNK, split, c * c, ws.part_col, 1.0f, g[0], stream)));
   return cudaSuccess;
 }

@@ -123,29 +123,296 @@ __device__ __forceinline__ __nv_bfloat16 conv3x3_patch(const float* z, int ldz, 
   return __float2bfloat16(0.0f);
 }
 
-// The 1x1 channel mix in f32, one output element per thread.
-//   forward: out = W @ ((z + b) * e^l)      reverse: out = (W @ z) * e^-l - b
-// With SPLIT, inputs C/2.. come from z2 (M, C/2) instead of zin.
-template <bool REVERSE, bool SPLIT = false>
-__global__ void mix_kernel(int M, int C, const float* zin, const float* w, const float* anb,
-                           const float* anl, float* out, const float* z2) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * C) return;
-  const int m = idx / C, o = idx - m * C;
-  const float* row = zin + m * C;
-  const float* wr = w + o * C;
-  float acc = 0.0f;
-  for (int i = 0; i < C; ++i) {
-    float v;
-    if constexpr (SPLIT)
-      v = i < C / 2 ? row[i] : z2[m * (C / 2) + i - C / 2];
-    else
-      v = row[i];
-    if (!REVERSE) v = (v + anb[i]) * expf(anl[i]);
-    acc = fmaf(wr[i], v, acc);
+// -- the 1x1 channel mix in f32 -------------------------------------------------
+//
+//   forward: out = W @ ((z + b) * e^l)      reverse: out = (W @ t) * e^-l - b
+//
+// (W the (C, C) mix, its inverse in reverse), and in the backward chain
+// g_u = W^T g_v with its actnorm epilogue and the mix gradient's chunk
+// partials g_v u^T (`MixForm`).  A tiled f32 product on the CUDA cores,
+// `mix_tile_kernel<BN, FORM>`: a block owns BM = 4096 / BN rows (pixels)
+// by BN output channels, each of its 256 threads a 4 x 4 register tile.
+// The block stages MIX_BK summed indices at a time of both operands,
+// k-major (transposed as they are copied where k is contiguous in the
+// source), by 4-byte cp.async into a ring of 2-4 stages, so the next
+// chunks' copies fly while a chunk's products run; each thread's 4 x 4
+// operands are then two float4 reads, free of bank conflicts.  The
+// forward's actnorm is applied once to each staged input, in place, by
+// the thread that copied it, from b and e^l staged once per block; the
+// reverse's actnorm inverse and the backward's e^l once per output column
+// in the epilogue.  BN is 16, 32 or 64, by C (`launch_mix_form`), so a
+// narrow C wastes at most a quarter of a tile; the ragged edges are
+// masked (no padded index is ever summed).
+//
+// Precision and bits: true f32, no TF32 (the TPU kernel multiplies at
+// HIGHEST).  Every output starts at 0 and adds fmaf(W[o, i], v[m, i]) for
+// i = 0..C-1 in order (the mix gradient: over its chunk's pixels in
+// order), with no split of the sum: the order of a one-thread-per-output
+// loop, so K1, K3's recompute and the band chain's centre rows agree bit
+// for bit, and encode/decode stay exact.
+//
+// What bounds it: at C >= 96 the f32 FMAs (M C^2 of them, 67 TFLOP/s);
+// at C <= 48 the bytes (z in, the mixed z out).  At the 4x4 levels few
+// blocks run (96 at 4x4x384, b=64), each C / 16 chunks deep, so the ring
+// is 4 deep there and a whole chunk's products run unrolled and untested.
+
+constexpr int MIX_THREADS = 256;
+constexpr int MIX_BK = 16;  // input channels a staged chunk
+constexpr int MIX_T = 4;    // a thread's register tile is MIX_T x MIX_T
+
+template <int BN>
+struct MixTile {
+  static constexpr int BM = MIX_THREADS * MIX_T * MIX_T / BN;  // pixels a block
+  static constexpr int TX = BN / MIX_T;                        // threads along the outputs
+  static constexpr int ROWS = MIX_THREADS / MIX_BK;            // rows a copy pass covers
+  static constexpr int A_PER = BM / ROWS, B_PER = BN / ROWS;   // copies a thread per chunk
+  // k-major rows, padded so that the transposing copies spread over the
+  // banks and each row stays 16-byte aligned.
+  static constexpr int SA = BM + 4, SB = BN + 4;
+  // Chunks in flight: C <= 16 is one chunk; the wide tiles hide the L2
+  // round trip of a chunk's copies behind three chunks' products.
+  static constexpr int STAGES = BN == 16 ? 2 : BN == 32 ? 3 : 4;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sm90::smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>  // all but the newest PENDING groups landed
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// What a mix_tile_kernel launch computes.  The tile's rows are pixels
+// (the forms' M) but for MIX_OUTER, whose rows are output channels o.
+enum MixForm {
+  MIX_FWD = 0,        // out = W (z + b) e^l
+  MIX_REV = 1,        // out = (W t) e^-l - b
+  MIX_REV_SPLIT = 2,  // MIX_REV with inputs C/2.. from a2 (M, C/2)
+  MIX_BWD = 3,        // g_u = W^T g_v; out = g_z = g_u e^l, u = (z + b) e^l, gu = g_u
+  MIX_OUTER = 4,      // out[chunk, o, i] = sum over the chunk's pixels p of a[p, o] a2[p, i]
+};
+
+struct MixArgs {
+  int M, C;
+  const float* a;    // the rows' inputs, (M, C): z, t, g_v; MIX_OUTER: g_v
+  const float* a2;   // MIX_REV_SPLIT: z2' (M, C/2); MIX_OUTER: u (M, C)
+  const float* w;    // the (C, C) mix, its inverse for the reverse
+  const float *anb, *anl;
+  const float* z;    // MIX_BWD: the step input
+  float* out;        // the result (MIX_BWD: g_z; MIX_OUTER: the (chunks, C, C) partials)
+  float *u, *gu;     // MIX_BWD
+  int chunk, split;  // MIX_OUTER: pixel chunks as sm90::chunk_range cuts them
+  int vec;           // out, and for MIX_BWD z, u and gu, take float4 stores / loads
+};
+
+template <int BN, int FORM>
+__global__ void __launch_bounds__(MIX_THREADS) mix_tile_kernel(const MixArgs g) {
+  using T = MixTile<BN>;
+  constexpr bool ROWS_ARE_PIXELS = FORM != MIX_OUTER;
+  // Whether a staged operand is copied as it lies (k its row, the tile's
+  // row or column contiguous) or transposed (k contiguous in the source).
+  constexpr bool A_DIRECT = FORM == MIX_OUTER, B_DIRECT = FORM == MIX_BWD || FORM == MIX_OUTER;
+  constexpr bool ACTNORM = FORM == MIX_FWD || FORM == MIX_BWD;  // `an` staged
+  __shared__ __align__(16) float as[T::STAGES][MIX_BK][T::SA];  // as[k][row]
+  __shared__ __align__(16) float bs[T::STAGES][MIX_BK][T::SB];  // bs[k][column]
+  extern __shared__ float an[];  // an[k] = b[k], an[C + k] = e^l[k]
+  const int C = g.C;
+  const int tid = threadIdx.x, tx = tid % T::TX, ty = tid / T::TX;
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * BN;
+  const int rows = ROWS_ARE_PIXELS ? g.M : C;
+  int k_begin = 0, k_end = C;  // the summed index: input channels, or pixels
+  if (FORM == MIX_OUTER) sm90::chunk_range(blockIdx.z, g.M, g.chunk, g.split, &k_begin, &k_end);
+  const int chunks = ceil_div(k_end - k_begin, MIX_BK);
+  // Transposing copies: thread tid takes k = lk of rows lr + ROWS * p, so
+  // 16 neighbouring threads read 16 neighbouring floats of a source row.
+  const int lk = tid % MIX_BK, lr = tid / MIX_BK;
+
+  auto stage = [&](int kc, int buf) {
+    const int kb = k_begin + kc * MIX_BK;
+#pragma unroll
+    for (int p = 0; p < T::A_PER; ++p) {
+      const int e = tid + p * MIX_THREADS;
+      const int kk = A_DIRECT ? e / T::BM : lk, r = A_DIRECT ? e % T::BM : lr + p * T::ROWS;
+      const int k = kb + kk, m = m0 + r;
+      const bool ok = k < k_end && m < rows;
+      const float* src = g.a;
+      if (ok) {
+        if (A_DIRECT)
+          src = g.a + (size_t)k * C + m;
+        else if (FORM == MIX_REV_SPLIT && k >= C / 2)
+          src = g.a2 + (size_t)m * (C / 2) + (k - C / 2);
+        else
+          src = g.a + (size_t)m * C + k;
+      }
+      cp_async4(&as[buf][kk][r], src, ok);
+    }
+#pragma unroll
+    for (int p = 0; p < T::B_PER; ++p) {
+      const int e = tid + p * MIX_THREADS;
+      const int kk = B_DIRECT ? e / BN : lk, n = B_DIRECT ? e % BN : lr + p * T::ROWS;
+      const int k = kb + kk, col = n0 + n;
+      const bool ok = k < k_end && col < C;
+      const float* src = FORM == MIX_OUTER ? g.a2 : g.w;
+      if (ok)
+        src = FORM == MIX_OUTER ? g.a2 + (size_t)k * C + col
+              : B_DIRECT        ? g.w + (size_t)k * C + col
+                                : g.w + (size_t)col * C + k;
+      cp_async4(&bs[buf][kk][n], src, ok);
+    }
+  };
+
+  float acc[MIX_T][MIX_T];
+#pragma unroll
+  for (int i = 0; i < MIX_T; ++i)
+#pragma unroll
+    for (int j = 0; j < MIX_T; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < chunks) stage(s, s);
+    cp_async_commit();
   }
-  if (REVERSE) acc = acc * expf(-anl[o]) - anb[o];
-  out[idx] = acc;
+  if (ACTNORM)  // while the first chunks' copies fly
+    for (int k = tid; k < C; k += MIX_THREADS) {
+      an[k] = g.anb[k];
+      an[C + k] = expf(g.anl[k]);
+    }
+  __syncthreads();  // `an` in place
+  for (int kc = 0; kc < chunks; ++kc) {
+    const int buf = kc % T::STAGES;
+    if (kc + T::STAGES - 1 < chunks) stage(kc + T::STAGES - 1, (kc + T::STAGES - 1) % T::STAGES);
+    cp_async_commit();
+    cp_async_wait<T::STAGES - 1>();  // this thread's copies of chunk kc
+    if (FORM == MIX_FWD && kc * MIX_BK + lk < C) {  // the actnorm, on the copies this thread made
+      const float b = an[kc * MIX_BK + lk], el = an[C + kc * MIX_BK + lk];
+#pragma unroll
+      for (int p = 0; p < T::A_PER; ++p) {
+        float& v = as[buf][lk][lr + p * T::ROWS];
+        v = (v + b) * el;
+      }
+    }
+    __syncthreads();
+    auto product = [&](int kk) {  // k = chunk start + kk, added to every output
+      const float4 a = *reinterpret_cast<const float4*>(&as[buf][kk][ty * MIX_T]);
+      const float4 b = *reinterpret_cast<const float4*>(&bs[buf][kk][tx * MIX_T]);
+      const float av[MIX_T] = {a.x, a.y, a.z, a.w}, bv[MIX_T] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < MIX_T; ++i)
+#pragma unroll
+        for (int j = 0; j < MIX_T; ++j) acc[i][j] = fmaf(bv[j], av[i], acc[i][j]);
+    };
+    const int kmax = k_end - k_begin - kc * MIX_BK;
+    if (kmax >= MIX_BK) {  // a whole chunk: unrolled with no test, its loads run ahead
+#pragma unroll
+      for (int kk = 0; kk < MIX_BK; ++kk) product(kk);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < MIX_BK; ++kk)
+        if (kk < kmax) product(kk);
+    }
+    __syncthreads();  // every thread is done with buf before it is refilled
+  }
+
+  // The epilogue: this thread's 4 x 4 outputs, rows m, columns o0 + j.
+  const int o0 = n0 + tx * MIX_T;
+  const bool full = g.vec && o0 + MIX_T <= C;
+  float ea[MIX_T] = {}, eb[MIX_T] = {};  // the reverse's e^-l and b, the backward's e^l and b
+  if (FORM == MIX_REV || FORM == MIX_REV_SPLIT || FORM == MIX_BWD) {
+#pragma unroll
+    for (int j = 0; j < MIX_T; ++j) {
+      if (o0 + j < C) {
+        ea[j] = FORM == MIX_BWD ? an[C + o0 + j] : expf(-g.anl[o0 + j]);
+        eb[j] = FORM == MIX_BWD ? an[o0 + j] : g.anb[o0 + j];
+      }
+    }
+  }
+  auto put = [&](float* base, size_t at, const float (&r)[MIX_T]) {
+    if (full) {
+      *reinterpret_cast<float4*>(base + at) = make_float4(r[0], r[1], r[2], r[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < MIX_T; ++j)
+        if (o0 + j < C) base[at + j] = r[j];
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < MIX_T; ++i) {
+    const int m = m0 + ty * MIX_T + i;
+    if (m >= rows) break;
+    const size_t at = FORM == MIX_OUTER ? ((size_t)blockIdx.z * C + m) * C + o0
+                                        : (size_t)m * C + o0;
+    float r[MIX_T];
+    if constexpr (FORM == MIX_BWD) {
+      float zv[MIX_T] = {}, uv[MIX_T];
+      if (full) {
+        const float4 z4 = *reinterpret_cast<const float4*>(g.z + at);
+        zv[0] = z4.x, zv[1] = z4.y, zv[2] = z4.z, zv[3] = z4.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < MIX_T; ++j)
+          if (o0 + j < C) zv[j] = g.z[at + j];
+      }
+#pragma unroll
+      for (int j = 0; j < MIX_T; ++j) {
+        r[j] = acc[i][j] * ea[j];
+        uv[j] = (zv[j] + eb[j]) * ea[j];
+      }
+      put(g.out, at, r);
+      put(g.u, at, uv);
+      put(g.gu, at, acc[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < MIX_T; ++j)
+        r[j] = FORM == MIX_REV || FORM == MIX_REV_SPLIT ? acc[i][j] * ea[j] - eb[j] : acc[i][j];
+      put(g.out, at, r);
+    }
+  }
+}
+
+template <int BN, int FORM>
+cudaError_t launch_mix_tile(MixArgs g, int chunks, cudaStream_t stream) {
+  using T = MixTile<BN>;
+  constexpr int static_bytes = T::STAGES * MIX_BK * (T::SA + T::SB) * (int)sizeof(float);
+  const int dynamic_bytes = FORM == MIX_FWD || FORM == MIX_BWD ? 2 * g.C * (int)sizeof(float) : 0;
+  auto kernel = mix_tile_kernel<BN, FORM>;
+  if (static_bytes + dynamic_bytes > 48 * 1024)
+    GLOW_CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    dynamic_bytes));
+  const int rows = FORM == MIX_OUTER ? g.C : g.M;
+  const dim3 grid(ceil_div(rows, T::BM), ceil_div(g.C, BN), chunks);
+  bool vec = g.C % 4 == 0 && reinterpret_cast<uintptr_t>(g.out) % 16 == 0;
+  if (FORM == MIX_BWD)
+    vec = vec && (reinterpret_cast<uintptr_t>(g.z) | reinterpret_cast<uintptr_t>(g.u) |
+                  reinterpret_cast<uintptr_t>(g.gu)) % 16 == 0;
+  g.vec = vec;
+  kernel<<<grid, MIX_THREADS, dynamic_bytes, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// The tile width by C: 16 up to C = 16, 32 up to 32, else 64 where it
+// divides C or C <= 64 (one output tile), else 32 (C = 96: three tiles).
+template <int FORM>
+cudaError_t launch_mix_form(const MixArgs& g, cudaStream_t stream, int chunks = 1) {
+  if (g.C <= 16) return launch_mix_tile<16, FORM>(g, chunks, stream);
+  if (g.C <= 32 || (g.C > 64 && g.C % 64 != 0)) return launch_mix_tile<32, FORM>(g, chunks, stream);
+  return launch_mix_tile<64, FORM>(g, chunks, stream);
+}
+
+// The mix over M pixels (the forward's, or the reverse's; with SPLIT the
+// reverse reading inputs C/2.. from z2 (M, C/2)).
+template <bool REVERSE, bool SPLIT = false>
+cudaError_t launch_mix(int M, int C, const float* zin, const float* w, const float* anb,
+                       const float* anl, float* out, cudaStream_t stream,
+                       const float* z2 = nullptr) {
+  MixArgs g = {};
+  g.M = M; g.C = C; g.a = zin; g.a2 = z2; g.w = w; g.anb = anb; g.anl = anl; g.out = out;
+  constexpr int form = !REVERSE ? MIX_FWD : SPLIT ? MIX_REV_SPLIT : MIX_REV;
+  return launch_mix_form<form>(g, stream);
 }
 
 // Zero-conv output channel c at pixel (py, px) of image img from the
@@ -182,16 +449,6 @@ __device__ __forceinline__ float zero_conv_at(const float* y, int img, int hh, i
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
-}
-
-template <bool REVERSE, bool SPLIT = false>
-cudaError_t launch_mix(int M, int C, const float* zin, const float* w, const float* anb,
-                       const float* anl, float* out, cudaStream_t stream,
-                       const float* z2 = nullptr) {
-  const int total = M * C;
-  mix_kernel<REVERSE, SPLIT><<<(total + 255) / 256, 256, 0, stream>>>(M, C, zin, w, anb, anl,
-                                                                     out, z2);
-  return cudaGetLastError();
 }
 
 // The 12 packed weights in `pack_weights` order, as the C entries take
@@ -267,77 +524,132 @@ cudaError_t launch_net(int M, int hh, int ww, int c, int hidden, int cout, const
   return sm90::gemm_nt<sm90::EPI_F32>(g3, h2, hidden, sw.w3, hidden, stream);
 }
 
-// Coupling update and per-image logdet; one block per image.  zsrc and
-// zdst may alias (forward updates the mixed z in place): each element is
-// read and written by the same thread only.  Anatomy variants: TAP for the
-// zero-conv's taps, FORM for the update (FORM_SPLIT writes z2' alone into
-// zdst, an (M, C/2) buffer).
-template <bool REVERSE, bool AFFINE, int TAP = TAP_MASKED, int FORM = FORM_PROD>
+// -- the coupling update and the logdet ---------------------------------------
+//
+// One thread per (pixel, channel) pair j < ch: consecutive threads take
+// consecutive channels of a pixel, so the nine tap rows of y and the z
+// rows are read coalesced.  A block covers `coupling_pixels(ch)` pixels of
+// one unit (an image, or a band's centre rows), 512-1024 pairs, so a 4x4
+// image at C = 384 spreads over 4 blocks and the batch over b * 4.  The
+// forward's logdet is a fixed-order two-stage sum: each block's threads
+// add their pairs' log_sigmoid in pair order, the block sums its 256 in a
+// fixed tree into one partial of its pixel range, and `ld_sum_kernel`
+// adds each image's partials in order (no atomics: bitwise repeatable).
+// What bounds it: the bytes, y's tap rows (9 or 18 floats a pair) read
+// once with the z rows.
+
+constexpr int COUPLING_PAIRS = 1024;
+
+// Pixels a coupling block covers: the largest power of two whose pairs
+// over ch channels stay within COUPLING_PAIRS (1 at ch >= 1024).
+__host__ __device__ inline int coupling_pixels(int ch) {
+  int p = 1;
+  while (2 * p * ch <= COUPLING_PAIRS) p *= 2;
+  return p;
+}
+
+// The update over the centre pixels of unit u = blockIdx.y: an image of
+// hh x ww (whole), or band u of the launch (BAND: `bd.rows` centre rows
+// of an (R+4)-row staged image, read from its row 2).  zsrc and zdst may
+// alias (the forward updates the mixed z in place): each element is read
+// and written by one thread.  The forward writes the block's logdet
+// partial to ld_part[unit * gridDim.x + blockIdx.x] (AFFINE, unit = the
+// image, or bd.first + u for a band).  A band's forward writes the global
+// output (rows of bd.first + u), its reverse a (count * R * ww, C)
+// scratch.  Anatomy variants (whole images only): TAP for the zero-conv's
+// taps, FORM for the update (FORM_SPLIT writes z2' alone into zdst, an
+// (M, C/2) buffer; FORM_NO_LOGDET writes no partial).
+template <bool BAND, bool REVERSE, bool AFFINE, int TAP = TAP_MASKED, int FORM = FORM_PROD>
 __global__ void __launch_bounds__(ROW_THREADS)
-    coupling_kernel(int hh, int ww, int C, const float* zsrc, const float* y, const float* b3,
-                    const float* l3, float* zdst, float* ld) {
+    coupling_update_kernel(int hh, int ww, int C, Band bd, const float* zsrc, const float* y,
+                           const float* b3, const float* l3, float* zdst, float* ld_part) {
+  static_assert(!BAND || (TAP == TAP_MASKED && FORM == FORM_PROD), "no band variants");
   __shared__ float red[ROW_THREADS];
-  const int img = blockIdx.x;
-  const int hw = hh * ww, ch = C / 2;
-  const int cout = AFFINE ? C : ch;
-  const int total = TAP == TAP_WRAP ? (int)gridDim.x * hw : 0;
+  const int u = blockIdx.y, ch = C / 2, cout = AFFINE ? C : ch;
+  const int rows = BAND ? bd.rows : hh, lead = BAND ? 2 : 0;
+  const int pix = coupling_pixels(ch), p0 = blockIdx.x * pix;
+  const int npix = min(pix, rows * ww - p0);
+  const int total = TAP == TAP_WRAP ? (int)gridDim.y * hh * ww : 0;
+  const int dst_unit = BAND && !REVERSE ? bd.first + u : u;
   float part = 0.0f;
-  for (int q = threadIdx.x; q < hw; q += ROW_THREADS) {
-    const int py = q / ww, px = q - py * ww;
-    const float* src = zsrc + (img * hw + q) * C;
-    float* dst = zdst + (img * hw + q) * C;
-    for (int j = 0; j < ch; ++j) {
-      const float z1 = src[j];
-      float z2 = src[ch + j];
-      const float h =
-          zero_conv_at<false, TAP>(y, img, hh, ww, py, px, cout, j, b3, l3, Band{}, total);
-      if (AFFINE) {
-        const float raw = zero_conv_at<false, TAP>(y, img, hh, ww, py, px, cout, ch + j, b3, l3,
-                                                   Band{}, total) + 2.0f;
-        const float s = 1.0f / (1.0f + expf(-raw));
-        if constexpr (FORM == FORM_RECIP_EXP)
-          z2 = z2 * (1.0f + expf(-raw)) - h;
-        else if constexpr (FORM == FORM_NO_DIV)
-          z2 = z2 * s - h;
-        else
-          z2 = REVERSE ? z2 / s - h : (z2 + h) * s;
-        if (!REVERSE && FORM != FORM_NO_LOGDET) part += log_sigmoid(raw);
-      } else {
-        z2 = REVERSE ? z2 - h : z2 + h;
-      }
-      if constexpr (FORM == FORM_SPLIT) {
-        zdst[(img * hw + q) * ch + j] = z2;
-      } else {
-        dst[j] = z1;
-        dst[ch + j] = z2;
-      }
+  for (int e = threadIdx.x; e < npix * ch; e += ROW_THREADS) {
+    const int q = p0 + e / ch, j = e % ch;
+    const int py = lead + q / ww, px = q % ww;
+    const float* src = zsrc + ((size_t)(u * hh + py) * ww + px) * C;
+    const size_t at = (size_t)dst_unit * rows * ww + q;
+    const float z1 = src[j];
+    float z2 = src[ch + j];
+    const float h = zero_conv_at<BAND, TAP>(y, u, hh, ww, py, px, cout, j, b3, l3, bd, total);
+    if (AFFINE) {
+      const float raw =
+          zero_conv_at<BAND, TAP>(y, u, hh, ww, py, px, cout, ch + j, b3, l3, bd, total) + 2.0f;
+      const float s = 1.0f / (1.0f + expf(-raw));
+      if constexpr (FORM == FORM_RECIP_EXP)
+        z2 = z2 * (1.0f + expf(-raw)) - h;
+      else if constexpr (FORM == FORM_NO_DIV)
+        z2 = z2 * s - h;
+      else
+        z2 = REVERSE ? z2 / s - h : (z2 + h) * s;
+      if (!REVERSE && FORM != FORM_NO_LOGDET) part += log_sigmoid(raw);
+    } else {
+      z2 = REVERSE ? z2 - h : z2 + h;
+    }
+    if constexpr (FORM == FORM_SPLIT) {
+      zdst[at * ch + j] = z2;
+    } else {
+      zdst[at * C + j] = z1;
+      zdst[at * C + ch + j] = z2;
     }
   }
-  if (REVERSE) return;
-  if constexpr (FORM == FORM_NO_LOGDET) {
-    if (threadIdx.x == 0) ld[img] = 0.0f;
-    return;
-  }
+  if (REVERSE || !AFFINE || FORM == FORM_NO_LOGDET) return;
   red[threadIdx.x] = part;
   __syncthreads();
   for (int s = ROW_THREADS / 2; s > 0; s /= 2) {
     if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
     __syncthreads();
   }
-  if (threadIdx.x == 0) ld[img] = red[0];
+  if (threadIdx.x == 0) ld_part[(size_t)(BAND ? bd.first + u : u) * gridDim.x + blockIdx.x] = red[0];
 }
 
-template <bool REVERSE>
-cudaError_t launch_coupling(int affine, int b, int hh, int ww, int C, const float* zsrc,
-                            const float* y, const float* b3, const float* l3, float* zdst,
-                            float* ld, cudaStream_t stream) {
-  if (affine)
-    coupling_kernel<REVERSE, true><<<b, ROW_THREADS, 0, stream>>>(hh, ww, C, zsrc, y, b3, l3,
-                                                                  zdst, ld);
-  else
-    coupling_kernel<REVERSE, false><<<b, ROW_THREADS, 0, stream>>>(hh, ww, C, zsrc, y, b3, l3,
-                                                                   zdst, ld);
+// ld[img] = the sum of the image's `parts` logdet partials, in order; 0
+// where there are none (additive, or the no_logdet variant).
+__global__ void ld_sum_kernel(int b, int parts, const float* part, float* ld) {
+  const int img = blockIdx.x * blockDim.x + threadIdx.x;
+  if (img >= b) return;
+  float s = 0.0f;
+  for (int t = 0; t < parts; ++t) s += part[(size_t)img * parts + t];
+  ld[img] = s;
+}
+
+cudaError_t ld_sum(int b, int parts, const float* part, float* ld, cudaStream_t stream) {
+  ld_sum_kernel<<<ceil_div(b, 256), 256, 0, stream>>>(b, parts, part, ld);
   return cudaGetLastError();
+}
+
+// Blocks of the update per unit of `pixels` centre pixels.
+inline int coupling_parts(int pixels, int c) { return ceil_div(pixels, coupling_pixels(c / 2)); }
+
+// The update over `units` images of hh x ww, or with BAND over the
+// launch's `units` bands (`bd`, hh = R + 4), then for the whole-image
+// forward the logdet: the partials go to ld_part (b * coupling_parts(hh *
+// ww, C) floats) and ld[img] is their sum (0 unless affine).  A band
+// forward leaves its partials, coupling_parts(R * ww, C) a band, for the
+// caller's one ld_sum over all groups.
+template <bool BAND, bool REVERSE, int TAP = TAP_MASKED, int FORM = FORM_PROD>
+cudaError_t launch_coupling(int affine, int units, int hh, int ww, int C, const Band& bd,
+                            const float* zsrc, const float* y, const float* b3, const float* l3,
+                            float* zdst, float* ld, float* ld_part, cudaStream_t stream) {
+  const int parts = coupling_parts((BAND ? bd.rows : hh) * ww, C);
+  const dim3 grid(parts, units);
+  if (affine)
+    coupling_update_kernel<BAND, REVERSE, true, TAP, FORM><<<grid, ROW_THREADS, 0, stream>>>(
+        hh, ww, C, bd, zsrc, y, b3, l3, zdst, ld_part);
+  else
+    coupling_update_kernel<BAND, REVERSE, false, TAP, FORM><<<grid, ROW_THREADS, 0, stream>>>(
+        hh, ww, C, bd, zsrc, y, b3, l3, zdst, ld_part);
+  GLOW_CHECK(cudaGetLastError());
+  if (BAND || REVERSE) return cudaSuccess;
+  return ld_sum(units, affine && FORM != FORM_NO_LOGDET ? parts : 0, ld_part, ld, stream);
 }
 
 // Stage `count` bands of the batch into ext (count * (R+4) * ww, c): rows

@@ -775,7 +775,7 @@ def _launch_band(weights, z: torch.Tensor, affine: bool, reverse: bool,
     h1, h2 = scratch(me, hidden, torch.bfloat16), scratch(me, hidden, torch.bfloat16)
     y = scratch(me, 9 * cout)
     tmp = scratch(g * r * w, c) if reverse else out
-    ld_band = torch.empty(b * (h // r), dtype=torch.float32, device=dev)
+    ld_band = torch.empty(b * h * w, dtype=torch.float32, device=dev)  # logdet partials
     with torch.cuda.device(dev):
         status = lib.glow_flowstep_band(
             int(reverse), int(affine), b, h, w, c, hidden, r, g, lead, origin, image,

@@ -128,16 +128,20 @@ def chain_split(fn, chain: list[tuple[str, str, int]],
                 reps: int = 5) -> dict[str, float] | None:
     """Device ms per call of each labelled part of a chain (torch.profiler):
     `chain` lists the chain's launches in order as (kernel function name,
-    label, bf16 operations per pixel); parts with one label are summed.  A
-    trace can miss the kernels of its first milliseconds, so it spans
-    2 * reps calls and the last `reps` are read, and one that holds fewer
-    launches than that is taken again, up to three traces; None (not
+    or names that may launch there joined by "|", label, bf16 operations
+    per pixel); parts with one label are summed.
+    Kernels that no chain name matches (a wrapper's own copies and fills
+    around its C entry, such as the backward's weight transposes) are left
+    out.  A trace can miss the kernels of its first milliseconds, so it
+    spans 2 * reps calls and the last `reps` are read, and one that holds
+    fewer launches than that is taken again, up to three traces; None (not
     measured) if the third holds fewer too; raises unless the launches read
     are the chain's in order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    want = [name for name, _, _ in chain] * reps
+    want = [name.split("|") for name, _, _ in chain] * reps
+    names = {n for alternatives in want for n in alternatives}
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -145,7 +149,8 @@ def chain_split(fn, chain: list[tuple[str, str, int]],
             for _ in range(2 * reps):
                 fn()
             torch.cuda.synchronize()
-        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                          and any(n in e.name for n in names)),
                          key=lambda e: e.time_range.start)
         if len(kernels) >= len(want):
             break
@@ -155,7 +160,8 @@ def chain_split(fn, chain: list[tuple[str, str, int]],
         return None
     kernels = kernels[-len(want):]
     names = [e.name for e in kernels]
-    if len(kernels) != len(want) or not all(w in n for w, n in zip(want, names)):
+    if len(kernels) != len(want) or not all(any(w in n for w in ws)
+                                            for ws, n in zip(want, names)):
         raise RuntimeError(f"the trace's last {len(kernels)} kernels are not the chain's "
                            f"{len(chain)} x {reps}: {names[:len(chain) + 2]}")
     split: dict[str, float] = {}

@@ -41,19 +41,20 @@ _REDUCE = ("reduce_partials_kernel", "reductions of chunk partials", 0)
 _COLS = ("col_partial_kernel", "column-sum partials", 0)
 _P1, _H, _Y, _CORE = A.CONV1_OPS, A.CONV2_OPS, A.CONV3_OPS, A.CORE
 CHAIN = [
-    ("mix_kernel", "recompute: mix", 0),
+    ("mix_tile_kernel", "recompute: mix", 0),
     *((name, f"recompute: {label}", ops) for name, label, ops in A.NET),
     ("coupling_bwd_kernel", "coupling backward", 0), ("gy_kernel", "gy (zero-conv transpose)", 0),
     (_CORE, "dgrad: g_h2 GEMM + block partials", _Y),
     (_CORE, "dgrad: g_h1 GEMM + block partials", _H),
     (_CORE, "dgrad: g_p1 GEMM", _P1),
-    ("gv1_kernel", "g_v1 col2im", 0), ("mix_bwd_kernel", "mix backward", 0),
+    ("gv1_kernel", "g_v1 col2im", 0), ("mix_tile_kernel", "mix backward", 0),
     (_CORE, "wgrad: gW2 GEMM", _H), _REDUCE,
     (_CORE, "wgrad: gW1 GEMM (the recompute's patches)", _P1), _REDUCE,
     (_CORE, "wgrad: gW3 GEMM", _Y), _REDUCE,
     _REDUCE, _REDUCE, _REDUCE, _REDUCE,
     _COLS, _REDUCE, _COLS, _REDUCE, _COLS, _REDUCE, _COLS, _REDUCE,
-    ("outer_partial_kernel", "mix-gradient partials", 0), _REDUCE,
+    # one thread per output below C = 32, else the tiled mix's MIX_OUTER form
+    ("outer_partial_kernel|mix_tile_kernel", "mix-gradient partials", 0), _REDUCE,
 ]
 
 

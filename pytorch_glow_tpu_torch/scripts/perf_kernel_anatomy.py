@@ -27,7 +27,9 @@ from __future__ import annotations
 from pytorch_glow_tpu_torch.scripts import _anatomy as A
 
 # (kernel, label, bf16 operations per pixel): the chain's launches in order.
-CHAIN = [("mix_kernel", "mix", 0), *A.NET, ("coupling_kernel", "coupling + logdet", 0)]
+CHAIN = [("mix_tile_kernel", "mix", 0), *A.NET,
+         ("coupling_update_kernel", "coupling + logdet partials", 0),
+         ("ld_sum_kernel", "logdet sum", 0)]
 
 
 def main(batch: int | None = None, n1: int | None = None, n2: int | None = None) -> dict:

@@ -28,8 +28,8 @@ from __future__ import annotations
 from pytorch_glow_tpu_torch.scripts import _anatomy as A
 
 # (kernel, label, bf16 operations per pixel): the chain's launches in order.
-CHAIN = [*A.NET, ("coupling_kernel", "coupling inverse", 0),
-         ("mix_kernel", "W^-1 mix + actnorm inverse", 0)]
+CHAIN = [*A.NET, ("coupling_update_kernel", "coupling inverse", 0),
+         ("mix_tile_kernel", "W^-1 mix + actnorm inverse", 0)]
 
 
 def main(batch: int | None = None, n1: int | None = None, n2: int | None = None) -> dict:

@@ -27,6 +27,7 @@ other shapes one tile spans the batch and both equal `full`.
 
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -290,6 +291,34 @@ def test_buffers_must_match_the_launch(direction):
     assert an._buffers(direction, weights, z, bufs) is bufs
     with pytest.raises(ValueError, match="buffers made for"):
         an._buffers(direction, weights, z[:1], bufs)
+
+
+def _global_kernels() -> set[str]:
+    """The names of every `__global__` function in the port's CUDA sources."""
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    csrc = REPO / "pytorch_glow_tpu_torch" / "csrc"
+    return {m.group(1) for path in [*csrc.glob("*.cu"), *csrc.glob("*.cuh")]
+            for m in pattern.finditer(path.read_text())}
+
+
+@pytest.mark.parametrize("where", ["S1", "S2", "S3", "K6"])
+def test_profiled_kernel_names_exist_in_the_sources(where):
+    """Every kernel name the timing scripts look for in a profiler trace
+    (the anatomy `CHAIN` lists, which `perf_fused_levels --split` reads too,
+    and `perf_invconv.K6_KERNELS`) names a `__global__` function of
+    `csrc/`, so a renamed launch fails here rather than on the card."""
+    from pytorch_glow_tpu_torch.scripts import perf_bwd_anatomy, perf_invconv
+    from pytorch_glow_tpu_torch.scripts import perf_kernel_anatomy, perf_reverse_anatomy
+
+    names = {"S1": [n for n, _, _ in perf_kernel_anatomy.CHAIN],
+             "S2": [n for n, _, _ in perf_reverse_anatomy.CHAIN],
+             "S3": [n for n, _, _ in perf_bwd_anatomy.CHAIN],
+             "K6": list(perf_invconv.K6_KERNELS)}[where]
+    kernels = _global_kernels()
+    assert {"mix_tile_kernel", "coupling_update_kernel", "gemm_kernel"} <= kernels
+    missing = [n for alternatives in names for n in alternatives.split("|")
+               if n.rsplit("::", 1)[-1] not in kernels]
+    assert not missing, f"{where} names kernels that csrc/ does not define: {missing}"
 
 
 @pytest.mark.cuda

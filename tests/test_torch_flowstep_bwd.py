@@ -80,6 +80,9 @@ def test_backward_ref_is_autograd_of_forward_ref_f32(mode, shape):
     ("additive", (6, 3, 5, 16), "f32"),
     ("affine", (6, 5, 7, 6), "bf16"),
     ("additive", (6, 4, 4, 12), "bf16"),
+    # the wide channel counts (celeba64 level 3, celebahq256 level 5)
+    ("affine", (2, 4, 4, 96), "f32"),
+    ("additive", (2, 2, 2, 384), "bf16"),
 ])
 def test_backward_ref_matches_jax_kernel(request, mode, shape, precision):
     if precision == "f32":

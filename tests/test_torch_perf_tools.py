@@ -32,7 +32,7 @@ from pytorch_glow_tpu.utils.tree import partition
 from pytorch_glow_tpu_torch import OptimConfig, Profile, TrainConfig
 from pytorch_glow_tpu_torch.config import PRESETS
 from pytorch_glow_tpu_torch.ops import flowstep as tfs
-from pytorch_glow_tpu_torch.scripts import bench_train, perf_breakdown, perf_fused_levels
+from pytorch_glow_tpu_torch.scripts import bench_train, perf_breakdown, perf_fused_levels, step_bits
 from pytorch_glow_tpu_torch.train import step as tstep
 from pytorch_glow_tpu_torch.train.optim import make_optimizer
 from test_torch_model import SMALL, _cfgs, _nontrivial_params, _port
@@ -90,7 +90,8 @@ def test_levels_and_op_counts_are_the_jax_script_s(preset):
 
 def test_perf_fused_levels_runs_on_the_cpu(capsys):
     """A `--cpu` run at a tiny profile: one line per level, with the three
-    directions' times, tilings and bounds, then the K-weighted totals."""
+    directions' times, tilings, bounds and library times, then the
+    K-weighted totals."""
     out = perf_fused_levels.main(["cifar10", "--cpu", *TINY, "--batch", "2", "--n1", "1",
                                   "--n2", "2"])
     text = capsys.readouterr().out
@@ -102,8 +103,46 @@ def test_perf_fused_levels_runs_on_the_cpu(capsys):
         for d in perf_fused_levels.DIRECTIONS:
             assert row[d]["ms"] > 0 and row[d]["tiling"] == "whole"
             assert row[d]["bound_ms"] > 0 and row[d]["bound_by"] in ("bytes", "operations")
+            assert row[d]["library_ms"] > 0
     assert "K-weighted:" in text and "implied img/s:" in text
     assert out["card"] == "cpu" and set(out["totals"]) == set(perf_fused_levels.DIRECTIONS)
+
+
+def test_perf_fused_levels_split_needs_the_card():
+    """`--split` reads torch.profiler's device times: on the CPU it refuses
+    rather than print host numbers under a device name."""
+    with pytest.raises(ValueError, match="needs the card"):
+        perf_fused_levels.main(["--split", "--cpu"])
+
+
+def test_step_bits_saves_and_compares_outputs(tmp_path, monkeypatch, capsys):
+    """`step_bits` on the plain versions at two tiny cases: one run's file
+    against itself is bitwise equal everywhere; a changed output is named
+    with its difference."""
+    monkeypatch.setattr(step_bits, "CASES", [(2, 4, 4, 12, "affine"), (1, 2, 2, 24, "additive")])
+    monkeypatch.setattr(step_bits.FlowStep, "__init__", _small_flowstep_init(step_bits.FlowStep))
+    a, b = tmp_path / "a.pt", tmp_path / "b.pt"
+    out = step_bits.main(["save", str(a), "--cpu"])
+    assert len(out) == 2 * (4 + 12) and all(torch.isfinite(t).all() for t in out.values())
+    step_bits.main(["save", str(b), "--cpu"])
+    assert step_bits.main(["compare", str(a), str(b)]) == {"outputs": 32, "bitwise": 32,
+                                                            "differ": []}
+    changed = torch.load(b)
+    changed["2x4x4x12 affine forward logdet"] += 1e-3
+    torch.save(changed, b)
+    line = step_bits.main(["compare", str(a), str(b)])
+    assert line["differ"] == ["2x4x4x12 affine forward logdet"] and line["bitwise"] == 31
+    assert "2x4x4x12 affine forward logdet: max |diff|" in capsys.readouterr().out
+
+
+def _small_flowstep_init(cls):
+    """FlowStep.__init__ with hidden 8 in place of the script's 512."""
+    init = cls.__init__
+
+    def small(self, c, hidden, *args, **kwargs):
+        init(self, c, 8, *args, **kwargs)
+
+    return small
 
 
 def _jax_component(name: str, sp, z, b: int, mode: str, precision: str):
