@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from pytorch_glow_tpu_torch.config import DataConfig, GlowConfig, TrainConfig
+from pytorch_glow_tpu_torch.utils import spans
 
 Batch = dict[str, np.ndarray]
 
@@ -285,6 +286,10 @@ class DevicePrefetch:
     not hand its memory out while the consumer's kernels may still read it.
     On the CPU it is a plain thread queue of `torch.from_numpy` tensors.
 
+    `next()` records a `data.wait` span (`utils/spans.py`) from the queue's
+    get through the consumer stream's wait, marked `starved` when the queue
+    was empty on entry.
+
     `get_state()` is the state of the stream as consumed: each batch's
     inner state is captured when it is built and surfaced when it is
     returned.  A worker error re-raises in the consumer with its own type.
@@ -391,16 +396,18 @@ class DevicePrefetch:
     def __next__(self) -> dict[str, torch.Tensor]:
         if self._thread is None:
             self._start()
-        item = self._queue.get()
-        if isinstance(item, BaseException):
-            self._queue.put(item)  # every later next() raises it too
-            raise item
-        batch, event, state = item
-        if event is not None:
-            consumer = torch.cuda.current_stream(self._device)
-            consumer.wait_event(event)
-            for t in batch.values():
-                t.record_stream(consumer)
+        with spans.span("data.wait"):
+            spans.annotate(starved=self._queue.empty())
+            item = self._queue.get()
+            if isinstance(item, BaseException):
+                self._queue.put(item)  # every later next() raises it too
+                raise item
+            batch, event, state = item
+            if event is not None:
+                consumer = torch.cuda.current_stream(self._device)
+                consumer.wait_event(event)
+                for t in batch.values():
+                    t.record_stream(consumer)
         if state is not None:
             self._consumed = state
         return batch

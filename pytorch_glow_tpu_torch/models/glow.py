@@ -91,6 +91,11 @@ Under `torch.export` (`torch.compiler.is_exporting()`) the fused path calls
 the flow-step kernels through their `torch.library` ops
 (`ops/library.py`), which the exporter keeps opaque; the live path calls
 the autograd Functions.
+
+While a torch.profiler session runs (`utils/spans.py`), `sample` records a
+`glow.sample` span, each level of encode and decode a `glow.level` span,
+and each fused flow step a `chain.forward` or `chain.reverse` span around
+its weight packing, halo exchange and kernel call.
 """
 
 from __future__ import annotations
@@ -125,6 +130,7 @@ from pytorch_glow_tpu_torch.ops.math import (
 )
 from pytorch_glow_tpu_torch.ops.reshape import split_channel, squeeze2d, unsqueeze2d
 from pytorch_glow_tpu_torch.parallel import spatial
+from pytorch_glow_tpu_torch.utils import spans
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -253,13 +259,14 @@ class Glow(nn.Module):
         z = z.float().contiguous()
         exporting = torch.compiler.is_exporting()
         for step, full in zip(steps, self._full_weights(steps, slab)):
-            packed = fs.pack_weights(step, affine, False, fs.COUPLING_DTYPE, full)
-            if slab is not None:
-                z = spatial.exchange(z, fs.HALO, self.mesh)
-            if exporting:
-                z, ld = library.flowstep_forward(z, affine, packed)
-            else:
-                z, ld = fs.FusedStep.apply(z, affine, slab, *packed)
+            with spans.span("chain.forward"):
+                packed = fs.pack_weights(step, affine, False, fs.COUPLING_DTYPE, full)
+                if slab is not None:
+                    z = spatial.exchange(z, fs.HALO, self.mesh)
+                if exporting:
+                    z, ld = library.flowstep_forward(z, affine, packed)
+                else:
+                    z, ld = fs.FusedStep.apply(z, affine, slab, *packed)
             logdet = logdet + ld
         plds = torch.stack([fs.param_logdet(step) for step in steps]).sum()
         return z, logdet + z.shape[1] * z.shape[2] * plds
@@ -274,13 +281,14 @@ class Glow(nn.Module):
         z = z.float().contiguous()
         exporting = torch.compiler.is_exporting()
         for step, full in reversed(list(zip(steps, self._full_weights(steps, slab)))):
-            packed = fs.pack_weights(step, affine, True, fs.COUPLING_DTYPE, full)
-            if slab is not None:
-                z = spatial.exchange(z, fs.HALO, self.mesh)
-            if exporting:
-                z = library.flowstep_reverse(z, affine, packed)
-            else:
-                z = fs.FusedStepReverse.apply(z, affine, slab, *packed)
+            with spans.span("chain.reverse"):
+                packed = fs.pack_weights(step, affine, True, fs.COUPLING_DTYPE, full)
+                if slab is not None:
+                    z = spatial.exchange(z, fs.HALO, self.mesh)
+                if exporting:
+                    z = library.flowstep_reverse(z, affine, packed)
+                else:
+                    z = fs.FusedStepReverse.apply(z, affine, slab, *packed)
         return z
 
     # -- encode / decode -----------------------------------------------------
@@ -295,25 +303,26 @@ class Glow(nn.Module):
         partial = None  # the sharded levels' logdet terms, this rank's rows
         sharded = False
         for level, (steps, split) in enumerate(self._levels):
-            now = self._sharded[level]
-            if sharded and not now:
-                z = spatial.gather_rows(z, self.mesh)
-            z = squeeze2d(z, 2)
-            if now and not sharded:
-                z = spatial.shard_rows(z, self.mesh)
-            sharded = now
-            if now:
-                if partial is None:
-                    partial = torch.zeros_like(logdet)
-                z, partial = self._steps_forward(steps, z, partial, self._slab(level))
+            with spans.span("glow.level", level=level, direction="encode"):
+                now = self._sharded[level]
+                if sharded and not now:
+                    z = spatial.gather_rows(z, self.mesh)
+                z = squeeze2d(z, 2)
+                if now and not sharded:
+                    z = spatial.shard_rows(z, self.mesh)
+                sharded = now
+                if now:
+                    if partial is None:
+                        partial = torch.zeros_like(logdet)
+                    z, partial = self._steps_forward(steps, z, partial, self._slab(level))
+                    if split is not None:
+                        z, partial, z2 = split(z, partial)
+                        z_splits.append(z2)
+                    continue
+                z, logdet = self._steps_forward(steps, z, logdet)
                 if split is not None:
-                    z, partial, z2 = split(z, partial)
+                    z, logdet, z2 = split(z, logdet)
                     z_splits.append(z2)
-                continue
-            z, logdet = self._steps_forward(steps, z, logdet)
-            if split is not None:
-                z, logdet, z2 = split(z, logdet)
-                z_splits.append(z2)
         if sharded:
             z = spatial.gather_rows(z, self.mesh)
         if partial is not None:
@@ -341,28 +350,29 @@ class Glow(nn.Module):
         shapes = self.cfg.latent_shapes()
         sharded = False
         for i in range(len(self._levels) - 1, -1, -1):
-            steps, split = self._levels[i]
-            now = self._sharded[i]
-            if now and not sharded:
-                z = spatial.shard_rows(z, self.mesh)
-            sharded = now
-            if split is not None:
-                if z_splits is not None:
-                    z2 = z_splits[i]
-                    if now and z2.shape[1] == shapes[i][0]:
-                        z2 = spatial.shard_rows(z2, self.mesh)
-                    z = split.reverse(z, z2=z2)
-                else:
-                    eps = next(draws) if draws is not None else None
-                    if now:
-                        if eps is None:
-                            b, (h, w, c) = z.shape[0], shapes[i]
-                            eps = torch.randn((b, h, w, c // 2), generator=generator,
-                                              dtype=torch.float32, device=z.device)
-                        eps = spatial.own_rows(eps, self.mesh)
-                    z = split.reverse(z, generator, temperature, eps=eps)
-            z = self._steps_reverse(steps, z, self._slab(i))
-            z = unsqueeze2d(z, 2)
+            with spans.span("glow.level", level=i, direction="decode"):
+                steps, split = self._levels[i]
+                now = self._sharded[i]
+                if now and not sharded:
+                    z = spatial.shard_rows(z, self.mesh)
+                sharded = now
+                if split is not None:
+                    if z_splits is not None:
+                        z2 = z_splits[i]
+                        if now and z2.shape[1] == shapes[i][0]:
+                            z2 = spatial.shard_rows(z2, self.mesh)
+                        z = split.reverse(z, z2=z2)
+                    else:
+                        eps = next(draws) if draws is not None else None
+                        if now:
+                            if eps is None:
+                                b, (h, w, c) = z.shape[0], shapes[i]
+                                eps = torch.randn((b, h, w, c // 2), generator=generator,
+                                                  dtype=torch.float32, device=z.device)
+                            eps = spatial.own_rows(eps, self.mesh)
+                        z = split.reverse(z, generator, temperature, eps=eps)
+                z = self._steps_reverse(steps, z, self._slab(i))
+                z = unsqueeze2d(z, 2)
         if sharded:
             z = spatial.gather_rows(z, self.mesh)
         return z
@@ -539,10 +549,11 @@ class Glow(nn.Module):
         model draws from the prior of `y_onehot` (n, y_classes).  The
         standard normal draws come from `generator`, or from `noise`
         (`noise_shapes(n)`, in that order)."""
-        mean, logs = self.top_prior(n, y_onehot)
-        top, splits = (None, None) if noise is None else (noise[0], noise[1:])
-        z = gaussian_sample(mean, logs, temperature, generator, self.noise_shapes(n)[0], top)
-        return self.decode(z, generator, temperature, noise=splits)
+        with spans.span("glow.sample", n=n):
+            mean, logs = self.top_prior(n, y_onehot)
+            top, splits = (None, None) if noise is None else (noise[0], noise[1:])
+            z = gaussian_sample(mean, logs, temperature, generator, self.noise_shapes(n)[0], top)
+            return self.decode(z, generator, temperature, noise=splits)
 
     def reconstruct(self, x: torch.Tensor) -> torch.Tensor:
         """decode(encode(x)) with the stored split halves: the exact round-trip."""

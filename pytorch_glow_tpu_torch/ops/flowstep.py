@@ -61,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_glow_tpu_torch.ops import _build
+from pytorch_glow_tpu_torch.utils import spans
 
 COUPLING_DTYPE = torch.bfloat16
 N_WEIGHTS = 12
@@ -934,10 +935,15 @@ def gemm_core(a: torch.Tensor, b: torch.Tensor, trans: bool, m: int, n: int,
 
 def _band(direction: str, weights, z: torch.Tensor, affine: bool,
           slab: Slab | None = None) -> bool:
+    """Whether the call runs the band chain; the route (whole, band or
+    slab) goes on the caller's open span (`chain.forward`, ...)."""
     if slab is not None:  # the slab form is the band chain's
+        spans.annotate(route="slab")
         return True
     b, h, w, c = z.shape
-    return tiling(direction, b, h, w, c, weights[3].shape[0], affine) == "band"
+    band = tiling(direction, b, h, w, c, weights[3].shape[0], affine) == "band"
+    spans.annotate(route="band" if band else "whole")
+    return band
 
 
 def step_forward(weights, z: torch.Tensor, affine: bool, slab: Slab | None = None):
@@ -997,7 +1003,8 @@ class FusedStep(torch.autograd.Function):
     results the slab's rows and logdet partial (K4 / K5 in slab form), and
     the backward returns the padded slab's cotangent, whose halo rows the
     halo exchange (`parallel/spatial.py`) sends back to their owners.
-    Under `torch.no_grad()` apply records no graph and keeps no residuals."""
+    Under `torch.no_grad()` apply records no graph and keeps no residuals.
+    The backward records a `chain.backward` span (`utils/spans.py`)."""
 
     @staticmethod
     def forward(ctx, z, affine, slab, *weights):
@@ -1007,9 +1014,10 @@ class FusedStep(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_zn, g_ld):
-        z, *weights = ctx.saved_tensors
-        g_z, grads = step_backward(weights, z, g_zn, g_ld, ctx.affine, ctx.slab)
-        return (g_z, None, None, *(g.to(wt.dtype) for g, wt in zip(grads, weights)))
+        with spans.span("chain.backward"):
+            z, *weights = ctx.saved_tensors
+            g_z, grads = step_backward(weights, z, g_zn, g_ld, ctx.affine, ctx.slab)
+            return (g_z, None, None, *(g.to(wt.dtype) for g, wt in zip(grads, weights)))
 
 
 class FusedStepReverse(torch.autograd.Function):

@@ -32,6 +32,11 @@ replicated parameters: those entries (`spatial.partial_mask`) are summed
 over the model group first, so that every rank holds the whole gradient
 (of its tensor-parallel shards, their slice, which their gathers' backward
 already summed) before the data mean and the global-norm clip.
+
+While a torch.profiler session runs, each train step records the spans
+`train.step` (the root: input prep, flips, generators, metrics) over
+`train.forward`, `train.backward`, `train.optimizer` and `train.ema`
+(`utils/spans.py`).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from pytorch_glow_tpu_torch.parallel import distributed as pd
 from pytorch_glow_tpu_torch.parallel import spatial
 from pytorch_glow_tpu_torch.parallel.mesh import Mesh
 from pytorch_glow_tpu_torch.train.optim import Optimizer
+from pytorch_glow_tpu_torch.utils import spans
 
 State = dict[str, Any]
 FLIP_STREAM = 0xF11B
@@ -141,6 +147,10 @@ def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
     partials: dict[int, torch.Tensor | None] = {}  # id(model) -> its row-partial index
 
     def train_step(state: State, batch: torch.Tensor, y_onehot: torch.Tensor | None = None):
+        with spans.span("train.step", step=state["step"]):
+            return one_step(state, batch, y_onehot)
+
+    def one_step(state: State, batch: torch.Tensor, y_onehot: torch.Tensor | None):
         model: Glow = state["model"]
         _check_model(model, cfg)
         step = state["step"]
@@ -154,31 +164,33 @@ def _make_train_step_fn(cfg: GlowConfig, tx: Optimizer, ema_decay: float = 0.0,
             x = torch.where(flip[:, None, None, None], x.flip(2), x)
         names_params = trainable(model)
         params = [p for _, p in names_params]
-        if mesh is None:
-            loss, metrics = model.loss_fn(x, gen, _labels(model, y_onehot))
-        else:
-            noise = model.dequant_noise((n, *x.shape[1:]), gen, dev)
-            loss, metrics = model.loss_fn(x, y_onehot=_labels(model, y_onehot),
-                                          noise=None if noise is None else noise[lo:hi])
+        with spans.span("train.forward"):
+            if mesh is None:
+                loss, metrics = model.loss_fn(x, gen, _labels(model, y_onehot))
+            else:
+                noise = model.dequant_noise((n, *x.shape[1:]), gen, dev)
+                loss, metrics = model.loss_fn(x, y_onehot=_labels(model, y_onehot),
+                                              noise=None if noise is None else noise[lo:hi])
         # The backward's f32 convs run after their forward's pin has ended.
-        with true_f32():
+        with spans.span("train.backward"), true_f32():
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-        flat = tx.flatten(params, grads)
-        if mesh is not None:
-            if id(model) not in partials:
-                partials[id(model)] = row_partial_index(model, names_params)
-            sum_row_partials(flat, partials[id(model)], mesh)
-            pd.mean_(flat, mesh.data_group)
-        updates, opt_state = tx.update(flat, state["opt_state"])
-        tx.apply(params, updates)
-        metrics = data_mean({k: v.detach() for k, v in metrics.items()}, mesh)
-        metrics["grad_norm"] = tx.global_norm(flat)
-        if schedule is not None:
-            metrics["lr"] = schedule(torch.tensor(step, dtype=torch.int32, device=dev))
+        with spans.span("train.optimizer"):
+            flat = tx.flatten(params, grads)
+            if mesh is not None:
+                if id(model) not in partials:
+                    partials[id(model)] = row_partial_index(model, names_params)
+                sum_row_partials(flat, partials[id(model)], mesh)
+                pd.mean_(flat, mesh.data_group)
+            updates, opt_state = tx.update(flat, state["opt_state"])
+            tx.apply(params, updates)
+            metrics = data_mean({k: v.detach() for k, v in metrics.items()}, mesh)
+            metrics["grad_norm"] = tx.global_norm(flat)
+            if schedule is not None:
+                metrics["lr"] = schedule(torch.tensor(step, dtype=torch.int32, device=dev))
         new_state = {**state, "step": step + 1, "opt_state": opt_state}
         if ema_decay > 0:
             d = ema_decay_at(ema_decay, step)
-            with torch.no_grad():
+            with spans.span("train.ema"), torch.no_grad():
                 ema = state["ema"]
                 torch._foreach_mul_(ema, d)
                 torch._foreach_add_(ema, torch._foreach_mul(params, float(np.float32(1.0) - d)))

@@ -61,9 +61,10 @@ and its copy, not the write).  A rolling snapshot logs `save_ms`, the same
 for its save (the device synced before it).
 
 `profile_step` traces `profile_num_steps` steps with `torch.profiler` (CPU,
-and CUDA on the card) into out_dir/name/profile/.  A SIGTERM stops the loop
-at the next step boundary; the final snapshot is written and the result
-says `"preempted": True` (rerun the same command to resume).
+and CUDA on the card) into out_dir/name/profile/, the program's spans
+beside its operations.  A SIGTERM stops the loop at the next step
+boundary; the final snapshot is written and the result says
+`"preempted": True` (rerun the same command to resume).
 
 On a mesh (`Built.mesh`, several ranks): every rank runs the loop and every
 boundary, on its rows, and rank 0 alone writes metrics.csv, TensorBoard,
@@ -96,6 +97,7 @@ from pytorch_glow_tpu_torch.parallel import distributed as pd
 from pytorch_glow_tpu_torch.parallel.mesh import gather_params
 from pytorch_glow_tpu_torch.train import step as steplib
 from pytorch_glow_tpu_torch.train.builder import Built, labels_to_onehot
+from pytorch_glow_tpu_torch.utils import spans
 from pytorch_glow_tpu_torch.utils.image import save_image_grid
 from pytorch_glow_tpu_torch.utils.metrics import MetricLogger
 from pytorch_glow_tpu_torch.utils.profiles import profile_to_dict
@@ -222,12 +224,15 @@ def _preempt_stop(built: Built, preempt: dict, step: int, log_gap: int) -> bool:
 
 class _Profiler:
     """torch.profiler from `start(step)` to `stop()`, a Chrome trace of it
-    written to `out_dir` at the stop.  It writes whatever it recorded: an
-    empty trace never fails the run."""
+    written to `out_dir` at the stop, with the program's spans of the
+    window (`utils/spans.py`: the step's phases, levels and flow-step
+    chains) on their threads beside the operations and kernels.  It writes
+    whatever it recorded: an empty trace never fails the run."""
 
     def __init__(self, out_dir: str, device: torch.device):
         self.out_dir, self.device = out_dir, device
         self._prof = None
+        self._since_ns = 0
         self.path: str | None = None
 
     @property
@@ -241,6 +246,7 @@ class _Profiler:
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         self._prof = profile(activities=activities)
+        self._since_ns = time.time_ns()
         self._prof.start()
         self.path = os.path.join(self.out_dir, f"trace_step_{step:08d}.json")
 
@@ -252,6 +258,7 @@ class _Profiler:
             prof.stop()
         os.makedirs(self.out_dir, exist_ok=True)
         prof.export_chrome_trace(self.path)
+        spans.add_to_chrome_trace(self.path, self._since_ns)
 
 
 def _boundary(kind: str, fn, built: Built, *args) -> dict:
